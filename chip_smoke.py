@@ -5,20 +5,33 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives the port's serving path, ``OnlineForecaster`` with the BSR
-propagation operator, at the widths of ``configs/largescale_100nn/
-sgp_pv.yaml`` on 5,016 nodes (synthetic data and random weights from a
-seed), in phases; any failure raises and the exit code is not 0:
+It drives two paths of the port on 5,016 synthetic nodes with their exact
+100-nn graph (data and random weights from a seed): SGP serving,
+``OnlineForecaster`` with the BSR propagation operator at the widths of
+``configs/largescale_100nn/sgp_pv.yaml``, and GatedGN training,
+``Predictor`` fed by ``WindowedLoader`` at the widths of
+``configs/largescale_100nn/gatedgn_pv.yaml``. In phases; any failure
+raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
-1. build the BSR SpMM kernel (``sgp_tpu_torch/csrc/bsr_spmm.cu``);
-2. the kernel against its plain PyTorch version on the card, at the
+1. build both kernels, one ``nvcc`` each, in parallel
+   (``sgp_tpu_torch/csrc/bsr_spmm.cu`` and ``gn_ell.cu``);
+2. the BSR kernel against its plain PyTorch version on the card, at the
    slice's shapes and on ragged / empty-block-row graphs, f32 and bf16,
    with CUDA-event times of both;
-3. the slice: warm-up, single-stream and 4-stream steps through the BSR
-   kernel, checked for shape, finiteness and launch counts, and held
+3. the serving slice: warm-up, single-stream and 4-stream steps through the
+   BSR kernel, checked for shape, finiteness and launch counts, and held
    against a dense-operator forecaster with the same weights and against
-   the port on the CPU.
+   the port on the CPU;
+4. the GatedGN ELL kernel, forward and backward, against its plain version
+   at the training slice's shapes and on a ragged case, f32 and bf16, with
+   CUDA-event times of both;
+5. the training slice: train steps and ``evaluate`` through the ELL kernel,
+   checked for launch counts and finite losses, held against the same
+   steps with the plain ELL math on the card and one step of the port on
+   the CPU; then step times (median and quartiles) and peak memory of the
+   K4 and plain steps in alternating rounds, and the device's idle share
+   of each.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -26,6 +39,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -53,6 +67,35 @@ TOL_F32 = 1e-5          # kernel vs plain, f32 tiles: order of summation
 TOL_BF16 = 1e-2         # kernel vs plain, bf16 tiles: one bf16 ulp (2^-8)
                         # after a different f32 summation order
 TOL_SLICE = 1e-4        # BSR-kernel forecaster vs dense / CPU forecaster
+
+GN_CONFIG = ROOT / "configs" / "largescale_100nn" / "gatedgn_pv.yaml"
+GRAD_CLIP = 5.0         # the runners' default (exp/common.py)
+TRAIN_STEPS = 8         # train steps of each training run
+EVAL_BATCHES = 2        # test batches of evaluate
+PROFILE_STEPS = 2       # train steps under torch.profiler
+KERNEL_ROUNDS = 5       # K4 timing rounds (plain, kernel, kernel, plain)
+TIME_ORDER = ("plain", "k4", "k4", "plain", "plain", "k4")  # step timing
+TIME_STEPS = 12         # train steps of each timing round
+TIME_DROP = 2           # first steps of a round left out of the times
+# stated tolerances of the ELL kernel, relative to the plain version's
+# largest value: f32 2e-5 (the same f32 products summed in another order,
+# over up to 2.5 M pairs for the weight gradients); bf16 inputs 2e-2 (both
+# round t and dmt to bf16, so a value rounded the other way moves a result
+# by one bf16 ulp, 2^-8)
+TOL_GN_F32 = 2e-5
+TOL_GN_BF16 = 2e-2
+TOL_LOSS = 1e-4         # K4 run vs plain-ELL run and vs the CPU port
+TOL_GRAD = 1e-4         # first step's clipped gradients, card vs CPU,
+                        # relative to each tensor's largest value
+# K4 run vs plain-ELL run, final parameters, max abs difference on the
+# elements whose first-step gradient exceeds GRAD_FLOOR in magnitude. An
+# Adam step moves an element by about lr = 1e-3 whatever its gradient's
+# size, so an element whose first gradient is near zero may step the other
+# way when the sums run in another order; the rest differ only by the
+# gradients' rounding. 1e-4 is a tenth of one step: one step taken the
+# other way, or a gradient off by a tenth, breaks it.
+TOL_PARAM = 1e-4
+GRAD_FLOOR = 1e-6
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -96,6 +139,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def quartiles(v) -> dict:
+    v = np.asarray(v, dtype=float)
+    return {"median": float(np.median(v)), "q1": float(np.quantile(v, .25)),
+            "q3": float(np.quantile(v, .75)), "n": int(v.size)}
+
+
+def interleaved_ms(kernel, plain, rounds: int, iters: int):
+    """CUDA-event ms of ``kernel`` and ``plain``, sampled in the order
+    plain, kernel, kernel, plain ``rounds`` times: their quartiles."""
+    samples = {kernel: [], plain: []}
+    for _ in range(rounds):
+        for fn in (plain, kernel, kernel, plain):
+            samples[fn].append(cuda_ms(fn, iters, warmup=2))
+    return quartiles(samples[kernel]), quartiles(samples[plain])
+
+
 def phase0_card() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -116,13 +175,21 @@ def phase0_card() -> str:
 
 
 def phase1_build():
-    from sgp_tpu_torch.ops import bsr_kernel
-    _, seconds, log = bsr_kernel.build()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[phase 1] nvcc built bsr_spmm.cu in {seconds:.2f} s")
-    for ln in ptxas:
-        print(f"[phase 1]   {ln}")
+    from sgp_tpu_torch.ops import _build, bsr_kernel, gn_ell
+    t0 = time.perf_counter()
+    built = _build.compile_all(["bsr_spmm", "gn_ell"])
+    print(f"[phase 1] built {sorted(built) or 'nothing (cached)'} in "
+          f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel")
+    for name, (seconds, log) in built.items():
+        print(f"[phase 1] nvcc {name}.cu: {seconds:.2f} s")
+        kernel = ""
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif "registers" in ln or "spill" in ln:
+                print(f"[phase 1]   {kernel}: {ln.strip()}")
+    bsr_kernel.build()
+    gn_ell.build()
 
 
 def slice_setup(n_nodes: int, n_steps: int, device):
@@ -303,6 +370,313 @@ def phase3_slice(ds, graph, scaler, device, n_nodes: int) -> dict:
     return dict(launches=launches, **med)
 
 
+def ell_inputs(rng, b, n, d, h2, h, dtype, device, empty_row=None):
+    """Random K4 inputs at the scales of a GatedGN layer's: unit-variance
+    projections, message weights of std 0.3 (so t @ w2 is about unit
+    variance at h2 = 32)."""
+    def mk(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale).astype(
+            np.float32), device=device)
+    nmask = torch.as_tensor(rng.random((n, d)) < 0.9, device=device)
+    if empty_row is not None:
+        nmask[empty_row] = False
+    return (mk(b, n, h2).to(dtype), mk(b, n, d, h2).to(dtype), nmask,
+            mk(h2, h, scale=0.3), mk(h, scale=0.1), mk(h, 1, scale=0.3),
+            mk(1, scale=0.1)), mk(b, n, h)
+
+
+def phase4_gn_ell(device, n_nodes: int, batch: int, hidden: int):
+    """K4 forward and backward vs their plain versions on the card; returns
+    the slice-shape f32 rows of both."""
+    from sgp_tpu_torch.ops import gn_ell
+    rng = np.random.default_rng(SEED)
+    h, h2 = hidden, hidden // 2
+    # the slice (every slot valid, as in the exact 100-nn graph); then B*N
+    # rows not a multiple of the block's 4, D = 7, 10% padding and one
+    # node with no valid neighbour
+    cases = [("slice", batch, n_nodes, KNN, None),
+             ("ragged", 3, 1001, 7, 500)]
+    rows = {}
+    for name, b, n, d, empty in cases:
+        for dtype, tol in ((torch.float32, TOL_GN_F32),
+                           (torch.bfloat16, TOL_GN_BF16)):
+            args, ghat = ell_inputs(rng, b, n, d, h2, h, dtype, device, empty)
+            if name == "slice":
+                args[2].fill_(True)
+            out = gn_ell.gn_ell_fwd(*args)
+            grads = gn_ell.gn_ell_bwd(*args, ghat)
+            ref = gn_ell.gn_ell_fwd_plain(*args)
+            refg = gn_ell.gn_ell_bwd_plain(*args, ghat)
+            torch.cuda.synchronize()
+            assert out.shape == ref.shape and out.dtype == torch.float32
+            errs = {"out": rel_err(out, ref)}
+            for gname, g, r in zip(("d_pi", "d_pjn", "dw2", "db2", "dwg",
+                                    "dbg"), grads, refg):
+                assert g.shape == r.shape and g.dtype == r.dtype, gname
+                assert torch.isfinite(g).all(), gname
+                errs[gname] = rel_err(g, r)
+            if empty is not None:
+                assert not out[:, empty].any(), "an empty row got messages"
+            rounds = KERNEL_ROUNDS if name == "slice" else 1
+            times = {}
+            for half, kernel, plain in (
+                    ("fwd", lambda: gn_ell.gn_ell_fwd(*args),
+                     lambda: gn_ell.gn_ell_fwd_plain(*args)),
+                    ("bwd", lambda: gn_ell.gn_ell_bwd(*args, ghat),
+                     lambda: gn_ell.gn_ell_bwd_plain(*args, ghat))):
+                k, p = interleaved_ms(kernel, plain, rounds, 10)
+                times.update({f"{half}_ms": k["median"],
+                              f"{half}_plain_ms": p["median"],
+                              f"{half}_q1_q3": [k["q1"], k["q3"]],
+                              f"{half}_plain_q1_q3": [p["q1"], p["q3"]]})
+            row = dict(case=name, b=b, n=n, d=d, h2=h2, h=h,
+                       dtype=str(dtype).replace("torch.", ""), tol=tol,
+                       rel_err={k: v[1] for k, v in errs.items()},
+                       max_abs_err={k: v[0] for k, v in errs.items()},
+                       **times)
+            print(f"[phase 4] {json.dumps(row)}")
+            bad = {k: v[1] for k, v in errs.items() if not v[1] <= tol}
+            assert not bad, f"K4 disagrees with plain ({name}, {dtype}): {bad}"
+            rows[(name, row["dtype"])] = row
+    return rows[("slice", "float32")]
+
+
+def gn_to_call(batch, training: bool):
+    """The GatedGN runner's call with the ELL neighbour table
+    (``exp/run_traffic_baselines.py``, ``--gn-aggregation ell``)."""
+    return (batch["x"],), {"u": batch.get("u"),
+                           "node_index": batch.get("node_index"),
+                           "training": training, "neigh": batch["gn_neigh"]}
+
+
+def gn_data(raw, graph):
+    """The runner's data path at the gatedgn_pv.yaml windows: day encoding
+    as the exogenous input, temporal split, standard scaler fitted on the
+    train windows' start steps."""
+    from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
+                                    TemporalSplitter, Windowing)
+    cfg = read_flat_yaml(GN_CONFIG)
+    ds = SpatioTemporalDataset(
+        raw.target, index=raw.index, mask=raw.mask, graph=graph,
+        covariates={"u": raw.datetime_encoded("day")},
+        windowing=Windowing(window=cfg["window"], horizon=cfg["horizon"],
+                            horizon_lag=cfg["horizon_lag"]))
+    split = TemporalSplitter(0.1, 0.2).split(ds)
+    ds.fit_scaler(StandardScaler(axis=(0, 1)),
+                  step_index=ds.indices()[split.train])
+    return cfg, ds, split
+
+
+def gn_predictor(cfg, ds, graph, device, init_state=None):
+    """The gatedgn_pv.yaml model and trainer, initialized from ``SEED`` (or
+    from ``init_state``)."""
+    from sgp_tpu_torch.graph import padded_incoming
+    from sgp_tpu_torch.models import GatedGraphNetworkMLPModel
+    from sgp_tpu_torch.train import Predictor
+    u_size = ds.covariates["u"].value.shape[-1]
+    model = GatedGraphNetworkMLPModel(
+        input_size=ds.n_channels + u_size, input_window_size=cfg["window"],
+        hidden_size=cfg["hidden_size"], output_size=ds.n_channels,
+        horizon=ds.windowing.horizon_steps, n_nodes=ds.n_nodes,
+        enc_layers=cfg["enc_layers"], gnn_layers=cfg["gnn_layers"],
+        positional_encoding=cfg["positional_encoding"],
+        activation=cfg["activation"])
+    pred = Predictor(model, loss="mae", lr=cfg["lr"], grad_clip=GRAD_CLIP,
+                     scale_target=cfg["scale_target"],
+                     batch_to_call=gn_to_call, seed=SEED,
+                     static_batch={"gn_neigh": padded_incoming(graph)},
+                     device=device)
+    pred.init(None, ds.scaler_params())
+    if init_state is not None:
+        pred.model.load_state_dict(init_state)
+    return pred
+
+
+def train_steps(pred, loader, device):
+    """``train_epoch`` over ``loader``, recording each step's loss and host
+    time (synchronized) and the clipped gradients after the first step."""
+    losses, times, first_grads = [], [], {}
+    inner = pred.train_step
+
+    def step(batch):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = inner(batch)
+        losses.append(float(loss))      # synchronizes
+        times.append(time.perf_counter() - t0)
+        if not first_grads:
+            first_grads.update({k: p.grad.detach().cpu().clone() for k, p in
+                                pred.model.named_parameters()})
+        return loss
+
+    pred.train_step = step
+    try:
+        pred.train_epoch(loader)
+    finally:
+        del pred.train_step
+    return losses, times, first_grads
+
+
+def idle_share(pred, loader, step_ms: float) -> dict:
+    """Device time over ``PROFILE_STEPS`` train steps under torch.profiler:
+    the union of the device activities' intervals (kernels, copies; not
+    the user annotations) per step, the idle share ``1 - busy / step_ms``
+    against the unprofiled median step, and the device time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batches = list(loader)
+    pred.train_step(batches[0])          # warm, outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:PROFILE_STEPS + 1]:
+            float(pred.train_step(b))
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    if not spans:
+        return {"idle_share": "not measured (no device activity traced)"}
+    busy, end = 0.0, -np.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy_ms = busy / 1e3 / PROFILE_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"idle_share": 1.0 - busy_ms / step_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_activities_per_step": len(spans) / PROFILE_STEPS,
+            "device_ms_per_step_by_name": {
+                k[:70]: v / 1e3 / PROFILE_STEPS for k, v in top}}
+
+
+@contextlib.contextmanager
+def plain_ell():
+    """The GatedGN layer's ELL aggregation through the unfused plain math
+    (``gn_ell_reference``, differentiated by autograd) in place of K4: the
+    reference the K4 training run is held against."""
+    from sgp_tpu_torch.models import graph_layers
+    from sgp_tpu_torch.ops import gn_ell
+    kernel = graph_layers.gn_ell_aggregate
+    graph_layers.gn_ell_aggregate = gn_ell.gn_ell_reference
+    try:
+        yield
+    finally:
+        graph_layers.gn_ell_aggregate = kernel
+
+
+def phase5_train(raw, graph, device) -> dict:
+    """The GatedGN training slice through K4, held against the plain ELL
+    math on the card and the port on the CPU; then timed against it."""
+    from sgp_tpu_torch.data import WindowedLoader
+    from sgp_tpu_torch.graph import padded_incoming
+    from sgp_tpu_torch.ops import gn_ell
+    cfg, ds, split = gn_data(raw, graph)
+    src_idx, nmask = padded_incoming(graph)
+    print(f"[phase 5] {ds.n_nodes} nodes, ELL width D={src_idx.shape[1]} "
+          f"({nmask.mean():.4f} of slots valid), windows {len(ds)}, "
+          f"{split}, horizon steps {ds.windowing.horizon_steps}")
+    assert src_idx.shape[1] == KNN and nmask.all(), "not an exact k-nn graph"
+
+    def loaders(steps=TRAIN_STEPS):
+        return (WindowedLoader(ds, split.train, batch_size=cfg["batch_size"],
+                               shuffle=True, limit_batches=steps, seed=SEED),
+                WindowedLoader(ds, split.test,
+                               batch_size=cfg["batch_inference"],
+                               limit_batches=EVAL_BATCHES))
+
+    # the main path: Predictor.init, train_epoch and evaluate through K4
+    gn_ell.gn_ell_fwd.launches = gn_ell.gn_ell_bwd.launches = 0
+    pred = gn_predictor(cfg, ds, graph, device)
+    init_state = {k: v.detach().clone()
+                  for k, v in pred.model.state_dict().items()}
+    train_loader, test_loader = loaders()
+    losses, _, grads0 = train_steps(pred, train_loader, device)
+    metrics = pred.evaluate(test_loader, prefix="test_")
+    launches = {"gn_ell_fwd": gn_ell.gn_ell_fwd.launches,
+                "gn_ell_bwd": gn_ell.gn_ell_bwd.launches}
+    need = cfg["gnn_layers"] * TRAIN_STEPS
+    print(f"[phase 5] K4 launches on the main path: {json.dumps(launches)} "
+          f"({cfg['gnn_layers']} layers x {TRAIN_STEPS} steps = {need}, "
+          f"+ {EVAL_BATCHES} evaluate batches)")
+    assert launches["gn_ell_fwd"] >= need and launches["gn_ell_bwd"] >= need
+    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    print(f"[phase 5] K4 losses {losses}; {json.dumps(metrics)}")
+
+    # the same steps with the plain ELL math on the card
+    with plain_ell():
+        plain = gn_predictor(cfg, ds, graph, device, init_state)
+        train_loader, test_loader = loaders()
+        p_losses, _, _ = train_steps(plain, train_loader, device)
+        p_metrics = plain.evaluate(test_loader, prefix="test_")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, p_losses))
+    met_err = max(abs(metrics[k] - p_metrics[k]) / abs(p_metrics[k])
+                  for k in metrics)
+    p_params = dict(plain.model.named_parameters())
+    diffs, held = [], []
+    for k, v in pred.model.named_parameters():
+        d = (v - p_params[k]).detach().abs().cpu()
+        diffs.append(d.flatten())
+        held.append(d[grads0[k].abs() > GRAD_FLOOR])
+    diffs, held = torch.cat(diffs), torch.cat(held)
+    param_err = held.max().item()
+    print(f"[phase 5] K4 vs plain ELL on the card: losses max rel err "
+          f"{loss_err:.3e}, evaluate max rel err {met_err:.3e} (tol "
+          f"{TOL_LOSS}); final parameters max abs diff {param_err:.3e} on "
+          f"the {held.numel()} of {diffs.numel()} elements whose first "
+          f"gradient exceeds {GRAD_FLOOR} (tol {TOL_PARAM}), "
+          f"{diffs.max().item():.3e} over all")
+    assert loss_err <= TOL_LOSS and met_err <= TOL_LOSS
+    assert param_err <= TOL_PARAM
+
+    # one step of the port on the CPU, from the same weights and batch
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    on_cpu = gn_predictor(cfg, ds, graph, cpu,
+                          {k: v.cpu() for k, v in init_state.items()})
+    c_losses, _, c_grads = train_steps(on_cpu, loaders(1)[0], cpu)
+    cpu_s = time.perf_counter() - t0
+    c_err = abs(c_losses[0] - losses[0]) / abs(c_losses[0])
+    g_err = max(rel_err(grads0[k], c_grads[k])[1] for k in grads0)
+    print(f"[phase 5] card vs CPU port, first step at the full size "
+          f"({ds.n_nodes} nodes, {cpu_s:.1f} s on the CPU): loss rel err "
+          f"{c_err:.3e} (tol {TOL_LOSS}), clipped gradients max rel err "
+          f"{g_err:.3e} (tol {TOL_GRAD})")
+    assert c_err <= TOL_LOSS and g_err <= TOL_GRAD
+
+    # step times and peak memory, K4 and plain in alternating rounds
+    preds = {"k4": (pred, contextlib.nullcontext), "plain": (plain, plain_ell)}
+    times, peak_mib = {"k4": [], "plain": []}, {}
+    for name in TIME_ORDER:
+        model, ctx = preds[name]
+        with ctx():
+            torch.cuda.reset_peak_memory_stats()
+            _, t, _ = train_steps(model, loaders(TIME_STEPS)[0], device)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+        times[name] += [x * 1e3 for x in t[TIME_DROP:]]
+        peak_mib[name] = max(peak_mib.get(name, 0.0), peak)
+    steps = {k: quartiles(v) for k, v in times.items()}
+    print(f"[phase 5] train-step ms (host clock, synchronized; "
+          f"{len(TIME_ORDER)} rounds of {TIME_STEPS} steps in the order "
+          f"{'/'.join(TIME_ORDER)}, the first {TIME_DROP} of each left "
+          f"out): {json.dumps(steps)}; peak device memory MiB "
+          f"(max_memory_allocated): {json.dumps(peak_mib)}")
+    for name, (model, ctx) in preds.items():
+        with ctx():
+            prof = idle_share(model, loaders(PROFILE_STEPS + 1)[0],
+                              steps[name]["median"])
+        print(f"[phase 5] profile of {PROFILE_STEPS} {name} steps: "
+              f"{json.dumps(prof)}")
+    return dict(launches=launches)
+
+
 def main():
     smi = phase0_card()
     device = torch.device("cuda", 0)
@@ -310,13 +684,29 @@ def main():
     ds, graph, scaler = slice_setup(N_NODES, N_STEPS, device)
     k1 = phase2_kernel(graph, device)
     res = phase3_slice(ds, graph, scaler, device, N_NODES)
-    print(json.dumps({"kernels": [{
+    cfg = read_flat_yaml(GN_CONFIG)
+    k4 = phase4_gn_ell(device, N_NODES, cfg["batch_size"],
+                       cfg["hidden_size"])
+    train = phase5_train(ds, graph, device)
+    kernels = [{
         "name": "bsr_spmm", "route": "cuda",
         "source": "sgp_tpu_torch/csrc/bsr_spmm.cu",
         "replaces": "sgp_tpu/ops/bsr_kernel.py:39",
         "launches": res["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]}))
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]
+    for name, line, half in (("gn_ell_fwd", 104, "fwd"),
+                             ("gn_ell_bwd", 114, "bwd")):
+        errs = k4["max_abs_err"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sgp_tpu_torch/csrc/gn_ell.cu",
+            "replaces": f"sgp_tpu/ops/gn_ell.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": errs["out"] if half == "fwd" else max(
+                v for k, v in errs.items() if k != "out"),
+            "ms": k4[f"{half}_ms"], "plain_ms": k4[f"{half}_plain_ms"]})
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

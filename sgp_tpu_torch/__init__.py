@@ -3,8 +3,9 @@
 The port of :mod:`sgp_tpu` (JAX, TPU), which stays the reference: each
 module here sits at the same relative path as its JAX counterpart and is
 held against it by the ``tests/test_torch_port_*.py`` parity tests. Plain
-tensor code is PyTorch; the one Pallas kernel on the ported path, the
-block-sparse SpMM, is CUDA C++ for ``sm_90a`` (``csrc/bsr_spmm.cu``).
+tensor code is PyTorch; the Pallas kernels on the ported paths are CUDA C++
+for ``sm_90a``: the block-sparse SpMM (``csrc/bsr_spmm.cu``) and the
+GatedGN ELL message aggregation, forward and backward (``csrc/gn_ell.cu``).
 
 This package never imports ``jax`` or ``sgp_tpu``.
 """

@@ -1,4 +1,12 @@
-from sgp_tpu_torch.data.scalers import RobustScaler, Scaler, ScalerParams
+from sgp_tpu_torch.data.loader import WindowedLoader
+from sgp_tpu_torch.data.scalers import (RobustScaler, Scaler, ScalerParams,
+                                        StandardScaler)
+from sgp_tpu_torch.data.spatiotemporal import Batch, SpatioTemporalDataset
+from sgp_tpu_torch.data.splitters import (Split, Splitter, TemporalSplitter,
+                                          datetime_encoded)
 from sgp_tpu_torch.data.windowing import Windowing
 
-__all__ = ["RobustScaler", "Scaler", "ScalerParams", "Windowing"]
+__all__ = ["Batch", "RobustScaler", "Scaler", "ScalerParams", "Split",
+           "Splitter", "SpatioTemporalDataset", "StandardScaler",
+           "TemporalSplitter", "WindowedLoader", "Windowing",
+           "datetime_encoded"]

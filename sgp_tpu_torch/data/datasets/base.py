@@ -1,7 +1,6 @@
 """Dataset base: raw arrays + the similarity→connectivity pipeline.
 
-A numpy copy of ``sgp_tpu/data/datasets/base.py`` without the datetime
-encoding (its splitters are not ported yet). Subclasses implement
+A numpy copy of ``sgp_tpu/data/datasets/base.py``. Subclasses implement
 :meth:`load` and :meth:`compute_similarity`.
 """
 from __future__ import annotations
@@ -11,6 +10,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from sgp_tpu_torch.data.splitters import datetime_encoded
 from sgp_tpu_torch.graph.similarities import top_k
 from sgp_tpu_torch.graph.sparse import (Graph, normalize_adj,
                                         remove_self_loops, to_undirected)
@@ -52,6 +52,11 @@ class TabularDataset:
     @property
     def n_channels(self):
         return self.target.shape[2] if self.target.ndim == 3 else 1
+
+    def datetime_encoded(self, units) -> np.ndarray:
+        """Sin/cos phase of the index within each unit, ``[T, 2 *
+        len(units)]``."""
+        return datetime_encoded(self.index, units)
 
     # -- graph construction ------------------------------------------------
     def get_similarity(self, method: Optional[str] = None,

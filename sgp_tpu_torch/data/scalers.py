@@ -66,6 +66,24 @@ class Scaler:
                             device=device))
 
 
+class StandardScaler(Scaler):
+    """Mean / standard-deviation scaling, the traffic runners' scaler."""
+
+    def fit(self, x, mask=None, keepdims=True):
+        x = np.asarray(x)
+        if mask is not None:
+            xm = np.where(np.asarray(mask, bool), x, np.nan).astype(np.float32)
+            self.bias = np.nanmean(xm, axis=self.axis, keepdims=keepdims
+                                   ).astype(x.dtype)
+            self.scale = np.nanstd(xm, axis=self.axis, keepdims=keepdims
+                                   ).astype(x.dtype)
+        else:
+            self.bias = x.mean(axis=self.axis, keepdims=keepdims)
+            self.scale = x.std(axis=self.axis, keepdims=keepdims)
+        self.scale = _zeros_to_one(self.scale)
+        return self
+
+
 class RobustScaler(Scaler):
     """Median / quantile-range scaling; the large-scale experiments use
     ``RobustScaler(quantile_range=(10, 90))``."""

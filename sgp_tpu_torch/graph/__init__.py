@@ -4,6 +4,7 @@ from sgp_tpu_torch.graph.sparse import (
     coalesce,
     edge_dropout,
     normalize_adj,
+    padded_incoming,
     remove_self_loops,
     to_undirected,
     transpose,
@@ -13,6 +14,7 @@ from sgp_tpu_torch.graph.similarities import gaussian_kernel, top_k
 
 __all__ = [
     "Graph", "add_self_loops", "coalesce", "edge_dropout", "normalize_adj",
-    "remove_self_loops", "to_undirected", "transpose", "weighted_degree",
+    "padded_incoming", "remove_self_loops", "to_undirected", "transpose",
+    "weighted_degree",
     "gaussian_kernel", "top_k",
 ]

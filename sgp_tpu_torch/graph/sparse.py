@@ -1,7 +1,7 @@
 """Host-side sparse graph representation and graph algorithms.
 
 A numpy copy of the part of ``sgp_tpu/graph/sparse.py`` that the serving
-path reaches, held bit-exact against it by the parity tests. Graphs are
+and GatedGN training paths reach, held bit-exact against it by the parity tests. Graphs are
 prepared once on the host; device compute consumes a dense operator or the
 packed block-sparse tiles of :meth:`Graph.to_bsr` (``sgp_tpu_torch.ops``).
 
@@ -14,6 +14,7 @@ aggregates *source* features into each *target* node.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -183,3 +184,27 @@ def edge_dropout(g: Graph, p: float, rng: np.random.Generator) -> Graph:
         return g
     keep = rng.random(g.num_edges) >= p
     return Graph(g.src[keep], g.dst[keep], g.weight[keep], g.num_nodes)
+
+
+def padded_incoming(g: Graph, pad_to: Optional[int] = None):
+    """ELL layout of the incoming edges: per destination node, the source
+    indices (sorted) padded to a fixed width ``D``, the in-degree maximum
+    unless ``pad_to`` is given. A k-nn graph has in-degree k everywhere
+    and no padding.
+
+    Returns ``(src_idx [N, D] int32, mask [N, D] bool)``; padded slots
+    point at node 0 with ``mask=False``.
+    """
+    order = np.lexsort((g.src, g.dst))
+    dst_s, src_s = g.dst[order], g.src[order]
+    counts = np.bincount(dst_s, minlength=g.num_nodes)
+    d = int(pad_to or (counts.max() if counts.size else 0))
+    if counts.size and counts.max() > d:
+        raise ValueError(f"pad_to={d} < max in-degree {counts.max()}")
+    src_idx = np.zeros((g.num_nodes, d), np.int32)
+    mask = np.zeros((g.num_nodes, d), bool)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    slot = np.arange(len(dst_s)) - starts[dst_s]
+    src_idx[dst_s, slot] = src_s
+    mask[dst_s, slot] = True
+    return src_idx, mask

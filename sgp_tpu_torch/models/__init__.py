@@ -3,8 +3,12 @@ from sgp_tpu_torch.models.blocks import (MLP, Dense, GroupedLinear,
                                          StaticGraphEmbedding, get_activation,
                                          maybe_cat_exog)
 from sgp_tpu_torch.models.bridge import flax_to_torch
+from sgp_tpu_torch.models.gated_gn import (GatedGraphNetworkMLPModel,
+                                           full_graph_edges)
+from sgp_tpu_torch.models.graph_layers import GatedGraphNetwork
 from sgp_tpu_torch.models.sgp import SGPModel
 
 __all__ = ["MLP", "Dense", "GroupedLinear", "LinearReadout", "ResidualMLP",
            "StaticGraphEmbedding", "get_activation", "maybe_cat_exog",
-           "SGPModel", "flax_to_torch"]
+           "SGPModel", "flax_to_torch", "GatedGraphNetwork",
+           "GatedGraphNetworkMLPModel", "full_graph_edges"]

@@ -1,10 +1,12 @@
-"""Load a flax ``SGPModel`` parameter tree into the port's :class:`SGPModel`.
+"""Load a flax parameter tree into the port's :class:`SGPModel` or
+:class:`GatedGraphNetworkMLPModel`.
 
 The tree comes as nested dicts of numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), with or without its top-level
-``"params"`` key. Module names follow flax's creation order
-(``GroupedLinear_0``, ``StaticGraphEmbedding_0``, ``Dense_0``,
-``ResidualMLP_0/…`` or ``MLP_0/…``, ``LinearReadout_0/Dense_0``); ``Dense``
+``"params"`` key. Module names follow flax's creation order: for SGP
+``GroupedLinear_0``, ``StaticGraphEmbedding_0``, ``Dense_0``,
+``ResidualMLP_0/…`` or ``MLP_0/…``, ``LinearReadout_0/Dense_0``; for
+GatedGN see :func:`_gated_gn_targets`. ``Dense``
 kernels are transposed from flax's ``[in, out]`` to ``nn.Linear``'s
 ``[out, in]``. Any key missing from the tree or left over in it raises.
 """
@@ -17,6 +19,8 @@ import torch
 from torch import nn
 
 from sgp_tpu_torch.models.blocks import MLP
+from sgp_tpu_torch.models.gated_gn import GatedGraphNetworkMLPModel
+from sgp_tpu_torch.models.graph_layers import GatedGraphNetwork
 from sgp_tpu_torch.models.sgp import SGPModel
 
 Path = Tuple[str, ...]
@@ -65,6 +69,41 @@ def _targets(model: SGPModel) -> Dict[Path, Tuple[torch.Tensor, bool]]:
     return out
 
 
+def _gn_layer(out: dict, scope: Path, layer: GatedGraphNetwork):
+    """One ``GatedGraphNetwork``: ``Dense_0`` p_i, ``Dense_1`` p_j (no
+    bias), ``Dense_2`` message, ``Dense_3`` gate, ``Dense_4`` and
+    ``Dense_5`` the update, ``Dense_6`` the skip when there is one."""
+    _linear(out, scope + ("Dense_0",), layer.p_i)
+    out[scope + ("Dense_1", "kernel")] = (layer.p_j.weight, True)
+    for k, lin in enumerate((layer.msg, layer.gate, layer.update1,
+                             layer.update2, layer.skip), start=2):
+        if lin is not None:
+            _linear(out, scope + (f"Dense_{k}",), lin)
+
+
+def _gated_gn_targets(model: GatedGraphNetworkMLPModel
+                      ) -> Dict[Path, Tuple[torch.Tensor, bool]]:
+    """The MLP encoder's input Dense is ``Dense_0``; in each residual block
+    ``Dense(h)(act(Dense(h)(h)))`` the outer Dense is constructed first and
+    takes the lower number though it is applied second. Then the embedding,
+    the ``GatedGraphNetwork_i`` layers, the decoder Dense and the readout
+    Dense."""
+    out: Dict[Path, Tuple[torch.Tensor, bool]] = {}
+    _linear(out, ("Dense_0",), model.enc_in)
+    k = 1
+    for blk in model.enc:
+        _linear(out, (f"Dense_{k}",), blk["outer"])
+        _linear(out, (f"Dense_{k + 1}",), blk["inner"])
+        k += 2
+    if model.emb is not None:
+        out[("StaticGraphEmbedding_0", "emb")] = (model.emb.emb, False)
+    for i, layer in enumerate(model.gnn):
+        _gn_layer(out, (f"GatedGraphNetwork_{i}",), layer)
+    _linear(out, (f"Dense_{k}",), model.dec)
+    _linear(out, (f"Dense_{k + 1}",), model.readout)
+    return out
+
+
 def _flatten(tree: dict, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     flat = {}
     for key, value in tree.items():
@@ -75,10 +114,15 @@ def _flatten(tree: dict, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     return flat
 
 
-def flax_to_torch(params_np: dict, model: SGPModel) -> SGPModel:
-    """Copy the flax tree ``params_np`` into ``model`` in place; returns
-    the model."""
-    _load(params_np, _targets(model))
+def flax_to_torch(params_np: dict, model: nn.Module) -> nn.Module:
+    """Copy the flax tree ``params_np`` into ``model`` (an ``SGPModel`` or a
+    ``GatedGraphNetworkMLPModel``) in place; returns the model."""
+    if isinstance(model, GatedGraphNetworkMLPModel):
+        _load(params_np, _gated_gn_targets(model))
+    elif isinstance(model, SGPModel):
+        _load(params_np, _targets(model))
+    else:
+        raise TypeError(f"no flax mapping for {type(model).__name__}")
     return model
 
 

@@ -1,0 +1,104 @@
+"""Trainable graph layers (``torch.nn``): the edge-gated GatedGN layer.
+
+Counterpart of ``GatedGraphNetwork`` in ``sgp_tpu/models/graph_layers.py``
+(``tsl/nn/layers/graph_convs/gated_gn.py``, Satorras et al.). Two of its
+aggregation layouts are ported:
+
+- ELL, ``neigh=(src_idx [N, D], mask [N, D])`` from
+  ``graph.padded_incoming``: the projections ``p_j`` are gathered into an
+  ``[..., N, D, h/2]`` array and the gated messages summed over ``D``. With
+  an activation of the kernel's table (``ops/activations.py``) this goes
+  through ``ops/gn_ell.py::gn_ell_aggregate``, which runs kernel K4 on a
+  CUDA tensor and its plain version on a CPU one. Another activation takes
+  the plain ELL math, as the JAX layer takes its XLA path.
+- the edge list, ``src``/``dst`` ``[E]``: gather, message MLP and gate per
+  edge, then a sum into the destinations with ``index_add_``.
+
+The dense all-pairs layout (``adj=``) needs kernel K3, not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sgp_tpu_torch.models.blocks import (get_activation, lecun_normal_,
+                                         reset_linear)
+from sgp_tpu_torch.ops.activations import ACTIVATIONS
+from sgp_tpu_torch.ops.gn_ell import gn_ell_aggregate
+
+
+class GatedGraphNetwork(nn.Module):
+    """Edge-gated message passing: ``m_ij = sigmoid(g(f([x_i, x_j]))) *
+    f([x_i, x_j])`` summed into each destination, then an update MLP with a
+    skip. The first edge-MLP layer is linear in ``[x_i, x_j]``, so its two
+    halves run as node-space projections ``p_i`` and ``p_j`` (width
+    ``output_size // 2``) and only those are gathered into edge space.
+
+    Layers, in the JAX layer's creation order: ``p_i``, ``p_j`` (no bias),
+    ``msg``, ``gate``, ``update1`` (on ``[agg, x]``), ``update2`` and, when
+    the input width differs from ``output_size``, ``skip``."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 activation: str = "silu"):
+        super().__init__()
+        h2 = output_size // 2
+        self.output_size = output_size
+        self.activation = activation
+        self.p_i = nn.Linear(input_size, h2)
+        self.p_j = nn.Linear(input_size, h2, bias=False)
+        self.msg = nn.Linear(h2, output_size)
+        self.gate = nn.Linear(output_size, 1)
+        self.update1 = nn.Linear(output_size + input_size, output_size)
+        self.update2 = nn.Linear(output_size, output_size)
+        self.skip = None if input_size == output_size \
+            else nn.Linear(input_size, output_size)
+
+    def reset_parameters(self, generator=None):
+        reset_linear(self.p_i, generator)
+        lecun_normal_(self.p_j.weight, self.p_j.in_features, generator)
+        for lin in (self.msg, self.gate, self.update1, self.update2,
+                    self.skip):
+            if lin is not None:
+                reset_linear(lin, generator)
+
+    def forward(self, x, src=None, dst=None, edge_mask=None, neigh=None,
+                adj=None):
+        if adj is not None:
+            raise NotImplementedError(
+                "the dense all-pairs GatedGN aggregation (adj=) needs kernel "
+                "K3 (sgp_tpu/ops/gn_allpairs.py), which is not ported yet")
+        act = get_activation(self.activation)
+        n = x.shape[-2]
+        p_i, p_j = self.p_i(x), self.p_j(x)
+        if neigh is not None:
+            src_idx, nmask = neigh
+            d = src_idx.shape[1]
+            pj_n = p_j[..., src_idx.reshape(-1).long(), :]
+            pj_n = pj_n.reshape(pj_n.shape[:-2] + (n, d, -1))
+            if self.activation in ACTIVATIONS:
+                h2 = p_i.shape[-1]
+                lead = p_i.shape[:-2]
+                agg = gn_ell_aggregate(
+                    p_i.reshape(-1, n, h2), pj_n.reshape(-1, n, d, h2),
+                    nmask, self.msg.weight.T, self.msg.bias,
+                    self.gate.weight.T, self.gate.bias, self.activation
+                ).reshape(lead + (n, self.output_size)).to(x.dtype)
+            else:
+                m = self._message(act(p_i.unsqueeze(-2) + pj_n))
+                agg = (m * nmask.unsqueeze(-1)).sum(-2)          # over D
+        else:
+            src, dst = src.long(), dst.long()
+            m = self._message(act(p_i[..., dst, :] + p_j[..., src, :]))
+            if edge_mask is not None:     # zero padding edges
+                m = m * edge_mask.unsqueeze(-1)
+            agg = torch.zeros(m.shape[:-2] + (n, m.shape[-1]),
+                              dtype=m.dtype, device=m.device)
+            agg.index_add_(m.ndim - 2, dst, m)
+        out = self.update1(torch.cat([agg, x.to(agg.dtype)], -1))
+        out = self.update2(act(out))
+        skip = x if self.skip is None else self.skip(x)
+        return (out + skip).to(x.dtype)
+
+    def _message(self, m):
+        m = get_activation(self.activation)(self.msg(m))
+        return torch.sigmoid(self.gate(m)) * m

@@ -23,54 +23,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-BLOCK = 128
+from sgp_tpu_torch.ops import _build
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "bsr_spmm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BLOCK = 128
 
 
 @functools.lru_cache(maxsize=None)
 def build():
-    """Compile the kernel once per source hash and load it.
-
-    Returns ``(lib, seconds, log)``: the ``ctypes`` library, the compile
-    time (0 when the library was already built) and ``nvcc``'s output,
-    which holds ``ptxas``'s register and shared-memory report."""
-    source = _SOURCE.read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"bsr_spmm_{key}.so"
-    seconds, log = 0.0, ""
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    """Compile ``csrc/bsr_spmm.cu`` (once per source hash) and load it;
+    returns ``(lib, seconds, log)`` as :func:`_build.build` does."""
+    lib, seconds, log = _build.build("bsr_spmm")
     for name in ("sgp_bsr_spmm_f32", "sgp_bsr_spmm_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        _build.bind(lib, name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
     return lib, seconds, log
 
 

@@ -1,0 +1,246 @@
+"""Training engine: train and eval steps, and the fit loop.
+
+Counterpart of ``Predictor`` in ``sgp_tpu/train/predictor.py``: a train
+step is the forward pass, the masked loss, the gradient, a clip by global
+norm and an Adam (or AdamW) update, optionally on a piecewise-constant
+learning-rate schedule; ``evaluate`` accumulates masked metrics; ``fit``
+keeps the best epoch's weights and stops early on a monitored metric.
+
+Loss semantics: with ``scale_target=False`` (the default) the model's
+output is inverse-transformed and the loss taken in the raw data space;
+with ``scale_target=True`` it is taken in scaled space. Metrics are always
+in raw space.
+
+What differs from the JAX trainer: PyTorch runs eagerly, so there is no
+jitted step; the optimizer updates the model's parameters in place, so
+``fit`` keeps a copy of the best ``state_dict``; weights are drawn at
+:meth:`init` from a ``torch.Generator`` seeded with ``seed`` (flax's
+distributions, not its bits — the tests carry flax weights across with
+``models/bridge.py``). Data-parallel meshes, ``compute_dtype`` and
+checkpoint files are not ported yet.
+"""
+from __future__ import annotations
+
+import inspect
+import logging
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from sgp_tpu_torch.data.scalers import Scaler, ScalerParams
+from sgp_tpu_torch.train.metrics import (_METRIC_FNS, MaskedMetrics,
+                                         _masked_reduce)
+
+logger = logging.getLogger(__name__)
+
+
+def default_batch_to_call(batch, training: bool):
+    """``(args, kwargs)`` for the model from a batch: x, and u and
+    node_index when present."""
+    kwargs = {"training": training}
+    for k in ("u", "node_index"):
+        if k in batch:
+            kwargs[k] = batch[k]
+    return (batch["x"],), kwargs
+
+
+def clip_by_global_norm_(grads, max_norm: float):
+    """``optax.clip_by_global_norm``: when the global norm reaches
+    ``max_norm``, every gradient becomes ``g / norm * max_norm``. No epsilon
+    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6) and no host sync."""
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    keep = norm < max_norm
+    with torch.no_grad():
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def _to_device(v, device):
+    if isinstance(v, np.ndarray):
+        return torch.as_tensor(v).to(device)
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, ScalerParams):
+        return ScalerParams(v.bias.to(device), v.scale.to(device))
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to_device(x, device) for x in v)
+    return v
+
+
+class Predictor:
+    def __init__(self, model: torch.nn.Module,
+                 loss: str = "mae",
+                 lr: float = 1e-3,
+                 weight_decay: float = 0.0,
+                 grad_clip: float = 5.0,
+                 lr_milestones: Optional[list] = None,
+                 lr_gamma: float = 0.25,
+                 steps_per_epoch: int = 1,
+                 scale_target: bool = False,
+                 metrics: Optional[MaskedMetrics] = None,
+                 batch_to_call: Optional[Callable] = None,
+                 seed: int = 0,
+                 static_batch: Optional[dict] = None,
+                 device=None):
+        """``static_batch``: per-run graph state (ELL neighbour tables,
+        edge lists) merged into every batch, moved to the device once.
+        Keys already present in a batch win. ``device``: where the model
+        and the batches live (default: where the model's parameters are)."""
+        self.model = model
+        self.device = torch.device(device) if device is not None \
+            else next(model.parameters()).device
+        self.static_batch = {k: _to_device(v, self.device)
+                             for k, v in (static_batch or {}).items()}
+        self.loss_kind = loss
+        self.scale_target = scale_target
+        self.metrics = metrics or MaskedMetrics.forecasting()
+        self.batch_to_call = batch_to_call or default_batch_to_call
+        self.seed = seed
+        self.lr, self.weight_decay, self.grad_clip = lr, weight_decay, \
+            grad_clip
+        # optax.piecewise_constant_schedule: step t runs at lr times every
+        # gamma whose boundary is <= t
+        self._boundaries = sorted(int(m * steps_per_epoch)
+                                  for m in (lr_milestones or []))
+        self.lr_gamma = lr_gamma
+        self.optimizer = None
+        self.scheduler = None
+        self.scaler: Optional[ScalerParams] = None
+
+    # -- setup -------------------------------------------------------------
+    def init(self, batch, scaler: ScalerParams):
+        """Draw the weights from ``seed`` and build the optimizer. ``batch``
+        is unused (the model's shapes are fixed at construction); it keeps
+        the JAX trainer's signature."""
+        del batch
+        reset = getattr(self.model, "reset_parameters", None)
+        if reset is not None and \
+                "generator" in inspect.signature(reset).parameters:
+            self.model.cpu()
+            reset(torch.Generator().manual_seed(self.seed))
+        self.model.to(self.device)
+        params = list(self.model.parameters())
+        if self.weight_decay > 0:
+            self.optimizer = torch.optim.AdamW(
+                params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=self.weight_decay)
+        else:
+            self.optimizer = torch.optim.Adam(params, lr=self.lr,
+                                              betas=(0.9, 0.999), eps=1e-8)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, lambda t: self.lr_gamma ** sum(
+                t >= b for b in self._boundaries))
+        self.scaler = _to_device(scaler, self.device)
+        n_params = sum(p.numel() for p in params)
+        logger.info(f"Initialized model with {n_params:,} parameters")
+        return self
+
+    # -- steps -------------------------------------------------------------
+    def _place(self, batch) -> dict:
+        out = dict(self.static_batch)
+        out.update({k: _to_device(v, self.device) for k, v in batch.items()})
+        return out
+
+    def _forward(self, batch, training: bool):
+        args, kwargs = self.batch_to_call(batch, training)
+        self.model.train(training)
+        return self.model(*args, **kwargs)
+
+    def compute_loss(self, batch) -> torch.Tensor:
+        """The masked training loss of a placed batch (with autograd)."""
+        y_hat = self._forward(batch, True)
+        y, mask = batch["y"], batch.get("mask")
+        sc = batch.get("scaler", self.scaler)
+        if self.scale_target:
+            y_ref = sc.transform(y)
+        else:
+            y_hat, y_ref = sc.inverse_transform(y_hat), y
+        v, n = _masked_reduce(_METRIC_FNS[self.loss_kind], y_hat, y_ref, mask)
+        return v / torch.clamp(n, min=1.0)
+
+    def train_step(self, batch) -> torch.Tensor:
+        """One update on a host batch; returns the loss (a device tensor)."""
+        assert self.optimizer is not None, "call init() first"
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.compute_loss(self._place(batch))
+        loss.backward()
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        clip_by_global_norm_(grads, self.grad_clip)
+        self.optimizer.step()
+        self.scheduler.step()
+        return loss.detach()
+
+    # -- loops -------------------------------------------------------------
+    def train_epoch(self, loader) -> float:
+        total, count = 0.0, 0
+        for batch in loader:
+            total += float(self.train_step(batch))
+            count += 1
+        return total / max(count, 1)
+
+    @torch.no_grad()
+    def evaluate(self, loader, prefix: str = "") -> Dict[str, float]:
+        state = self.metrics.init()
+        for batch in loader:
+            b = self._place(batch)
+            sc = b.get("scaler", self.scaler)
+            y_hat = sc.inverse_transform(self._forward(b, False))
+            state = self.metrics.update(state, y_hat, b["y"], b.get("mask"))
+        out = self.metrics.compute(state)
+        return {f"{prefix}{k}": v for k, v in out.items()}
+
+    @torch.no_grad()
+    def predict(self, loader) -> np.ndarray:
+        outs = []
+        for batch in loader:
+            b = self._place(batch)
+            sc = b.get("scaler", self.scaler)
+            outs.append(sc.inverse_transform(
+                self._forward(b, False)).cpu().numpy())
+        return np.concatenate(outs, axis=0)
+
+    def fit(self, train_loader, val_loader=None, epochs: int = 1,
+            patience: Optional[int] = None, monitor: str = "mae",
+            log_every: int = 1, scaler: Optional[ScalerParams] = None):
+        """Train for ``epochs``, keep the weights of the best epoch (by
+        ``val_<monitor>``, or the train loss without a val loader) and
+        restore them at the end; stop after ``patience`` epochs without a
+        better one. Returns the best value."""
+        if self.optimizer is None:
+            self.init(next(iter(train_loader)),
+                      scaler if scaler is not None else Scaler().params())
+        if val_loader is not None and monitor not in self.metrics.names:
+            raise ValueError(
+                f"monitor={monitor!r} is not a tracked metric; "
+                f"available: {sorted(self.metrics.names)}")
+        best_metric, bad_epochs = np.inf, 0
+        best_state = self._state_copy()
+        for epoch in range(epochs):
+            t0 = time.time()
+            logs = {"train_loss": self.train_epoch(train_loader)}
+            if val_loader is not None:
+                logs.update(self.evaluate(val_loader, prefix="val_"))
+                current = logs[f"val_{monitor}"]
+            else:
+                current = logs["train_loss"]
+            if current < best_metric:
+                best_metric, best_state, bad_epochs = \
+                    current, self._state_copy(), 0
+            else:
+                bad_epochs += 1
+            if log_every and epoch % log_every == 0:
+                msg = " ".join(f"{k}={v:.4f}" for k, v in logs.items())
+                logger.info(f"epoch {epoch}: {msg} "
+                            f"({time.time() - t0:.1f}s)")
+            if patience is not None and bad_epochs > patience:
+                logger.info(f"early stop at epoch {epoch}")
+                break
+        self.model.load_state_dict(best_state)   # restore the best epoch
+        return best_metric
+
+    def _state_copy(self) -> dict:
+        return {k: v.detach().clone()
+                for k, v in self.model.state_dict().items()}

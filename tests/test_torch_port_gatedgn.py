@@ -1,0 +1,266 @@
+"""The port's ``GatedGraphNetwork`` layer and ``GatedGraphNetworkMLPModel``
+against flax with the same weights (carried across by ``models/bridge.py``),
+forward and gradients.
+
+The JAX side runs its fused ELL kernel through the Pallas interpreter
+(``graph_layers.ELL_PALLAS = True``, set and restored here); the port runs
+``gn_ell_aggregate``'s plain version, the CPU side of kernel K4. Tolerance
+1e-4 (f32; the same products summed in other orders through two layers).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgp_tpu.graph.sparse import padded_incoming as j_padded_incoming
+from sgp_tpu.models import graph_layers as j_graph_layers
+from sgp_tpu.models.gated_gn import GatedGraphNetworkMLPModel as JModel
+from sgp_tpu.models.graph_layers import GatedGraphNetwork as JLayer
+
+from sgp_tpu_torch.graph import Graph, coalesce, padded_incoming
+from sgp_tpu_torch.models import (GatedGraphNetwork, GatedGraphNetworkMLPModel,
+                                  flax_to_torch)
+from sgp_tpu_torch.models import graph_layers
+from sgp_tpu_torch.models.bridge import _gated_gn_targets, _gn_layer, _load
+from sgp_tpu_torch.ops import gn_ell
+
+torch.set_num_threads(1)
+
+N = 12
+TOL = 1e-4
+
+
+def _graph(seed=0, n=N, max_deg=5):
+    """Each node takes 0..max_deg distinct sources; node 3 takes none."""
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for i in range(n):
+        k = 0 if i == 3 else int(rng.integers(1, max_deg + 1))
+        src += list(rng.choice(n, k, replace=False))
+        dst += [i] * k
+    return coalesce(Graph(np.asarray(src), np.asarray(dst),
+                          np.ones(len(src), np.float32), n))
+
+
+def _neigh(g):
+    si, nm = padded_incoming(g)
+    return (si, nm), (torch.as_tensor(si), torch.as_tensor(nm))
+
+
+def _ell_pallas(fn):
+    j_graph_layers.ELL_PALLAS = True
+    try:
+        return fn()
+    finally:
+        j_graph_layers.ELL_PALLAS = None
+
+
+def _close(got, want, tol=TOL, name=""):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=tol, atol=tol, err_msg=name)
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _check_grads(targets, jgrads):
+    flat = _flat(jgrads["params"])
+    assert set(flat) == set(targets)
+    for path, (param, transpose) in targets.items():
+        want = flat[path].T if transpose else flat[path]
+        _close(param.grad, want, TOL, "/".join(path))
+
+
+def test_padded_incoming_matches_jax():
+    g = _graph(1)
+    for pad_to in (None, 9):
+        si, nm = padded_incoming(g, pad_to)
+        jsi, jnm = j_padded_incoming(g, pad_to)
+        assert si.dtype == jsi.dtype and nm.dtype == jnm.dtype
+        assert np.array_equal(si, jsi) and np.array_equal(nm, jnm)
+    with pytest.raises(ValueError):
+        padded_incoming(g, 2)
+
+
+@pytest.mark.parametrize("in_size,activation", [(6, "silu"), (16, "tanh"),
+                                                (6, "elu")])
+def test_layer_ell_matches_flax(in_size, activation):
+    rng = np.random.default_rng(2)
+    (si, nm), tneigh = _neigh(_graph(2))
+    x = rng.standard_normal((2, N, in_size)).astype(np.float32)
+    jl = JLayer(output_size=16, activation=activation)
+    params = jl.init(jax.random.PRNGKey(0), x, neigh=(si, nm))
+    tl = GatedGraphNetwork(in_size, 16, activation)
+    targets = {}
+    _gn_layer(targets, (), tl)
+    _load(jax.tree.map(np.asarray, params), targets)
+    assert (tl.skip is None) == (in_size == 16)
+
+    def loss_j(p):
+        return jnp.sum(jnp.sin(jl.apply(p, x, neigh=(si, nm))))
+
+    want = _ell_pallas(lambda: jl.apply(params, x, neigh=(si, nm)))
+    jgrads = _ell_pallas(lambda: jax.grad(loss_j)(params))
+    got = tl(torch.as_tensor(x), neigh=tneigh)
+    _close(got, want)
+    torch.sin(got).sum().backward()
+    _check_grads(targets, jgrads)
+
+
+def test_layer_edge_list_matches_flax_and_ell():
+    rng = np.random.default_rng(3)
+    g = _graph(3)
+    _, tneigh = _neigh(g)
+    x = rng.standard_normal((3, N, 8)).astype(np.float32)
+    src, dst = g.src.astype(np.int32), g.dst.astype(np.int32)
+    jl = JLayer(output_size=8, sorted_edges=True)
+    params = jl.init(jax.random.PRNGKey(1), x, src, dst)
+    tl = GatedGraphNetwork(8, 8)
+    targets = {}
+    _gn_layer(targets, (), tl)
+    _load(jax.tree.map(np.asarray, params), targets)
+    got = tl(torch.as_tensor(x), torch.as_tensor(src), torch.as_tensor(dst))
+    _close(got, jl.apply(params, x, src, dst))
+    ell = tl(torch.as_tensor(x), neigh=tneigh)
+    _close(ell, got.detach().numpy(), 2e-5)
+    # padding edges masked out of the edge list change nothing
+    pad_src = np.concatenate([src, [0, 5]]).astype(np.int64)
+    pad_dst = np.concatenate([dst, [1, 2]]).astype(np.int64)
+    em = torch.as_tensor(np.r_[np.ones(len(src)), [0, 0]].astype(np.float32))
+    padded = tl(torch.as_tensor(x), torch.as_tensor(pad_src),
+                torch.as_tensor(pad_dst), edge_mask=em)
+    _close(padded, got.detach().numpy(), 1e-6)
+
+
+def test_layer_plain_ell_math_matches_kernel_path(monkeypatch):
+    """The layer's plain ELL math (taken by an activation outside the
+    kernel's table) and the unfused ``gn_ell_reference`` swapped in for
+    ``gn_ell_aggregate`` (the reference ``chip_smoke.py`` holds the card's
+    training run against) agree with the kernel path, values and
+    gradients."""
+    rng = np.random.default_rng(4)
+    _, tneigh = _neigh(_graph(4))
+    x = torch.as_tensor(rng.standard_normal((2, N, 8)).astype(np.float32))
+    tl = GatedGraphNetwork(8, 16)
+    tl.reset_parameters(torch.Generator().manual_seed(0))
+
+    def run():
+        tl.zero_grad()
+        out = tl(x, neigh=tneigh)
+        out.square().sum().backward()
+        return out.detach().numpy(), {k: p.grad.numpy().copy()
+                                      for k, p in tl.named_parameters()}
+
+    want, want_g = run()
+    for name, value in (("ACTIVATIONS", {}),
+                        ("gn_ell_aggregate", gn_ell.gn_ell_reference)):
+        with monkeypatch.context() as m:
+            m.setattr(graph_layers, name, value)
+            got, got_g = run()
+        _close(torch.as_tensor(got), want, 2e-5)
+        for k in want_g:
+            _close(torch.as_tensor(got_g[k]), want_g[k], 5e-5)
+    tl.activation = "gelu"
+    assert torch.isfinite(tl(x, neigh=tneigh)).all()
+    with pytest.raises(NotImplementedError, match="K3"):
+        tl(x, adj=torch.ones(N, N))
+
+
+def _models(**kw):
+    common = dict(input_window_size=4, hidden_size=16, output_size=1,
+                  horizon=3, n_nodes=N, enc_layers=2, gnn_layers=2,
+                  positional_encoding=True, activation="silu")
+    common.update(kw)
+    jm = JModel(**common)
+    tm = GatedGraphNetworkMLPModel(input_size=3, **common)
+    return jm, tm
+
+
+def _model_inputs(seed=5):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, 6, N, 1)).astype(np.float32)   # [b s n f]
+    u = rng.standard_normal((2, 6, 2)).astype(np.float32)      # global exog
+    return x, u
+
+
+@pytest.mark.parametrize("positional_encoding", [True, False])
+def test_model_ell_matches_flax(positional_encoding):
+    (si, nm), tneigh = _neigh(_graph(5))
+    x, u = _model_inputs()
+    jm, tm = _models(positional_encoding=positional_encoding)
+    params = jm.init(jax.random.PRNGKey(2), x, u=u, neigh=(si, nm))
+    flax_to_torch(jax.tree.map(np.asarray, params), tm)
+
+    def loss_j(p):
+        return jnp.sum(jnp.abs(jm.apply(p, x, u=u, neigh=(si, nm)) - 0.3))
+
+    want = _ell_pallas(lambda: jm.apply(params, x, u=u, neigh=(si, nm)))
+    jgrads = _ell_pallas(lambda: jax.grad(loss_j)(params))
+    got = tm(torch.as_tensor(x), u=torch.as_tensor(u), neigh=tneigh)
+    assert got.shape == (2, 3, N, 1)
+    _close(got, want)
+    (got - 0.3).abs().sum().backward()
+    _check_grads(_gated_gn_targets(tm), jgrads)
+
+
+def test_model_full_graph_matches_flax():
+    """No graph given: both build the all-pairs edge list."""
+    x, u = _model_inputs(6)
+    jm, tm = _models(gnn_layers=1, enc_layers=1, activation="tanh")
+    params = jm.init(jax.random.PRNGKey(3), x, u=u)
+    flax_to_torch(jax.tree.map(np.asarray, params), tm)
+    _close(tm(torch.as_tensor(x), u=torch.as_tensor(u)),
+           jm.apply(params, x, u=u))
+
+
+def test_bridge_pins_the_encoder_block_order():
+    """Inside ``Dense(h)(act(Dense(h)(h)))`` the outer Dense is
+    ``Dense_1``: loading it into the inner Linear changes the output."""
+    (si, nm), tneigh = _neigh(_graph(7))
+    x, u = _model_inputs(7)
+    jm, tm = _models(enc_layers=1)
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.PRNGKey(4), x, u=u, neigh=(si, nm)))
+    flax_to_torch(params, tm)
+    want = np.asarray(jm.apply(params, x, u=u, neigh=(si, nm)))
+    _close(tm(torch.as_tensor(x), u=torch.as_tensor(u), neigh=tneigh), want)
+    inner = params["params"]
+    inner["Dense_1"], inner["Dense_2"] = inner["Dense_2"], inner["Dense_1"]
+    flax_to_torch(params, tm)
+    swapped = tm(torch.as_tensor(x), u=torch.as_tensor(u), neigh=tneigh)
+    assert np.abs(swapped.detach().numpy() - want).max() > 1e-3
+
+
+def test_bridge_rejects_missing_extra_and_misshapen_keys():
+    x, u = _model_inputs(8)
+    jm, tm = _models()
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(5), x, u=u))
+    inner = dict(params["params"])
+    with pytest.raises(KeyError):
+        flax_to_torch({**inner, "Dense_9": {"kernel": np.zeros((2, 2))}}, tm)
+    missing = {k: v for k, v in inner.items()
+               if k != "StaticGraphEmbedding_0"}
+    with pytest.raises(KeyError):
+        flax_to_torch(missing, tm)
+    gn0 = dict(inner["GatedGraphNetwork_0"])
+    gn0["Dense_1"] = {"kernel": np.zeros((16, 9), np.float32)}
+    with pytest.raises(ValueError):
+        flax_to_torch({**inner, "GatedGraphNetwork_0": gn0}, tm)
+    _, other = _models(gnn_layers=1)
+    with pytest.raises(KeyError):
+        flax_to_torch(params, other)
+    with pytest.raises(TypeError):
+        flax_to_torch(params, torch.nn.Linear(2, 2))
+
+
+def test_model_options_not_ported_raise():
+    with pytest.raises(NotImplementedError):
+        _models(compute_dtype="bfloat16")

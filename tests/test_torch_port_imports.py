@@ -20,9 +20,17 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sgp_tpu"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
+
+# the training slice's modules, which the walk above must reach
+TRAINING_SLICE = (
+    "sgp_tpu_torch.data.loader", "sgp_tpu_torch.data.spatiotemporal",
+    "sgp_tpu_torch.data.splitters", "sgp_tpu_torch.models.gated_gn",
+    "sgp_tpu_torch.models.graph_layers", "sgp_tpu_torch.ops._build",
+    "sgp_tpu_torch.ops.activations", "sgp_tpu_torch.ops.gn_ell",
+    "sgp_tpu_torch.train.metrics", "sgp_tpu_torch.train.predictor")
 
 
 def test_port_never_imports_jax():
@@ -31,8 +39,9 @@ def test_port_never_imports_jax():
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 20
+    words = proc.stdout.split()
+    assert int(words[0]) >= 30
+    assert set(TRAINING_SLICE) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

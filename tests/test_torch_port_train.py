@@ -1,0 +1,287 @@
+"""The port's training machinery against the JAX package's: the data
+modules bit-exact (numpy on both sides), the masked metrics, one
+``Predictor`` train step of the GatedGN slice and ``evaluate``.
+
+Tolerances: metrics 1e-6 relative (the same f32 sums); the train step's
+loss and gradients 1e-5 relative to each tensor's largest value (f32, other
+summation orders through the model); the parameters after clip and Adam at
+atol 1e-6 on the elements whose gradient exceeds 1e-6 in magnitude (Adam's
+first step is about lr * sign(g), so a gradient near zero may change sign
+between summation orders).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from sgp_tpu.data import SpatioTemporalDataset as JDataset
+from sgp_tpu.data import StandardScaler as JStandardScaler
+from sgp_tpu.data import WindowedLoader as JLoader
+from sgp_tpu.data import Windowing as JWindowing
+from sgp_tpu.data.datasets import SyntheticDiffusion as JSynthetic
+from sgp_tpu.data.splitters import TemporalSplitter as JSplitter
+from sgp_tpu.graph.sparse import padded_incoming as j_padded_incoming
+from sgp_tpu.models import graph_layers as j_graph_layers
+from sgp_tpu.models.gated_gn import GatedGraphNetworkMLPModel as JModel
+from sgp_tpu.train import MaskedMetrics as JMetrics
+from sgp_tpu.train import Predictor as JPredictor
+from sgp_tpu.train import metrics as jmetrics
+
+from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
+                                TemporalSplitter, WindowedLoader, Windowing)
+from sgp_tpu_torch.data.datasets import SyntheticDiffusion
+from sgp_tpu_torch.graph import padded_incoming
+from sgp_tpu_torch.models import GatedGraphNetworkMLPModel, flax_to_torch
+from sgp_tpu_torch.models.bridge import _gated_gn_targets
+from sgp_tpu_torch.train import MaskedMetrics, Predictor
+from sgp_tpu_torch.train import metrics as tmetrics
+from sgp_tpu_torch.train.predictor import clip_by_global_norm_
+
+torch.set_num_threads(1)
+
+N_NODES, N_STEPS, KNN = 24, 240, 5
+WIN = dict(window=12, horizon=8, horizon_lag=3)
+
+
+def _pipeline(jax_side: bool):
+    """The runner's data path: dataset, k-nn graph, day encoding, split,
+    scaler fitted on the train windows' start steps."""
+    mods = (JSynthetic, JDataset, JWindowing, JSplitter, JStandardScaler) \
+        if jax_side else (SyntheticDiffusion, SpatioTemporalDataset,
+                          Windowing, TemporalSplitter, StandardScaler)
+    synth, dset, win, splitter, scaler = mods
+    raw = synth(num_nodes=N_NODES, num_steps=N_STEPS, seed=0)
+    graph = raw.get_connectivity(knn=KNN, threshold=None, include_self=False)
+    ds = dset(raw.target, index=raw.index, mask=raw.mask, graph=graph,
+              covariates={"u": raw.datetime_encoded("day")},
+              windowing=win(**WIN))
+    split = splitter(0.1, 0.2).split(ds)
+    ds.fit_scaler(scaler(axis=(0, 1)), step_index=ds.indices()[split.train])
+    return ds, graph, split
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    return _pipeline(True), _pipeline(False)
+
+
+def test_data_pipeline_bit_exact(pipelines):
+    (jds, jg, jsplit), (tds, tg, tsplit) = pipelines
+    for name in ("train", "val", "test"):
+        assert np.array_equal(getattr(jsplit, name), getattr(tsplit, name))
+    assert repr(jsplit) == repr(tsplit)
+    jsc, tsc = jds.scalers["target"], tds.scalers["target"]
+    assert np.array_equal(jsc.bias, tsc.bias)
+    assert np.array_equal(jsc.scale, tsc.scale)
+    assert np.array_equal(jds.input_array(), tds.input_array())
+    assert np.array_equal(jds.exog_array(), tds.exog_array())
+    assert len(jds) == len(tds)
+    si, nm = padded_incoming(tg)
+    jsi, jnm = j_padded_incoming(jg)
+    assert np.array_equal(si, jsi) and np.array_equal(nm, jnm)
+    assert si.shape == (N_NODES, KNN) and nm.all()
+    jl = JLoader(jds, jsplit.train, batch_size=5, shuffle=True,
+                 limit_batches=4, seed=3)
+    tl = WindowedLoader(tds, tsplit.train, batch_size=5, shuffle=True,
+                        limit_batches=4, seed=3)
+    assert len(jl) == len(tl) == 4
+    for _ in range(2):                     # two passes, two permutations
+        for jb, tb in zip(jl, tl):
+            assert set(jb) == set(tb) == {"x", "y", "mask", "u",
+                                          "u_horizon"}
+            for k in jb:
+                assert jb[k].dtype == tb[k].dtype, k
+                assert np.array_equal(jb[k], tb[k]), k
+    nodes = np.array([3, 0, 7])
+    jb, tb = jds.gather_batch(np.array([4, 9]), nodes), \
+        tds.gather_batch(np.array([4, 9]), nodes)
+    for k in jb:
+        assert np.array_equal(np.asarray(jb[k]), tb[k]), k
+    assert tb.x.shape == (2, 12, 3, 1)
+
+
+def test_masked_metrics_match_jax():
+    rng = np.random.default_rng(0)
+    y_hat = rng.standard_normal((4, 3, 10, 1)).astype(np.float32)
+    y = (rng.standard_normal((4, 3, 10, 1)) + 3).astype(np.float32)
+    mask = rng.random((4, 3, 10, 1)) > 0.2
+    th, ty, tm = (torch.as_tensor(a) for a in (y_hat, y, mask))
+    for name in ("masked_mae", "masked_mse", "masked_rmse", "masked_mape",
+                 "masked_mre"):
+        for m_np, m_t in ((mask, tm), (None, None)):
+            want = getattr(jmetrics, name)(y_hat, y, m_np)
+            got = getattr(tmetrics, name)(th, ty, m_t)
+            np.testing.assert_allclose(float(got), float(want), rtol=1e-6,
+                                       err_msg=name)
+    jm = JMetrics.forecasting({"15": 0, "45": 2})
+    jm.specs["mre"] = jmetrics.MetricSpec("mre")
+    tmm = MaskedMetrics.forecasting({"15": 0, "45": 2})
+    tmm.specs["mre"] = tmetrics.MetricSpec("mre")
+    js, ts = jm.init(), tmm.init()
+    for i in range(2):
+        js = jm.update(js, y_hat[2 * i:2 * i + 2], y[2 * i:2 * i + 2],
+                       mask[2 * i:2 * i + 2])
+        ts = tmm.update(ts, th[2 * i:2 * i + 2], ty[2 * i:2 * i + 2],
+                        tm[2 * i:2 * i + 2])
+    want, got = jm.compute(js), tmm.compute(ts)
+    assert set(want) == set(got) == {"mae", "mse", "mape", "mae_at_15",
+                                     "mae_at_45", "mre"}
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("max_norm", [5.0, 0.05])
+def test_clip_by_global_norm_is_optax(max_norm):
+    rng = np.random.default_rng(1)
+    gs = [rng.standard_normal(s).astype(np.float32) for s in ((3, 4), (5,))]
+    want, _ = optax.clip_by_global_norm(max_norm).update(
+        [jnp.asarray(g) for g in gs], optax.EmptyState())
+    got = [torch.as_tensor(g.copy()) for g in gs]
+    clip_by_global_norm_(got, max_norm)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
+def test_lr_schedule_is_optax_piecewise_constant():
+    sched = optax.piecewise_constant_schedule(1e-3, {4: 0.25, 8: 0.25})
+    model = torch.nn.Linear(2, 1)
+    pred = Predictor(model, lr=1e-3, lr_milestones=[2, 4], lr_gamma=0.25,
+                     steps_per_epoch=2).init(None, StandardScaler().params())
+    for t in range(11):
+        np.testing.assert_allclose(pred.optimizer.param_groups[0]["lr"],
+                                   float(sched(t)), rtol=1e-6)
+        pred.optimizer.step()
+        pred.scheduler.step()
+
+
+def _slice_models(n_nodes):
+    common = dict(input_window_size=WIN["window"], hidden_size=16,
+                  output_size=1, horizon=3, n_nodes=n_nodes, enc_layers=2,
+                  gnn_layers=2, positional_encoding=True, activation="silu")
+    return JModel(**common), GatedGraphNetworkMLPModel(input_size=3,
+                                                       **common)
+
+
+def _to_call(batch, training):
+    return (batch["x"],), {"u": batch.get("u"), "training": training,
+                           "neigh": batch["gn_neigh"]}
+
+
+def _predictors(pipelines, grad_clip):
+    (jds, jg, jsplit), (tds, tg, tsplit) = pipelines
+    jm, tm = _slice_models(N_NODES)
+    batch = jds.gather_batch(jsplit.train[:5])
+    jpred = JPredictor(jm, lr=1e-3, grad_clip=grad_clip,
+                       batch_to_call=_to_call, seed=0,
+                       static_batch={"gn_neigh": j_padded_incoming(jg)})
+    jpred.init(batch, jds.scaler_params())
+    tpred = Predictor(tm, lr=1e-3, grad_clip=grad_clip,
+                      batch_to_call=_to_call, seed=0,
+                      static_batch={"gn_neigh": padded_incoming(tg)})
+    tpred.init(batch, tds.scaler_params())
+    flax_to_torch(jax.tree.map(np.asarray, jpred.params), tm)
+    return jpred, tpred, batch
+
+
+def _rel_close(got, want, tol, name):
+    want = np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("grad_clip", [5.0, 0.05])
+def test_predictor_train_step_matches_jax(pipelines, grad_clip):
+    jpred, tpred, batch = _predictors(pipelines, grad_clip)
+    jdev = {**jpred.static_batch, **{k: jnp.asarray(v)
+                                     for k, v in batch.items()}}
+    sc = pipelines[0][0].scaler_params()
+
+    def loss_j(params):
+        out = jpred.model.apply(params, *_to_call(jdev, True)[0],
+                                **_to_call(jdev, True)[1])
+        v, n = jmetrics._masked_reduce(jmetrics._abs_err,
+                                       sc.inverse_transform(out),
+                                       jdev["y"], jdev["mask"])
+        return v / jnp.maximum(n, 1.0)
+
+    j_graph_layers.ELL_PALLAS = True
+    try:
+        jgrads = jax.grad(loss_j)(jpred.params)
+        new_params, _, jloss = jpred._train_step(
+            jpred.params, jpred.opt_state, jdev, jax.random.PRNGKey(0))
+    finally:
+        j_graph_layers.ELL_PALLAS = None
+
+    targets = _gated_gn_targets(tpred.model)
+    loss = tpred.compute_loss(tpred._place(batch))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    flat_g = jax.tree.map(np.asarray, jgrads)["params"]
+    grads = {}
+    for path, (param, transpose) in targets.items():
+        want = flat_g
+        for k in path:
+            want = want[k]
+        want = want.T if transpose else want
+        _rel_close(param.grad.numpy(), want, 1e-5, "/".join(path))
+        grads[path] = want
+
+    tloss = tpred.train_step(batch)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    flat_p = jax.tree.map(np.asarray, new_params)["params"]
+    for path, (param, transpose) in targets.items():
+        want = flat_p
+        for k in path:
+            want = want[k]
+        want = want.T if transpose else want
+        keep = np.abs(grads[path]) > 1e-6
+        np.testing.assert_allclose(param.detach().numpy()[keep], want[keep],
+                                   rtol=0, atol=1e-6,
+                                   err_msg="/".join(path))
+
+
+def test_predictor_evaluate_matches_jax(pipelines):
+    jpred, tpred, _ = _predictors(pipelines, 5.0)
+    (jds, _, jsplit), (tds, _, tsplit) = pipelines
+    j_graph_layers.ELL_PALLAS = True
+    try:
+        want = jpred.evaluate(JLoader(jds, jsplit.test, batch_size=8,
+                                      limit_batches=2), prefix="test_")
+    finally:
+        j_graph_layers.ELL_PALLAS = None
+    got = tpred.evaluate(WindowedLoader(tds, tsplit.test, batch_size=8,
+                                        limit_batches=2), prefix="test_")
+    assert set(got) == set(want) == {"test_mae", "test_mse", "test_mape"}
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    pred = tpred.predict(WindowedLoader(tds, tsplit.test[:3], batch_size=2))
+    assert pred.shape == (3, 3, N_NODES, 1) and np.isfinite(pred).all()
+
+
+def test_fit_restores_a_copy_of_the_best_epoch(pipelines, monkeypatch):
+    """Parameters are updated in place, so fit must keep a copy: epoch 0
+    has the best val score and its weights come back."""
+    _, tpred, _ = _predictors(pipelines, 5.0)
+    (_, _, _), (tds, _, tsplit) = pipelines
+    loader = WindowedLoader(tds, tsplit.train, batch_size=5, shuffle=True,
+                            limit_batches=1)
+    scores = iter([1.0, 2.0, 3.0])
+    monkeypatch.setattr(tpred, "evaluate",
+                        lambda *a, **k: {"val_mae": next(scores)})
+    after_epoch = []
+    train_epoch = tpred.train_epoch
+
+    def record(ld):
+        out = train_epoch(ld)
+        after_epoch.append(tpred._state_copy())
+        return out
+
+    monkeypatch.setattr(tpred, "train_epoch", record)
+    best = tpred.fit(loader, val_loader=loader, epochs=3)
+    assert best == 1.0
+    final = tpred.model.state_dict()
+    assert all(torch.equal(final[k], after_epoch[0][k]) for k in final)
+    assert not all(torch.equal(final[k], after_epoch[2][k]) for k in final)
