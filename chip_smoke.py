@@ -5,17 +5,20 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives two paths of the port on 5,016 synthetic nodes with their exact
-100-nn graph (data and random weights from a seed): SGP serving,
+It drives three paths of the port on 5,016 synthetic nodes (data and random
+weights from a seed): SGP serving on the exact 100-nn graph,
 ``OnlineForecaster`` with the BSR propagation operator at the widths of
-``configs/largescale_100nn/sgp_pv.yaml``, and GatedGN training,
-``Predictor`` fed by ``WindowedLoader`` at the widths of
-``configs/largescale_100nn/gatedgn_pv.yaml``. In phases; any failure
-raises and the exit code is not 0:
+``configs/largescale_100nn/sgp_pv.yaml``; GatedGN training on the 100-nn
+graph, ``Predictor`` fed by ``WindowedLoader`` at the widths of
+``configs/largescale_100nn/gatedgn_pv.yaml``; and GatedGN training on the
+full similarity graph at the PV-US full-graph density (14.75%) through the
+dense all-pairs aggregation, at the widths of
+``configs/largescale/gatedgn_pv.yaml``. In phases; any failure raises and
+the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
-1. build both kernels, one ``nvcc`` each, in parallel
-   (``sgp_tpu_torch/csrc/bsr_spmm.cu`` and ``gn_ell.cu``);
+1. build the three kernels, one ``nvcc`` each, in parallel
+   (``sgp_tpu_torch/csrc/bsr_spmm.cu``, ``gn_ell.cu``, ``gn_allpairs.cu``);
 2. the BSR kernel against its plain PyTorch version on the card, at the
    slice's shapes and on ragged / empty-block-row graphs, f32 and bf16,
    with CUDA-event times of both;
@@ -31,7 +34,21 @@ raises and the exit code is not 0:
    steps with the plain ELL math on the card and one step of the port on
    the CPU; then step times (median and quartiles) and peak memory of the
    K4 and plain steps in alternating rounds, and the device's idle share
-   of each.
+   of each;
+6. the GatedGN all-pairs kernel, forward and backward, against its plain
+   version on the full graph in natural order (a full sweep), RCM-ordered
+   with per-block band windows, and on a ragged case with an asymmetric
+   mask, f32 and bf16, with CUDA-event times of both;
+7. the full-graph training slice: train steps and ``evaluate`` through the
+   all-pairs kernel, checked for launch counts and finite losses, held
+   against the same steps with the blocked plain all-pairs math on the card
+   and a first step of the port on the CPU (on fewer nodes at the same
+   density); then step times, peak memory and idle share of the K3 and
+   plain steps.
+
+Each kernel's bound is the larger of its bytes (each input read once, each
+output written once) over the H100's 3.35 TB/s and its f32 FFMA work over
+67 TFLOP/s (NVIDIA's data sheet, SXM part).
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -69,6 +86,11 @@ TOL_BF16 = 1e-2         # kernel vs plain, bf16 tiles: one bf16 ulp (2^-8)
 TOL_SLICE = 1e-4        # BSR-kernel forecaster vs dense / CPU forecaster
 
 GN_CONFIG = ROOT / "configs" / "largescale_100nn" / "gatedgn_pv.yaml"
+FULL_CONFIG = ROOT / "configs" / "largescale" / "gatedgn_pv.yaml"
+FULL_DENSITY = 0.1475   # PV-US full graph (paper Table 3)
+BAND_BLOCK = 256        # dst rows per window (the runners' auto_band)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
+FFMA_FLOPS = 67e12          # H100 SXM: f32 outside the tensor cores
 GRAD_CLIP = 5.0         # the runners' default (exp/common.py)
 TRAIN_STEPS = 8         # train steps of each training run
 EVAL_BATCHES = 2        # test batches of evaluate
@@ -96,6 +118,19 @@ TOL_GRAD = 1e-4         # first step's clipped gradients, card vs CPU,
 # other way, or a gradient off by a tenth, breaks it.
 TOL_PARAM = 1e-4
 GRAD_FLOOR = 1e-6
+# the all-pairs kernel against its plain version, relative to the plain
+# version's largest value: f32 2e-5 (the same f32 products summed in another
+# order, over up to 5,016 pairs a row and 3.7 M pairs for the weight
+# gradients); bf16 inputs 2e-2 (both round t, ghat and dmt at the same
+# places, so a value rounded the other way moves a result by one bf16 ulp)
+TOL_AP_F32 = 2e-5
+TOL_AP_BF16 = 2e-2
+AP_ROUNDS = 3           # K3 timing rounds at the slice's f32 shapes
+AP_PLAIN_ITERS = 2      # plain launches a timing sample (~0.1 s each)
+CPU_NODES = 1500        # phase 7's CPU step: fewer nodes, same density
+RAGGED_NODES = 1001     # phase 6's ragged case: N no multiple of anything
+FULL_TIME_ORDER = ("plain", "k3", "k3", "plain")  # phase 7 step timing
+FULL_TIME_STEPS = 8
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -145,14 +180,33 @@ def quartiles(v) -> dict:
             "q3": float(np.quantile(v, .75)), "n": int(v.size)}
 
 
-def interleaved_ms(kernel, plain, rounds: int, iters: int):
+def interleaved_ms(kernel, plain, rounds: int, iters: int,
+                   plain_iters: int = None):
     """CUDA-event ms of ``kernel`` and ``plain``, sampled in the order
     plain, kernel, kernel, plain ``rounds`` times: their quartiles."""
     samples = {kernel: [], plain: []}
+    n_iters = {kernel: iters, plain: plain_iters or iters}
     for _ in range(rounds):
         for fn in (plain, kernel, kernel, plain):
-            samples[fn].append(cuda_ms(fn, iters, warmup=2))
+            samples[fn].append(cuda_ms(fn, n_iters[fn], warmup=2))
     return quartiles(samples[kernel]), quartiles(samples[plain])
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 FFMA work over its peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FFMA_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def gated_chain_flops(pairs: int, h2: int, h: int) -> dict:
+    """FFMA work of the gated chain per direction: the w2 product and the
+    gate a pair forward; the recompute, dt, dw2 and three gate-sized sums
+    backward (activations run on the MUFU and are not counted)."""
+    fwd = pairs * (2 * h2 * h + 2 * h)
+    return {"fwd": fwd, "bwd": 3 * fwd}
 
 
 def phase0_card() -> str:
@@ -175,9 +229,9 @@ def phase0_card() -> str:
 
 
 def phase1_build():
-    from sgp_tpu_torch.ops import _build, bsr_kernel, gn_ell
+    from sgp_tpu_torch.ops import _build, bsr_kernel, gn_allpairs, gn_ell
     t0 = time.perf_counter()
-    built = _build.compile_all(["bsr_spmm", "gn_ell"])
+    built = _build.compile_all(["bsr_spmm", "gn_ell", "gn_allpairs"])
     print(f"[phase 1] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel")
     for name, (seconds, log) in built.items():
@@ -190,6 +244,7 @@ def phase1_build():
                 print(f"[phase 1]   {kernel}: {ln.strip()}")
     bsr_kernel.build()
     gn_ell.build()
+    gn_allpairs.build()
 
 
 def slice_setup(n_nodes: int, n_steps: int, device):
@@ -208,8 +263,25 @@ def slice_setup(n_nodes: int, n_steps: int, device):
     return ds, graph, scaler
 
 
+def library_bsr(op, x):
+    """One cuSPARSE BSR product through ``torch.sparse_bsr_tensor`` on the
+    same tiles (a yardstick; the port never calls it): ``(ms, out)``, or
+    ``(None, why)`` where this build refuses it."""
+    npad = (op.row_ptr.numel() - 1) * op.blocks.shape[-1]
+    xp = torch.zeros((npad, x.shape[1]), dtype=x.dtype, device=x.device)
+    xp[:x.shape[0]] = x
+    try:
+        a = torch.sparse_bsr_tensor(op.row_ptr, op.block_cols, op.blocks,
+                                    size=(npad, npad))
+        out = (a @ xp)[:x.shape[0]]
+        return cuda_ms(lambda: a @ xp), out
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        return None, f"{type(err).__name__}: {err}"[:300]
+
+
 def phase2_kernel(graph, device) -> dict:
-    """Kernel vs plain version on the card; returns the slice-shape row."""
+    """Kernel vs plain version on the card; returns the slice-shape row
+    with its bound and the library call's time."""
     from sgp_tpu_torch.encode import prepare_propagation_graphs
     from sgp_tpu_torch.graph import Graph, coalesce, normalize_adj
     from sgp_tpu_torch.ops import bsr_spmm, bsr_spmm_plain, build_operator
@@ -243,6 +315,17 @@ def phase2_kernel(graph, device) -> dict:
                        dtype=str(op.blocks.dtype).replace("torch.", ""),
                        max_abs_err=abs_err, rel_err=rel, tol=tol, ms=ms,
                        plain_ms=plain_ms)
+            if name == "slice" and f == 128 and precision == "highest":
+                # tiles, indices, x read once and the output written once;
+                # 2 FLOP per stored nonzero and column of x
+                nbytes = sum(t.numel() * t.element_size() for t in (
+                    *args, op.block_rows, x)) + x.numel() * 4
+                row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+                row["library_ms"], lib_out = library_bsr(op, x)
+                if row["library_ms"] is None:
+                    row["library_note"] = lib_out
+                else:
+                    row["library_max_abs_err"] = rel_err(lib_out, ref)[0]
             print(f"[phase 2] {json.dumps(row)}")
             assert got.shape == ref.shape and torch.isfinite(got).all()
             assert rel <= tol, f"kernel disagrees with plain: {row}"
@@ -385,6 +468,21 @@ def ell_inputs(rng, b, n, d, h2, h, dtype, device, empty_row=None):
             mk(1, scale=0.1)), mk(b, n, h)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ell_bounds(args, ghat, out, grads) -> dict:
+    """K4's bounds: every input read once and every output written once;
+    the chain's FFMA work on the valid (node, slot) pairs."""
+    p_i, pjn, nmask, w2 = args[:4]
+    pairs = int(nmask.sum()) * p_i.shape[0]
+    flops = gated_chain_flops(pairs, w2.shape[0], w2.shape[1])
+    return {f"{half}_{k}": v for half, nb in (
+        ("fwd", nbytes(*args, out)), ("bwd", nbytes(*args, ghat, *grads)))
+        for k, v in bound(nb, flops[half]).items()}
+
+
 def phase4_gn_ell(device, n_nodes: int, batch: int, hidden: int):
     """K4 forward and backward vs their plain versions on the card; returns
     the slice-shape f32 rows of both."""
@@ -433,7 +531,7 @@ def phase4_gn_ell(device, n_nodes: int, batch: int, hidden: int):
                        dtype=str(dtype).replace("torch.", ""), tol=tol,
                        rel_err={k: v[1] for k, v in errs.items()},
                        max_abs_err={k: v[0] for k, v in errs.items()},
-                       **times)
+                       **times, **ell_bounds(args, ghat, out, grads))
             print(f"[phase 4] {json.dumps(row)}")
             bad = {k: v[1] for k, v in errs.items() if not v[1] <= tol}
             assert not bad, f"K4 disagrees with plain ({name}, {dtype}): {bad}"
@@ -449,13 +547,13 @@ def gn_to_call(batch, training: bool):
                            "training": training, "neigh": batch["gn_neigh"]}
 
 
-def gn_data(raw, graph):
+def gn_data(raw, graph, config: Path = GN_CONFIG):
     """The runner's data path at the gatedgn_pv.yaml windows: day encoding
     as the exogenous input, temporal split, standard scaler fitted on the
     train windows' start steps."""
     from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
                                     TemporalSplitter, Windowing)
-    cfg = read_flat_yaml(GN_CONFIG)
+    cfg = read_flat_yaml(config)
     ds = SpatioTemporalDataset(
         raw.target, index=raw.index, mask=raw.mask, graph=graph,
         covariates={"u": raw.datetime_encoded("day")},
@@ -467,10 +565,11 @@ def gn_data(raw, graph):
     return cfg, ds, split
 
 
-def gn_predictor(cfg, ds, graph, device, init_state=None):
+def gn_predictor(cfg, ds, static, device, init_state=None,
+                 to_call=gn_to_call):
     """The gatedgn_pv.yaml model and trainer, initialized from ``SEED`` (or
-    from ``init_state``)."""
-    from sgp_tpu_torch.graph import padded_incoming
+    from ``init_state``); ``static`` holds the graph's layout, ``to_call``
+    hands it to the model."""
     from sgp_tpu_torch.models import GatedGraphNetworkMLPModel
     from sgp_tpu_torch.train import Predictor
     u_size = ds.covariates["u"].value.shape[-1]
@@ -482,10 +581,9 @@ def gn_predictor(cfg, ds, graph, device, init_state=None):
         positional_encoding=cfg["positional_encoding"],
         activation=cfg["activation"])
     pred = Predictor(model, loss="mae", lr=cfg["lr"], grad_clip=GRAD_CLIP,
-                     scale_target=cfg["scale_target"],
-                     batch_to_call=gn_to_call, seed=SEED,
-                     static_batch={"gn_neigh": padded_incoming(graph)},
-                     device=device)
+                     scale_target=cfg.get("scale_target", False),
+                     batch_to_call=to_call, seed=SEED,
+                     static_batch=static, device=device)
     pred.init(None, ds.scaler_params())
     if init_state is not None:
         pred.model.load_state_dict(init_state)
@@ -571,49 +669,75 @@ def plain_ell():
         graph_layers.gn_ell_aggregate = kernel
 
 
-def phase5_train(raw, graph, device) -> dict:
-    """The GatedGN training slice through K4, held against the plain ELL
-    math on the card and the port on the CPU; then timed against it."""
+class _PlainAllPairs(torch.autograd.Function):
+    """The blocked plain all-pairs forward and backward as one autograd
+    Function: at 5,016 nodes the unfused oracle would need tens of GB."""
+
+    @staticmethod
+    def forward(ctx, p_i, p_j, mask, w2, b2, wg, bg, activation, band):
+        from sgp_tpu_torch.ops import gn_allpairs
+        ctx.save_for_backward(p_i, p_j, mask, w2, b2, wg, bg)
+        ctx.activation, ctx.band = activation, band
+        return gn_allpairs.gn_allpairs_fwd_plain(p_i, p_j, mask, w2, b2, wg,
+                                                 bg, activation, band)
+
+    @staticmethod
+    def backward(ctx, ghat):
+        from sgp_tpu_torch.ops import gn_allpairs
+        dpi, dpj, dw2, db2, dwg, dbg = gn_allpairs.gn_allpairs_bwd_plain(
+            *ctx.saved_tensors, ghat, ctx.activation, ctx.band)
+        return dpi, dpj, None, dw2, db2, dwg, dbg, None, None
+
+
+@contextlib.contextmanager
+def plain_allpairs():
+    """The GatedGN layer's all-pairs aggregation through the blocked plain
+    math in place of K3: the reference the K3 training run is held
+    against."""
+    from sgp_tpu_torch.models import graph_layers
+    kernel = graph_layers.gn_allpairs_aggregate
+    graph_layers.gn_allpairs_aggregate = _PlainAllPairs.apply
+    try:
+        yield
+    finally:
+        graph_layers.gn_allpairs_aggregate = kernel
+
+
+def loaders(cfg, ds, split, steps=TRAIN_STEPS):
+    """The runner's train loader (``steps`` batches) and test loader."""
     from sgp_tpu_torch.data import WindowedLoader
-    from sgp_tpu_torch.graph import padded_incoming
-    from sgp_tpu_torch.ops import gn_ell
-    cfg, ds, split = gn_data(raw, graph)
-    src_idx, nmask = padded_incoming(graph)
-    print(f"[phase 5] {ds.n_nodes} nodes, ELL width D={src_idx.shape[1]} "
-          f"({nmask.mean():.4f} of slots valid), windows {len(ds)}, "
-          f"{split}, horizon steps {ds.windowing.horizon_steps}")
-    assert src_idx.shape[1] == KNN and nmask.all(), "not an exact k-nn graph"
+    return (WindowedLoader(ds, split.train, batch_size=cfg["batch_size"],
+                           shuffle=True, limit_batches=steps, seed=SEED),
+            WindowedLoader(ds, split.test, batch_size=cfg["batch_inference"],
+                           limit_batches=EVAL_BATCHES))
 
-    def loaders(steps=TRAIN_STEPS):
-        return (WindowedLoader(ds, split.train, batch_size=cfg["batch_size"],
-                               shuffle=True, limit_batches=steps, seed=SEED),
-                WindowedLoader(ds, split.test,
-                               batch_size=cfg["batch_inference"],
-                               limit_batches=EVAL_BATCHES))
 
-    # the main path: Predictor.init, train_epoch and evaluate through K4
-    gn_ell.gn_ell_fwd.launches = gn_ell.gn_ell_bwd.launches = 0
-    pred = gn_predictor(cfg, ds, graph, device)
+def train_and_hold(tag, label, cfg, ds, split, static, to_call, counters,
+                   plain_ctx, device) -> dict:
+    """The main path (``Predictor.init``, ``train_epoch``, ``evaluate``)
+    with the kernels' launch counters set to 0 just before it and read just
+    after; then the same steps with ``plain_ctx`` on the card, held to it."""
+    for fn in counters:
+        fn.launches = 0
+    pred = gn_predictor(cfg, ds, static, device, to_call=to_call)
     init_state = {k: v.detach().clone()
                   for k, v in pred.model.state_dict().items()}
-    train_loader, test_loader = loaders()
+    train_loader, test_loader = loaders(cfg, ds, split)
     losses, _, grads0 = train_steps(pred, train_loader, device)
     metrics = pred.evaluate(test_loader, prefix="test_")
-    launches = {"gn_ell_fwd": gn_ell.gn_ell_fwd.launches,
-                "gn_ell_bwd": gn_ell.gn_ell_bwd.launches}
+    launches = {fn.__name__: fn.launches for fn in counters}
     need = cfg["gnn_layers"] * TRAIN_STEPS
-    print(f"[phase 5] K4 launches on the main path: {json.dumps(launches)} "
-          f"({cfg['gnn_layers']} layers x {TRAIN_STEPS} steps = {need}, "
-          f"+ {EVAL_BATCHES} evaluate batches)")
-    assert launches["gn_ell_fwd"] >= need and launches["gn_ell_bwd"] >= need
+    print(f"[{tag}] {label} launches on the main path: "
+          f"{json.dumps(launches)} ({cfg['gnn_layers']} layers x "
+          f"{TRAIN_STEPS} steps = {need}, + {EVAL_BATCHES} evaluate batches)")
+    assert min(launches.values()) >= need, launches
     assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
     assert all(np.isfinite(v) for v in metrics.values()), metrics
-    print(f"[phase 5] K4 losses {losses}; {json.dumps(metrics)}")
+    print(f"[{tag}] {label} losses {losses}; {json.dumps(metrics)}")
 
-    # the same steps with the plain ELL math on the card
-    with plain_ell():
-        plain = gn_predictor(cfg, ds, graph, device, init_state)
-        train_loader, test_loader = loaders()
+    with plain_ctx():
+        plain = gn_predictor(cfg, ds, static, device, init_state, to_call)
+        train_loader, test_loader = loaders(cfg, ds, split)
         p_losses, _, _ = train_steps(plain, train_loader, device)
         p_metrics = plain.evaluate(test_loader, prefix="test_")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, p_losses))
@@ -627,7 +751,7 @@ def phase5_train(raw, graph, device) -> dict:
         held.append(d[grads0[k].abs() > GRAD_FLOOR])
     diffs, held = torch.cat(diffs), torch.cat(held)
     param_err = held.max().item()
-    print(f"[phase 5] K4 vs plain ELL on the card: losses max rel err "
+    print(f"[{tag}] {label} vs plain on the card: losses max rel err "
           f"{loss_err:.3e}, evaluate max rel err {met_err:.3e} (tol "
           f"{TOL_LOSS}); final parameters max abs diff {param_err:.3e} on "
           f"the {held.numel()} of {diffs.numel()} elements whose first "
@@ -635,46 +759,273 @@ def phase5_train(raw, graph, device) -> dict:
           f"{diffs.max().item():.3e} over all")
     assert loss_err <= TOL_LOSS and met_err <= TOL_LOSS
     assert param_err <= TOL_PARAM
+    return dict(pred=pred, plain=plain, init_state=init_state,
+                losses=losses, grads0=grads0, launches=launches)
 
-    # one step of the port on the CPU, from the same weights and batch
+
+def cpu_step(tag, cfg, ds, split, static, to_call, init_state, losses,
+             grads0, what: str):
+    """One step of the port on the CPU from the same weights and batch as
+    the card's first step (``losses[0]``, ``grads0``), held to it."""
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    on_cpu = gn_predictor(cfg, ds, graph, cpu,
-                          {k: v.cpu() for k, v in init_state.items()})
-    c_losses, _, c_grads = train_steps(on_cpu, loaders(1)[0], cpu)
+    on_cpu = gn_predictor(cfg, ds, static, cpu,
+                          {k: v.cpu() for k, v in init_state.items()},
+                          to_call)
+    c_losses, _, c_grads = train_steps(on_cpu, loaders(cfg, ds, split, 1)[0],
+                                       cpu)
     cpu_s = time.perf_counter() - t0
     c_err = abs(c_losses[0] - losses[0]) / abs(c_losses[0])
     g_err = max(rel_err(grads0[k], c_grads[k])[1] for k in grads0)
-    print(f"[phase 5] card vs CPU port, first step at the full size "
-          f"({ds.n_nodes} nodes, {cpu_s:.1f} s on the CPU): loss rel err "
-          f"{c_err:.3e} (tol {TOL_LOSS}), clipped gradients max rel err "
-          f"{g_err:.3e} (tol {TOL_GRAD})")
+    print(f"[{tag}] card vs CPU port, first step {what} ({ds.n_nodes} nodes, "
+          f"{cpu_s:.1f} s on the CPU): loss rel err {c_err:.3e} (tol "
+          f"{TOL_LOSS}), clipped gradients max rel err {g_err:.3e} (tol "
+          f"{TOL_GRAD})")
     assert c_err <= TOL_LOSS and g_err <= TOL_GRAD
+    return cpu_s
 
-    # step times and peak memory, K4 and plain in alternating rounds
-    preds = {"k4": (pred, contextlib.nullcontext), "plain": (plain, plain_ell)}
-    times, peak_mib = {"k4": [], "plain": []}, {}
-    for name in TIME_ORDER:
+
+def time_steps(tag, preds, cfg, ds, split, order, steps, device):
+    """Step times and peak memory of the kernel and plain trainers in
+    alternating rounds, then a profile of each: the idle share."""
+    times, peak_mib = {k: [] for k in preds}, {}
+    for name in order:
         model, ctx = preds[name]
         with ctx():
             torch.cuda.reset_peak_memory_stats()
-            _, t, _ = train_steps(model, loaders(TIME_STEPS)[0], device)
+            _, t, _ = train_steps(model, loaders(cfg, ds, split, steps)[0],
+                                  device)
             peak = torch.cuda.max_memory_allocated() / 2**20
         times[name] += [x * 1e3 for x in t[TIME_DROP:]]
         peak_mib[name] = max(peak_mib.get(name, 0.0), peak)
-    steps = {k: quartiles(v) for k, v in times.items()}
-    print(f"[phase 5] train-step ms (host clock, synchronized; "
-          f"{len(TIME_ORDER)} rounds of {TIME_STEPS} steps in the order "
-          f"{'/'.join(TIME_ORDER)}, the first {TIME_DROP} of each left "
-          f"out): {json.dumps(steps)}; peak device memory MiB "
-          f"(max_memory_allocated): {json.dumps(peak_mib)}")
+    stats = {k: quartiles(v) for k, v in times.items()}
+    print(f"[{tag}] train-step ms (host clock, synchronized; {len(order)} "
+          f"rounds of {steps} steps in the order {'/'.join(order)}, the "
+          f"first {TIME_DROP} of each left out): {json.dumps(stats)}; peak "
+          f"device memory MiB (max_memory_allocated): {json.dumps(peak_mib)}")
     for name, (model, ctx) in preds.items():
         with ctx():
-            prof = idle_share(model, loaders(PROFILE_STEPS + 1)[0],
-                              steps[name]["median"])
-        print(f"[phase 5] profile of {PROFILE_STEPS} {name} steps: "
+            prof = idle_share(model, loaders(cfg, ds, split,
+                                             PROFILE_STEPS + 1)[0],
+                              stats[name]["median"])
+        print(f"[{tag}] profile of {PROFILE_STEPS} {name} steps: "
               f"{json.dumps(prof)}")
-    return dict(launches=launches)
+
+
+def phase5_train(raw, graph, device) -> dict:
+    """The GatedGN training slice through K4, held against the plain ELL
+    math on the card and the port on the CPU; then timed against it."""
+    from sgp_tpu_torch.graph import padded_incoming
+    from sgp_tpu_torch.ops import gn_ell
+    cfg, ds, split = gn_data(raw, graph)
+    src_idx, nmask = padded_incoming(graph)
+    static = {"gn_neigh": (src_idx, nmask)}
+    print(f"[phase 5] {ds.n_nodes} nodes, ELL width D={src_idx.shape[1]} "
+          f"({nmask.mean():.4f} of slots valid), windows {len(ds)}, "
+          f"{split}, horizon steps {ds.windowing.horizon_steps}")
+    assert src_idx.shape[1] == KNN and nmask.all(), "not an exact k-nn graph"
+    run = train_and_hold("phase 5", "K4", cfg, ds, split, static, gn_to_call,
+                         (gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd), plain_ell,
+                         device)
+    cpu_step("phase 5", cfg, ds, split, static, gn_to_call,
+             run["init_state"], run["losses"], run["grads0"],
+             "at the full size")
+    time_steps("phase 5", {"k4": (run["pred"], contextlib.nullcontext),
+                           "plain": (run["plain"], plain_ell)},
+               cfg, ds, split, TIME_ORDER, TIME_STEPS, device)
+    return dict(launches=run["launches"])
+
+
+def full_graph(raw):
+    """The dataset's similarity thresholded at the PV-US full-graph
+    density: ``thr`` is its ``1 - 0.1475`` quantile, edges ``sim >= thr``
+    without self-loops (``bench.py``'s full graph)."""
+    thr = float(np.quantile(raw.get_similarity(), 1.0 - FULL_DENSITY))
+    return raw.get_connectivity(threshold=thr, include_self=False)
+
+
+def allpairs_inputs(rng, b, n, h2, h, dtype, mask, device):
+    """Random K3 inputs at a GatedGN layer's scales (see ell_inputs) on the
+    given ``[N, N]`` mask."""
+    def mk(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale).astype(
+            np.float32), device=device)
+    return (mk(b, n, h2).to(dtype), mk(b, n, h2).to(dtype), mask,
+            mk(h2, h, scale=0.3), mk(h, scale=0.1), mk(h, 1, scale=0.3),
+            mk(1, scale=0.1)), mk(b, n, h)
+
+
+def allpairs_bounds(args, ghat, out, grads, band) -> dict:
+    """K3's bounds: every input read once (the mask one byte an entry) and
+    every output written once; the chain's FFMA work on the masked pairs
+    inside the windows, not on all N^2."""
+    from sgp_tpu_torch.ops.gn_allpairs import row_blocks
+    p_i, _, mask, w2 = args[:4]
+    n = p_i.shape[1]
+    pairs = p_i.shape[0] * sum(
+        int(mask[r0:r1, c0:c1].count_nonzero())
+        for r0, r1, c0, c1 in row_blocks(n, w2.shape[1], 4, band))
+    flops = gated_chain_flops(pairs, w2.shape[0], w2.shape[1])
+    mask_bytes = n * n
+    rest = [t for t in args if t is not mask]
+    return {"pairs": pairs, **{f"{half}_{k}": v for half, nb in (
+        ("fwd", nbytes(*rest, out) + mask_bytes),
+        ("bwd", nbytes(*rest, ghat, *grads) + mask_bytes))
+        for k, v in bound(nb, flops[half]).items()}}
+
+
+def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
+    """K3 forward and backward vs their plain versions on the card: the
+    full graph in natural order (a full sweep, the main path's shapes),
+    RCM-ordered with per-block windows, and a ragged case (B 3, N 1,001,
+    an asymmetric mask, one empty row); f32 and bf16. Returns the main
+    path's f32 row."""
+    from sgp_tpu_torch.graph import band_windows, permute_nodes, rcm_order
+    from sgp_tpu_torch.ops import dense_adj_mask, gn_allpairs
+    rng = np.random.default_rng(SEED)
+    h, h2 = hidden, hidden // 2
+    t0 = time.perf_counter()
+    rcm = permute_nodes(graph, rcm_order(graph))
+    rcm_mask = dense_adj_mask(rcm, device=device)
+    band = band_windows(rcm_mask.cpu().numpy(), BAND_BLOCK, uniform=False)
+    n_r = RAGGED_NODES
+    ragged = torch.as_tensor(rng.random((n_r, n_r)) < FULL_DENSITY,
+                             device=device)
+    ragged[n_r // 2] = False
+    assert not torch.equal(ragged, ragged.T)
+    print(f"[phase 6] RCM order and windows in "
+          f"{time.perf_counter() - t0:.1f} s: block {band[0]}, widths "
+          f"{list(band[1])}; windowed pairs "
+          f"{sum(band[1]) * band[0] / graph.num_nodes ** 2:.3f} of N^2")
+    cases = [("slice", batch, dense_adj_mask(graph, device=device), None),
+             ("rcm band", batch, rcm_mask, band),
+             ("ragged", 3, ragged, None)]
+    rows = {}
+    for name, b, mask, bnd in cases:
+        n = mask.shape[0]
+        for dtype, tol in ((torch.float32, TOL_AP_F32),
+                           (torch.bfloat16, TOL_AP_BF16)):
+            args, ghat = allpairs_inputs(rng, b, n, h2, h, dtype, mask,
+                                         device)
+            out = gn_allpairs.gn_allpairs_fwd(*args, band=bnd)
+            grads = gn_allpairs.gn_allpairs_bwd(*args, ghat, band=bnd)
+            ref = gn_allpairs.gn_allpairs_fwd_plain(*args, band=bnd)
+            refg = gn_allpairs.gn_allpairs_bwd_plain(*args, ghat, band=bnd)
+            torch.cuda.synchronize()
+            assert out.shape == ref.shape and out.dtype == torch.float32
+            errs = {"out": rel_err(out, ref)}
+            for gname, g, r in zip(("d_pi", "d_pj", "dw2", "db2", "dwg",
+                                    "dbg"), grads, refg):
+                assert g.shape == r.shape and g.dtype == r.dtype, gname
+                assert torch.isfinite(g).all(), gname
+                errs[gname] = rel_err(g, r)
+            if name == "ragged":
+                assert not out[:, n_r // 2].any(), "an empty row got messages"
+            main = name == "slice" and dtype == torch.float32
+            rounds = AP_ROUNDS if main else 1
+            times = {}
+            for half, kernel, plain in (
+                    ("fwd", lambda: gn_allpairs.gn_allpairs_fwd(
+                        *args, band=bnd),
+                     lambda: gn_allpairs.gn_allpairs_fwd_plain(
+                         *args, band=bnd)),
+                    ("bwd", lambda: gn_allpairs.gn_allpairs_bwd(
+                        *args, ghat, band=bnd),
+                     lambda: gn_allpairs.gn_allpairs_bwd_plain(
+                         *args, ghat, band=bnd))):
+                k, p = interleaved_ms(kernel, plain, rounds, 10,
+                                      AP_PLAIN_ITERS)
+                times.update({f"{half}_ms": k["median"],
+                              f"{half}_plain_ms": p["median"],
+                              f"{half}_q1_q3": [k["q1"], k["q3"]],
+                              f"{half}_plain_q1_q3": [p["q1"], p["q3"]]})
+            row = dict(case=name, b=b, n=n, h2=h2, h=h,
+                       dtype=str(dtype).replace("torch.", ""), tol=tol,
+                       rel_err={k: v[1] for k, v in errs.items()},
+                       max_abs_err={k: v[0] for k, v in errs.items()},
+                       **times, **allpairs_bounds(args, ghat, out, grads, bnd))
+            print(f"[phase 6] {json.dumps(row)}")
+            bad = {k: v[1] for k, v in errs.items() if not v[1] <= tol}
+            assert not bad, f"K3 disagrees with plain ({name}, {dtype}): {bad}"
+            rows[(name, row["dtype"])] = row
+            del args, ghat, out, grads, ref, refg
+    return rows[("slice", "float32")]
+
+
+def full_setup(raw, graph, device):
+    """The full-graph slice's data, dense mask and window table, and the
+    runners' call (``--gn-aggregation dense``)."""
+    from sgp_tpu_torch.graph import auto_band
+    from sgp_tpu_torch.ops import dense_adj_mask
+    cfg, ds, split = gn_data(raw, graph, FULL_CONFIG)
+    band = auto_band(graph)
+
+    def to_call(batch, training):
+        return (batch["x"],), {"u": batch.get("u"),
+                               "node_index": batch.get("node_index"),
+                               "training": training, "adj": batch["gn_adj"],
+                               "adj_band": band}
+    return cfg, ds, split, dense_adj_mask(graph, device=device), band, to_call
+
+
+def phase7_full(raw, graph, device) -> dict:
+    """The full-graph GatedGN slice through K3, held against the blocked
+    plain all-pairs math on the card and, on CPU_NODES nodes at the same
+    density, the port on the CPU; then timed against it."""
+    from sgp_tpu_torch.data.datasets import SyntheticDiffusion
+    from sgp_tpu_torch.ops import gn_allpairs
+    cfg, ds, split, mask, band, to_call = full_setup(raw, graph, device)
+    print(f"[phase 7] {ds.n_nodes} nodes, {graph.num_edges} edges "
+          f"({graph.num_edges / ds.n_nodes ** 2:.4f} of N^2), auto_band: "
+          f"{'none, a full sweep' if band is None else band}; windows "
+          f"{len(ds)}, {split}, batch {cfg['batch_size']}, horizon steps "
+          f"{ds.windowing.horizon_steps}")
+    static = {"gn_adj": mask}
+    run = train_and_hold("phase 7", "K3", cfg, ds, split, static, to_call,
+                         (gn_allpairs.gn_allpairs_fwd,
+                          gn_allpairs.gn_allpairs_bwd), plain_allpairs,
+                         device)
+
+    # the first step on fewer nodes at the same density: K3 on the card,
+    # then the port on the CPU from the same weights
+    small = SyntheticDiffusion(num_nodes=CPU_NODES, num_steps=N_STEPS,
+                               seed=SEED)
+    s_graph = full_graph(small)
+    s_cfg, s_ds, s_split, s_mask, _, s_call = full_setup(small, s_graph,
+                                                         device)
+    s_pred = gn_predictor(s_cfg, s_ds, {"gn_adj": s_mask}, device,
+                          to_call=s_call)
+    s_init = {k: v.detach().clone()
+              for k, v in s_pred.model.state_dict().items()}
+    s_losses, _, s_grads = train_steps(
+        s_pred, loaders(s_cfg, s_ds, s_split, 1)[0], device)
+    cpu_s = cpu_step("phase 7", s_cfg, s_ds, s_split,
+                     {"gn_adj": s_mask.cpu()}, s_call, s_init, s_losses,
+                     s_grads, f"on {CPU_NODES} nodes at density "
+                     f"{s_graph.num_edges / CPU_NODES ** 2:.4f}")
+    print(f"[phase 7] the CPU step at {ds.n_nodes} nodes would take about "
+          f"{cpu_s * (ds.n_nodes / CPU_NODES) ** 2:.0f} s (the pairs grow "
+          f"as N^2)")
+
+    time_steps("phase 7", {"k3": (run["pred"], contextlib.nullcontext),
+                           "plain": (run["plain"], plain_allpairs)},
+               cfg, ds, split, FULL_TIME_ORDER, FULL_TIME_STEPS, device)
+    return dict(launches=run["launches"])
+
+
+def kernel_entry(name, source, replaces, launches, row, half=""):
+    """One kernel's line of the kernels JSON from its main-path row."""
+    pre = f"{half}_" if half else ""
+    errs = row["max_abs_err"]
+    if isinstance(errs, dict):
+        errs = errs["out"] if half == "fwd" else max(
+            v for k, v in errs.items() if k != "out")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": errs,
+            "ms": row[f"{pre}ms"], "plain_ms": row[f"{pre}plain_ms"],
+            "bound_ms": row[f"{pre}bound_ms"],
+            "bound_by": row[f"{pre}bound_by"],
+            "library_ms": row.get("library_ms")}
 
 
 def main():
@@ -688,23 +1039,29 @@ def main():
     k4 = phase4_gn_ell(device, N_NODES, cfg["batch_size"],
                        cfg["hidden_size"])
     train = phase5_train(ds, graph, device)
-    kernels = [{
-        "name": "bsr_spmm", "route": "cuda",
-        "source": "sgp_tpu_torch/csrc/bsr_spmm.cu",
-        "replaces": "sgp_tpu/ops/bsr_kernel.py:39",
-        "launches": res["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]
+    t0 = time.perf_counter()
+    full = full_graph(ds)
+    print(f"[setup] the full graph at density {FULL_DENSITY}: "
+          f"{full.num_edges} edges in {time.perf_counter() - t0:.1f} s")
+    full_cfg = read_flat_yaml(FULL_CONFIG)
+    k3 = phase6_gn_allpairs(full, device, full_cfg["batch_size"],
+                            full_cfg["hidden_size"])
+    full_train = phase7_full(ds, full, device)
+    kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+                            "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
+                            k1)]
     for name, line, half in (("gn_ell_fwd", 104, "fwd"),
                              ("gn_ell_bwd", 114, "bwd")):
-        errs = k4["max_abs_err"]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "sgp_tpu_torch/csrc/gn_ell.cu",
-            "replaces": f"sgp_tpu/ops/gn_ell.py:{line}",
-            "launches": train["launches"][name],
-            "max_abs_err": errs["out"] if half == "fwd" else max(
-                v for k, v in errs.items() if k != "out"),
-            "ms": k4[f"{half}_ms"], "plain_ms": k4[f"{half}_plain_ms"]})
+        kernels.append(kernel_entry(
+            name, "sgp_tpu_torch/csrc/gn_ell.cu",
+            f"sgp_tpu/ops/gn_ell.py:{line}", train["launches"][name], k4,
+            half))
+    for name, line, half in (("gn_allpairs_fwd", 130, "fwd"),
+                             ("gn_allpairs_bwd", 162, "bwd")):
+        kernels.append(kernel_entry(
+            name, "sgp_tpu_torch/csrc/gn_allpairs.cu",
+            f"sgp_tpu/ops/gn_allpairs.py:{line}",
+            full_train["launches"][name], k3, half))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,8 @@ class SGPSpatialEncoder:
 
 class SGPEncoder:
     """Reservoir -> K-hop spatial propagation (the full SGP encoder).
-    ``device`` is where the reservoir weights live."""
+    ``device`` is where the reservoir weights live (default ``cuda:0``;
+    ``"cpu"`` for the CPU)."""
 
     def __init__(self, input_size: int, reservoir_size: int = 32,
                  reservoir_layers: int = 1, leaking_rate: float = 0.9,

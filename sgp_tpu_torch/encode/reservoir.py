@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from sgp_tpu_torch.ops.linalg import spectral_radius_exact
+from sgp_tpu_torch.utils.device import resolve_device
 
 
 def self_normalizing_activation(x: torch.Tensor, r: float = 1.0):
@@ -71,7 +72,8 @@ def _init_layer(rng: np.random.Generator, input_size: int, hidden_size: int,
 
 class Reservoir:
     """Stacked frozen echo-state layers with optional alpha decay
-    (alpha decremented by 0.1 per layer, clipped to [0.1, 1])."""
+    (alpha decremented by 0.1 per layer, clipped to [0.1, 1]). The weights
+    live on ``device`` (default ``cuda:0``; ``"cpu"`` for the CPU)."""
 
     def __init__(self, input_size: int, hidden_size: int,
                  input_scaling: float = 1.0, num_layers: int = 1,
@@ -84,6 +86,7 @@ class Reservoir:
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.activation = activation
+        device = resolve_device(device)
         rng = np.random.default_rng(seed)
         layers: List[ReservoirLayerParams] = []
         alpha = leaking_rate

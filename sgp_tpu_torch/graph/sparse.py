@@ -1,9 +1,11 @@
 """Host-side sparse graph representation and graph algorithms.
 
 A numpy copy of the part of ``sgp_tpu/graph/sparse.py`` that the serving
-and GatedGN training paths reach, held bit-exact against it by the parity tests. Graphs are
-prepared once on the host; device compute consumes a dense operator or the
-packed block-sparse tiles of :meth:`Graph.to_bsr` (``sgp_tpu_torch.ops``).
+and GatedGN training paths reach, held bit-exact against it by the parity
+tests. Graphs are prepared once on the host; device compute consumes a
+dense operator, the packed block-sparse tiles of :meth:`Graph.to_bsr`, the
+ELL table of :func:`padded_incoming` or a dense mask with the band windows
+of :func:`band_windows` / :func:`auto_band` (``sgp_tpu_torch.ops``).
 
 Conventions
 -----------
@@ -184,6 +186,87 @@ def edge_dropout(g: Graph, p: float, rng: np.random.Generator) -> Graph:
         return g
     keep = rng.random(g.num_edges) >= p
     return Graph(g.src[keep], g.dst[keep], g.weight[keep], g.num_nodes)
+
+
+def rcm_order(g: Graph) -> np.ndarray:
+    """Reverse-Cuthill-McKee node order of ``A + A^T``: it gathers the
+    edges near the diagonal, so each block of dst rows of the dense
+    all-pairs mask touches a narrow band of columns (:func:`band_windows`).
+    Returns ``perm`` (new position -> old id)."""
+    mat = g.to_scipy() + g.to_scipy().T
+    return np.asarray(
+        sp.csgraph.reverse_cuthill_mckee(mat.tocsr(), symmetric_mode=True),
+        np.int64)
+
+
+def permute_nodes(g: Graph, perm: np.ndarray) -> Graph:
+    """Relabel nodes so new node ``i`` is old node ``perm[i]``."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return Graph(inv[g.src], inv[g.dst], g.weight, g.num_nodes)
+
+
+def _block_bounds(dst: np.ndarray, src: np.ndarray, n: int, block: int):
+    """Per block of ``block`` dst rows, the first and last src column of
+    its edges (``(0, 0)`` for a block without edges)."""
+    n_blk = -(-n // block)
+    lo = np.full(n_blk, n, np.int64)
+    hi = np.full(n_blk, -1, np.int64)
+    blk = np.asarray(dst, np.int64) // block
+    np.minimum.at(lo, blk, src)
+    np.maximum.at(hi, blk, src)
+    empty = hi < 0
+    lo[empty], hi[empty] = 0, 0
+    return [(int(a), int(b)) for a, b in zip(lo, hi)]
+
+
+def _windows(bounds, n: int, block: int, width_mult: int, uniform: bool):
+    width = max([1] + [hi - lo + 1 for lo, hi in bounds])
+    width = min(n, -(-width // width_mult) * width_mult)
+    if uniform:
+        return block, width, tuple(min(max(lo, 0), n - width)
+                                   for lo, _ in bounds)
+    widths = tuple(min(n, -(-max(hi - lo + 1, 1) // width_mult) * width_mult)
+                   for lo, hi in bounds)
+    los = tuple(min(max(lo, 0), n - w) for (lo, _), w in zip(bounds, widths))
+    return block, widths, los
+
+
+def band_windows(dense_adj: np.ndarray, block: int, width_mult: int = 128,
+                 uniform: bool = True):
+    """Per-row-block column windows of an ``A[dst, src]`` matrix (nonzero =
+    edge): for each block of ``block`` dst rows, the smallest column
+    interval that covers its edges, padded to a multiple of
+    ``width_mult`` and clamped into ``[0, N]``.
+
+    Returns ``(block, width, los)``: ``width`` one int, or with
+    ``uniform=False`` a tuple of one width per block; ``los`` a tuple of
+    each block's first column. The dense all-pairs GatedGN aggregation
+    (``adj_band=``) then computes only the pairs inside the windows."""
+    dst, src = np.nonzero(np.asarray(dense_adj) != 0)
+    n = np.asarray(dense_adj).shape[0]
+    return _windows(_block_bounds(dst, src, n, block), n, block, width_mult,
+                    uniform)
+
+
+def auto_band(g: Graph, block: int = 256, width_mult: int = 128,
+              max_nodes: int = 20000, max_frac: float = 0.6):
+    """Variable-width band windows of ``g`` in its own node order, or
+    ``None`` (a full sweep) when the windowed pairs would reach
+    ``max_frac`` of ``N^2`` or ``N`` exceeds ``max_nodes``. Stored zero
+    weights are not edges. Built from the edge list in O(E); the JAX
+    package's densifies, which its ``max_nodes`` guard bounds and this
+    keeps, so both return the same."""
+    n = g.num_nodes
+    if n > max_nodes:
+        return None
+    keep = g.weight != 0
+    band = _windows(_block_bounds(g.dst[keep], g.src[keep], n, block), n,
+                    block, width_mult, uniform=False)
+    blk, widths, _ = band
+    if sum(widths) * blk >= max_frac * n * n:
+        return None
+    return band
 
 
 def padded_incoming(g: Graph, pad_to: Optional[int] = None):

@@ -4,8 +4,9 @@ Counterpart of ``sgp_tpu/models/gated_gn.py``: ``GatedGraphNetworkMLPModel``
 (``lib/nn/models/gated_gn_model.py:83-159``) flattens the input window per
 node, encodes it with a residual MLP, adds an optional node embedding, runs
 a stack of :class:`GatedGraphNetwork` layers, a residual decoder layer and
-a linear horizon readout. Without an edge list or ``neigh`` it builds the
-all-pairs edge list (:func:`full_graph_edges`).
+a linear horizon readout. ``neigh`` selects the ELL aggregation, ``adj``
+(and ``adj_band``) the dense all-pairs one; without an edge list or either
+of them it builds the all-pairs edge list (:func:`full_graph_edges`).
 
 PyTorch needs the input width up front: ``input_size`` is the channels per
 step the model sees, exogenous ones included. The convolutional variant
@@ -50,8 +51,11 @@ class _GatedGNBase(nn.Module):
         self.activation = activation
         self.emb = StaticGraphEmbedding(n_nodes, hidden_size) \
             if positional_encoding else None
+        # every layer keeps its own all-pairs residuals: a 12 GB total
+        # budget split across the stack, as in the JAX model
         self.gnn = nn.ModuleList(
-            GatedGraphNetwork(hidden_size, hidden_size, activation)
+            GatedGraphNetwork(hidden_size, hidden_size, activation,
+                              resid_budget_gb=12.0 / max(gnn_layers, 1))
             for _ in range(gnn_layers))
         self.dec = nn.Linear(hidden_size, hidden_size)
         self.readout = nn.Linear(hidden_size, horizon * output_size)
@@ -65,12 +69,13 @@ class _GatedGNBase(nn.Module):
         reset_linear(self.readout, generator)
 
     def _decode(self, x, node_index, src, dst, edge_mask=None, neigh=None,
-                adj=None):
+                adj=None, adj_band=None):
         act = get_activation(self.activation)
         if self.emb is not None:
             x = x + self.emb(token_index=node_index)
         for layer in self.gnn:
-            x = layer(x, src, dst, edge_mask=edge_mask, neigh=neigh, adj=adj)
+            x = layer(x, src, dst, edge_mask=edge_mask, neigh=neigh, adj=adj,
+                      adj_band=adj_band)
         x = act(self.dec(x)) + x
         out = self.readout(x)
         b, n = out.shape[0], out.shape[1]
@@ -108,8 +113,8 @@ class GatedGraphNetworkMLPModel(_GatedGNBase):
         self._reset_decoder(generator)
 
     def forward(self, x, src=None, dst=None, u=None, node_index=None,
-                edge_mask=None, neigh=None, adj=None, training: bool = False,
-                **kwargs):
+                edge_mask=None, neigh=None, adj=None, adj_band=None,
+                training: bool = False, **kwargs):
         act = get_activation(self.activation)
         if u is not None:
             if u.ndim == 3:  # global exog -> broadcast over nodes
@@ -124,4 +129,5 @@ class GatedGraphNetworkMLPModel(_GatedGNBase):
         h = self.enc_in(xw.permute(0, 2, 1, 3).reshape(b, n, s * f))
         for blk in self.enc:
             h = blk["outer"](act(blk["inner"](h))) + h
-        return self._decode(h, node_index, src, dst, edge_mask, neigh, adj)
+        return self._decode(h, node_index, src, dst, edge_mask, neigh, adj,
+                            adj_band)

@@ -13,17 +13,27 @@ aggregation layouts are ported:
   the plain ELL math, as the JAX layer takes its XLA path.
 - the edge list, ``src``/``dst`` ``[E]``: gather, message MLP and gate per
   edge, then a sum into the destinations with ``index_add_``.
-
-The dense all-pairs layout (``adj=``) needs kernel K3, not ported yet.
+- dense all-pairs, ``adj [N, N]`` (``adj[dst, src] != 0`` marks an edge,
+  from ``ops.dense_adj_mask``) and optionally ``adj_band`` (the window
+  table of ``graph.band_windows``/``auto_band``): the gated messages of
+  every masked pair, without a gather. With an activation of the kernel's
+  table this goes through ``ops/gn_allpairs.py::gn_allpairs_aggregate``,
+  which runs kernel K3 on a CUDA tensor (with or without the window table)
+  and its plain version on a CPU one. Another activation takes the JAX
+  layer's blocked plain math, checkpointing each block of dst rows when the
+  saved ``[.., rows, W, h]`` residuals would exceed ``resid_budget_gb``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sgp_tpu_torch.models.blocks import (get_activation, lecun_normal_,
                                          reset_linear)
 from sgp_tpu_torch.ops.activations import ACTIVATIONS
+from sgp_tpu_torch.ops.gn_allpairs import gn_allpairs_aggregate, row_blocks
 from sgp_tpu_torch.ops.gn_ell import gn_ell_aggregate
 
 
@@ -36,14 +46,19 @@ class GatedGraphNetwork(nn.Module):
 
     Layers, in the JAX layer's creation order: ``p_i``, ``p_j`` (no bias),
     ``msg``, ``gate``, ``update1`` (on ``[agg, x]``), ``update2`` and, when
-    the input width differs from ``output_size``, ``skip``."""
+    the input width differs from ``output_size``, ``skip``.
+
+    ``resid_budget_gb``: the all-pairs plain math checkpoints its blocks
+    when this layer's saved residuals would exceed it (the JAX layer's
+    heuristic; the model splits a 12 GB total across its layers)."""
 
     def __init__(self, input_size: int, output_size: int,
-                 activation: str = "silu"):
+                 activation: str = "silu", resid_budget_gb: float = 6.0):
         super().__init__()
         h2 = output_size // 2
         self.output_size = output_size
         self.activation = activation
+        self.resid_budget_gb = resid_budget_gb
         self.p_i = nn.Linear(input_size, h2)
         self.p_j = nn.Linear(input_size, h2, bias=False)
         self.msg = nn.Linear(h2, output_size)
@@ -62,15 +77,13 @@ class GatedGraphNetwork(nn.Module):
                 reset_linear(lin, generator)
 
     def forward(self, x, src=None, dst=None, edge_mask=None, neigh=None,
-                adj=None):
-        if adj is not None:
-            raise NotImplementedError(
-                "the dense all-pairs GatedGN aggregation (adj=) needs kernel "
-                "K3 (sgp_tpu/ops/gn_allpairs.py), which is not ported yet")
+                adj=None, adj_band=None):
         act = get_activation(self.activation)
         n = x.shape[-2]
         p_i, p_j = self.p_i(x), self.p_j(x)
-        if neigh is not None:
+        if adj is not None:
+            agg = self._all_pairs(p_i, p_j, adj, adj_band).to(x.dtype)
+        elif neigh is not None:
             src_idx, nmask = neigh
             d = src_idx.shape[1]
             pj_n = p_j[..., src_idx.reshape(-1).long(), :]
@@ -98,6 +111,37 @@ class GatedGraphNetwork(nn.Module):
         out = self.update2(act(out))
         skip = x if self.skip is None else self.skip(x)
         return (out + skip).to(x.dtype)
+
+    def _all_pairs(self, p_i, p_j, adj, band):
+        lead, (n, h2) = p_i.shape[:-2], p_i.shape[-2:]
+        if self.activation in ACTIVATIONS:
+            return gn_allpairs_aggregate(
+                p_i.reshape(-1, n, h2), p_j.reshape(-1, n, h2), adj,
+                self.msg.weight.T, self.msg.bias, self.gate.weight.T,
+                self.gate.bias, self.activation, band
+            ).reshape(lead + (n, self.output_size))
+        act = get_activation(self.activation)
+        mask = (adj != 0).to(p_i.dtype)
+
+        def block(pi_b, pj_b, mask_b):
+            m = self._message(act(pi_b.unsqueeze(-2) + pj_b.unsqueeze(-3)))
+            return torch.einsum("ij,...ijh->...ih", mask_b, m)
+
+        if band is None:
+            w_mean = n
+        elif isinstance(band[1], (tuple, list)):
+            w_mean = sum(band[1]) / len(band[1])
+        else:
+            w_mean = band[1]
+        resid_gb = (int(np.prod(lead)) or 1) * n * w_mean * \
+            self.output_size * p_i.element_size() / 2 ** 30
+        run = (lambda *a: checkpoint(block, *a, use_reentrant=False)) \
+            if resid_gb > self.resid_budget_gb else block
+        return torch.cat([run(p_i[..., r0:r1, :], p_j[..., c0:c1, :],
+                              mask[r0:r1, c0:c1])
+                          for r0, r1, c0, c1 in row_blocks(
+                              n, self.output_size, p_i.element_size(), band)],
+                         dim=-2)
 
     def _message(self, m):
         m = get_activation(self.activation)(self.msg(m))

@@ -6,10 +6,11 @@ from sgp_tpu_torch.ops.spmm import (
     DenseOperator,
     GlobalMeanOperator,
     build_operator,
+    dense_adj_mask,
 )
 
 __all__ = [
     "BSROperator", "COOOperator", "DenseOperator", "GlobalMeanOperator",
-    "build_operator", "bsr_spmm", "bsr_spmm_plain",
+    "build_operator", "bsr_spmm", "bsr_spmm_plain", "dense_adj_mask",
     "spectral_radius_exact",
 ]

@@ -21,6 +21,7 @@ import torch
 
 from sgp_tpu_torch.graph.sparse import Graph
 from sgp_tpu_torch.ops.bsr_kernel import BLOCK, bsr_spmm, prepare_bsr
+from sgp_tpu_torch.utils.device import resolve_device
 
 
 class DenseOperator:
@@ -163,3 +164,19 @@ def build_operator(g: Graph, mode: str = "auto", dtype=torch.float32,
             torch.as_tensor(g.weight, device=device).to(dtype), g.num_nodes)
     raise ValueError(f"unknown operator mode {mode!r}")
 
+
+def dense_adj_mask(g: Graph, dtype=torch.uint8, device=None) -> torch.Tensor:
+    """Binary dense adjacency ``mask[dst, src] = 1`` (``Graph.to_dense``'s
+    orientation), scattered on ``device`` (default ``cuda:0``) from the
+    edge list, so only the ``E`` indices cross to the card, not ``N^2``
+    host bytes. Stored zero weights are not edges. The input of the dense
+    all-pairs GatedGN aggregation, whose kernel reads one byte per entry
+    (the JAX package's default dtype is bf16; any dtype gives the same
+    edges)."""
+    device = resolve_device(device)
+    keep = g.weight != 0
+    src = torch.as_tensor(g.src[keep].astype(np.int64), device=device)
+    dst = torch.as_tensor(g.dst[keep].astype(np.int64), device=device)
+    mask = torch.zeros((g.num_nodes, g.num_nodes), dtype=dtype, device=device)
+    mask[dst, src] = 1
+    return mask

@@ -18,6 +18,7 @@ import torch
 from sgp_tpu_torch.data.scalers import ScalerParams
 from sgp_tpu_torch.encode.encoders import SGPEncoder, build_streaming_ops
 from sgp_tpu_torch.graph.sparse import Graph
+from sgp_tpu_torch.utils.device import resolve_device
 
 
 class OnlineForecaster:
@@ -42,8 +43,9 @@ class OnlineForecaster:
         n_streams: serve ``S`` independent streams in the same step:
             states stack on a leading stream axis and ``step`` takes and
             returns ``[S, N, C]`` / ``[S, H, N, C]``.
-        device: where the state, operators and computation live; the
-            encoder's reservoir, the model and the scaler must be there.
+        device: where the state, operators and computation live
+            (default ``cuda:0``; ``"cpu"`` for the CPU); the encoder's
+            reservoir, the model and the scaler must be there.
     """
 
     def __init__(self, encoder: SGPEncoder, graph: Graph, model,
@@ -52,8 +54,7 @@ class OnlineForecaster:
                  device=None):
         self.model = model.eval()
         self.scaler = scaler
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.store_dtype = None if store_dtype is None else \
             getattr(torch, str(store_dtype).replace("torch.", ""))
         self._res = encoder.reservoir

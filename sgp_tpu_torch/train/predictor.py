@@ -32,6 +32,7 @@ import torch
 from sgp_tpu_torch.data.scalers import Scaler, ScalerParams
 from sgp_tpu_torch.train.metrics import (_METRIC_FNS, MaskedMetrics,
                                          _masked_reduce)
+from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -88,10 +89,9 @@ class Predictor:
         """``static_batch``: per-run graph state (ELL neighbour tables,
         edge lists) merged into every batch, moved to the device once.
         Keys already present in a batch win. ``device``: where the model
-        and the batches live (default: where the model's parameters are)."""
+        and the batches live (default ``cuda:0``; ``"cpu"`` for the CPU)."""
         self.model = model
-        self.device = torch.device(device) if device is not None \
-            else next(model.parameters()).device
+        self.device = resolve_device(device)
         self.static_batch = {k: _to_device(v, self.device)
                              for k, v in (static_batch or {}).items()}
         self.loss_kind = loss

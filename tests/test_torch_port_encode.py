@@ -67,7 +67,7 @@ def test_sgp_encoder_matches(rng, kw):
     x = rng.standard_normal((12, 40, 2)).astype(np.float32)
     common = dict(input_size=2, reservoir_size=6, reservoir_layers=2,
                   alpha_decay=True, seed=5, **kw)
-    je, te = JEncoder(**common), SGPEncoder(**common)
+    je, te = JEncoder(**common), SGPEncoder(**common, device="cpu")
     assert je.output_size == te.output_size
     _close(je(jnp.asarray(x), jgr), te(torch.as_tensor(x), tgr))
     _close(je(jnp.asarray(x), jgr, time_chunk=5),

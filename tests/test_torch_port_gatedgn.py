@@ -4,8 +4,12 @@ forward and gradients.
 
 The JAX side runs its fused ELL kernel through the Pallas interpreter
 (``graph_layers.ELL_PALLAS = True``, set and restored here); the port runs
-``gn_ell_aggregate``'s plain version, the CPU side of kernel K4. Tolerance
-1e-4 (f32; the same products summed in other orders through two layers).
+``gn_ell_aggregate``'s plain version, the CPU side of kernel K4. The dense
+all-pairs layout (``adj=``, ``adj_band=``) is held against both JAX paths:
+its blocked XLA math and its Pallas kernel (``ALLPAIRS_PALLAS = True``); the
+port runs ``gn_allpairs_aggregate``'s plain version, the CPU side of kernel
+K3. Tolerance 1e-4 (f32; the same products summed in other orders through
+two layers).
 """
 import jax
 import jax.numpy as jnp
@@ -18,7 +22,7 @@ from sgp_tpu.models import graph_layers as j_graph_layers
 from sgp_tpu.models.gated_gn import GatedGraphNetworkMLPModel as JModel
 from sgp_tpu.models.graph_layers import GatedGraphNetwork as JLayer
 
-from sgp_tpu_torch.graph import Graph, coalesce, padded_incoming
+from sgp_tpu_torch.graph import Graph, band_windows, coalesce, padded_incoming
 from sgp_tpu_torch.models import (GatedGraphNetwork, GatedGraphNetworkMLPModel,
                                   flax_to_torch)
 from sgp_tpu_torch.models import graph_layers
@@ -54,6 +58,14 @@ def _ell_pallas(fn):
         return fn()
     finally:
         j_graph_layers.ELL_PALLAS = None
+
+
+def _allpairs_pallas(fn):
+    j_graph_layers.ALLPAIRS_PALLAS = True
+    try:
+        return fn()
+    finally:
+        j_graph_layers.ALLPAIRS_PALLAS = None
 
 
 def _close(got, want, tol=TOL, name=""):
@@ -147,7 +159,8 @@ def test_layer_plain_ell_math_matches_kernel_path(monkeypatch):
     training run against) agree with the kernel path, values and
     gradients."""
     rng = np.random.default_rng(4)
-    _, tneigh = _neigh(_graph(4))
+    g = _graph(4)
+    _, tneigh = _neigh(g)
     x = torch.as_tensor(rng.standard_normal((2, N, 8)).astype(np.float32))
     tl = GatedGraphNetwork(8, 16)
     tl.reset_parameters(torch.Generator().manual_seed(0))
@@ -170,8 +183,60 @@ def test_layer_plain_ell_math_matches_kernel_path(monkeypatch):
             _close(torch.as_tensor(got_g[k]), want_g[k], 5e-5)
     tl.activation = "gelu"
     assert torch.isfinite(tl(x, neigh=tneigh)).all()
-    with pytest.raises(NotImplementedError, match="K3"):
-        tl(x, adj=torch.ones(N, N))
+    # outside the table the dense layout takes the blocked plain math, the
+    # same function as the edge list
+    edges = tl(x, torch.as_tensor(g.src), torch.as_tensor(g.dst))
+    _close(tl(x, adj=torch.as_tensor(g.to_dense())), edges.detach().numpy(),
+           2e-5)
+
+
+def _adj_band(g, uniform):
+    """The dense mask of ``g`` and its band windows (blocks of 4 rows)."""
+    adj = g.to_dense()
+    if uniform is None:
+        return adj, None
+    return adj, band_windows(adj, block=4, width_mult=4, uniform=uniform)
+
+
+def _local_graph(seed=9, n=2 * N):
+    """Sources within 3 of each destination: the windows cut columns."""
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(n), 3)
+    src = np.clip(dst + rng.integers(-3, 4, len(dst)), 0, n - 1)
+    return coalesce(Graph(src, dst, np.ones(len(src), np.float32), n))
+
+
+@pytest.mark.parametrize("activation,jax_path,uniform", [
+    ("silu", "xla", None), ("tanh", "pallas", None), ("elu", "xla", True),
+    ("relu", "xla", False), ("gelu", "xla", False)])
+def test_layer_allpairs_matches_flax(activation, jax_path, uniform):
+    """``adj`` (and ``adj_band``) against the flax layer's blocked XLA path
+    or its Pallas kernel (a full sweep only), values and gradients; gelu
+    takes both sides' plain math."""
+    rng = np.random.default_rng(10)
+    g = _local_graph()
+    adj, band = _adj_band(g, uniform)
+    if band is not None:
+        widths = band[1] if uniform is False else (band[1],)
+        assert max(widths) < 2 * N
+    x = rng.standard_normal((2, 2 * N, 6)).astype(np.float32)
+    jl = JLayer(output_size=16, activation=activation)
+    params = jl.init(jax.random.PRNGKey(6), x, adj=adj, adj_band=band)
+    tl = GatedGraphNetwork(6, 16, activation)
+    targets = {}
+    _gn_layer(targets, (), tl)
+    _load(jax.tree.map(np.asarray, params), targets)
+
+    def loss_j(p):
+        return jnp.sum(jnp.sin(jl.apply(p, x, adj=adj, adj_band=band)))
+
+    run = _allpairs_pallas if jax_path == "pallas" else (lambda fn: fn())
+    want = run(lambda: jl.apply(params, x, adj=adj, adj_band=band))
+    jgrads = run(lambda: jax.grad(loss_j)(params))
+    got = tl(torch.as_tensor(x), adj=torch.as_tensor(adj), adj_band=band)
+    _close(got, want)
+    torch.sin(got).sum().backward()
+    _check_grads(targets, jgrads)
 
 
 def _models(**kw):
@@ -184,9 +249,9 @@ def _models(**kw):
     return jm, tm
 
 
-def _model_inputs(seed=5):
+def _model_inputs(seed=5, n=N):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((2, 6, N, 1)).astype(np.float32)   # [b s n f]
+    x = rng.standard_normal((2, 6, n, 1)).astype(np.float32)   # [b s n f]
     u = rng.standard_normal((2, 6, 2)).astype(np.float32)      # global exog
     return x, u
 
@@ -219,6 +284,55 @@ def test_model_full_graph_matches_flax():
     flax_to_torch(jax.tree.map(np.asarray, params), tm)
     _close(tm(torch.as_tensor(x), u=torch.as_tensor(u)),
            jm.apply(params, x, u=u))
+
+
+@pytest.mark.parametrize("uniform", [None, False])
+def test_model_allpairs_matches_flax(uniform):
+    """The whole model on the dense mask (and windows), values and
+    gradients, against flax's blocked XLA path."""
+    g = _local_graph(11)
+    adj, band = _adj_band(g, uniform)
+    x, u = _model_inputs(11, 2 * N)
+    jm, tm = _models(n_nodes=2 * N)
+    params = jm.init(jax.random.PRNGKey(7), x, u=u, adj=adj, adj_band=band)
+    flax_to_torch(jax.tree.map(np.asarray, params), tm)
+
+    def loss_j(p):
+        return jnp.sum(jnp.abs(jm.apply(p, x, u=u, adj=adj, adj_band=band)
+                               - 0.3))
+
+    want = jm.apply(params, x, u=u, adj=adj, adj_band=band)
+    jgrads = jax.grad(loss_j)(params)
+    got = tm(torch.as_tensor(x), u=torch.as_tensor(u),
+             adj=torch.as_tensor(adj), adj_band=band)
+    assert got.shape == (2, 3, 2 * N, 1)
+    _close(got, want)
+    (got - 0.3).abs().sum().backward()
+    _check_grads(_gated_gn_targets(tm), jgrads)
+
+
+def test_bridge_serves_every_layout():
+    """One parameter tree for every aggregation layout: flax inits with the
+    ELL table and with the dense mask give the same tree, and the port,
+    loaded once through the bridge, gives JAX's output with ``neigh``,
+    ``adj`` and the edge list alike."""
+    g = _graph(12)
+    (si, nm), tneigh = _neigh(g)
+    adj = g.to_dense()
+    x, u = _model_inputs(12)
+    jm, tm = _models()
+    p_ell = jm.init(jax.random.PRNGKey(8), x, u=u, neigh=(si, nm))
+    p_adj = jm.init(jax.random.PRNGKey(8), x, u=u, adj=adj)
+    assert jax.tree.structure(p_ell) == jax.tree.structure(p_adj)
+    assert all(a.shape == b.shape for a, b in zip(jax.tree.leaves(p_ell),
+                                                   jax.tree.leaves(p_adj)))
+    flax_to_torch(jax.tree.map(np.asarray, p_ell), tm)
+    want = np.asarray(jm.apply(p_ell, x, u=u, adj=adj))
+    tx, tu = torch.as_tensor(x), torch.as_tensor(u)
+    src, dst = torch.as_tensor(g.src), torch.as_tensor(g.dst)
+    for kw in (dict(adj=torch.as_tensor(adj)), dict(neigh=tneigh),
+               dict(src=src, dst=dst)):
+        _close(tm(tx, u=tu, **kw), want)
 
 
 def test_bridge_pins_the_encoder_block_order():

@@ -7,10 +7,13 @@ import torch
 import sgp_tpu.data as jd
 import sgp_tpu.graph as jg
 from sgp_tpu.data.datasets.synthetic import SyntheticDiffusion as JSynth
+from sgp_tpu.graph import sparse as jsparse
+from sgp_tpu.ops.spmm import dense_adj_mask as j_dense_adj_mask
 
 import sgp_tpu_torch.data as td
 import sgp_tpu_torch.graph as tg
 from sgp_tpu_torch.data.datasets import SyntheticDiffusion as TSynth
+from sgp_tpu_torch.ops import dense_adj_mask
 
 
 def _pair(rng, n=300, e=3000):
@@ -62,6 +65,84 @@ def test_top_k_and_gaussian_kernel_bit_exact(rng, include_self):
         np.testing.assert_array_equal(
             jg.top_k(d, 7, include_self=include_self, keep_values=keep),
             tg.top_k(d, 7, include_self=include_self, keep_values=keep))
+
+
+def _threshold_graph(n, density=0.1475, seed=0, shuffle=False):
+    """The slice's graph at a small size: a synthetic dataset's similarity
+    thresholded at its ``1 - density`` quantile."""
+    ds = TSynth(num_nodes=n, num_steps=10, seed=seed)
+    thr = float(np.quantile(ds.get_similarity(), 1 - density))
+    g = ds.get_connectivity(threshold=thr, include_self=False)
+    if shuffle:
+        g = tg.permute_nodes(g, np.random.default_rng(seed).permutation(n))
+    return g
+
+
+@pytest.mark.parametrize("n", [60, 257])
+def test_rcm_order_and_permute_nodes_bit_exact(n):
+    g = _threshold_graph(n)
+    jgr = jg.Graph(g.src, g.dst, g.weight, n)
+    perm = tg.rcm_order(g)
+    jperm = jsparse.rcm_order(jgr)
+    assert perm.dtype == jperm.dtype
+    np.testing.assert_array_equal(perm, jperm)
+    _same_graph(jsparse.permute_nodes(jgr, jperm), tg.permute_nodes(g, perm))
+
+
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("block,width_mult,order", [
+    (32, 16, "rcm"), (64, 128, "rcm"), (48, 8, "natural")])
+def test_band_windows_bit_exact(uniform, block, width_mult, order):
+    g = _threshold_graph(300, density=0.05)
+    if order == "rcm":
+        g = tg.permute_nodes(g, tg.rcm_order(g))
+    a = g.to_dense()
+    a[100:140] = 0.0                          # blocks without edges
+    got = tg.band_windows(a, block, width_mult, uniform=uniform)
+    assert got == jsparse.band_windows(a, block, width_mult, uniform=uniform)
+    assert isinstance(got[1], tuple) != uniform
+
+
+@pytest.mark.parametrize("case", ["rcm", "natural", "stored zeros",
+                                  "max_nodes", "ragged blocks"])
+def test_auto_band_bit_exact(case):
+    """``auto_band`` from the edge list equals the JAX package's, which
+    densifies: a band where the order is local, ``None`` where it is not or
+    where N exceeds ``max_nodes``; stored zero weights are not edges."""
+    g = _threshold_graph(400, density=0.05, shuffle=True)
+    kw = dict(block=64, width_mult=32)
+    if case != "natural":
+        g = tg.permute_nodes(g, tg.rcm_order(g))
+    if case == "stored zeros":
+        w = g.weight.copy()
+        w[np.abs(g.src.astype(int) - g.dst) > 60] = 0.0
+        g = g.with_weight(w)
+    if case == "max_nodes":
+        kw["max_nodes"] = 399
+    if case == "ragged blocks":
+        kw["block"] = 96
+    got = tg.auto_band(g, **kw)
+    want = jsparse.auto_band(jg.Graph(g.src, g.dst, g.weight, g.num_nodes),
+                             **kw)
+    assert got == want
+    assert (got is None) == (case in ("natural", "max_nodes"))
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.uint8, None),
+                                          (torch.bfloat16, None),
+                                          (torch.bool, None)])
+def test_dense_adj_mask_matches_jax(rng, dtype, jdtype):
+    """The mask scattered from the edge list equals the JAX one: duplicates
+    set one entry, stored zero weights are no edges."""
+    src, dst = rng.integers(0, 50, 400), rng.integers(0, 50, 400)
+    w = rng.random(400).astype(np.float32)
+    w[::7] = 0.0
+    g = tg.Graph(src, dst, w, 50)
+    got = dense_adj_mask(g, dtype=dtype, device="cpu")
+    want = np.asarray(j_dense_adj_mask(jg.Graph(src, dst, w, 50)), np.float32)
+    assert got.dtype == dtype and got.shape == (50, 50)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    np.testing.assert_array_equal(want, (g.to_dense() != 0).astype(np.float32))
 
 
 def test_synthetic_dataset_bit_exact():

@@ -24,12 +24,14 @@ print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
 
-# the training slice's modules, which the walk above must reach
+# the training slices' modules, which the walk above must reach
 TRAINING_SLICE = (
     "sgp_tpu_torch.data.loader", "sgp_tpu_torch.data.spatiotemporal",
     "sgp_tpu_torch.data.splitters", "sgp_tpu_torch.models.gated_gn",
     "sgp_tpu_torch.models.graph_layers", "sgp_tpu_torch.ops._build",
     "sgp_tpu_torch.ops.activations", "sgp_tpu_torch.ops.gn_ell",
+    "sgp_tpu_torch.ops.gn_allpairs", "sgp_tpu_torch.graph.sparse",
+    "sgp_tpu_torch.ops.spmm", "sgp_tpu_torch.utils.device",
     "sgp_tpu_torch.train.metrics", "sgp_tpu_torch.train.predictor")
 
 

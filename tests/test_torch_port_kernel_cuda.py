@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1 BSR SpMM, K4 GatedGN ELL) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels (K1 BSR SpMM, K3 GatedGN all-pairs, K4 GatedGN ELL)
+against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and ``nvcc``; they skip elsewhere. The file
 imports no JAX, so it runs on a machine without it:
@@ -9,15 +9,17 @@ imports no JAX, so it runs on a machine without it:
 
 Tolerances for K1: f32 tiles 1e-5 of the largest value (order of
 summation); bf16 tiles 1e-2 (both round the output to bf16; one ulp is
-2^-8). K4's are stated beside its tests.
+2^-8). K3's and K4's are stated beside their tests.
 """
 import numpy as np
 import pytest
 import torch
 
 from sgp_tpu_torch.graph import Graph, coalesce, normalize_adj
+from sgp_tpu_torch.graph import band_windows
+from sgp_tpu_torch.models import GatedGraphNetwork
 from sgp_tpu_torch.ops import (bsr_spmm, bsr_spmm_plain, build_operator,
-                               gn_ell)
+                               gn_allpairs, gn_ell)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +158,117 @@ def test_gn_ell_wrapper_rejects_bad_inputs(cuda):
         cpu = list(args)
         cpu[3] = cpu[3].cpu()
         gn_ell.gn_ell_fwd(*cpu)
+
+
+# -- K3: the GatedGN all-pairs kernel, forward and backward ----------------
+# Tolerances, relative to the plain version's largest value: f32 2e-5 (the
+# same f32 products summed in another order, over up to N pairs a row and
+# every pair for the weight gradients); bf16 inputs 2e-2 (both round t,
+# ghat and dmt at the same places, so one value rounded the other way moves
+# a result by a bf16 ulp, 2^-8). relu's gradients 5e-3: its derivative
+# jumps at 0, and among the ~2e7 values of mt a few lie within rounding of
+# 0, so the two sums take the other branch there; each such pair moves a
+# row's sum by one w2 * ghat term, ~1e-3 of the largest row sum.
+
+def _allpairs_inputs(rng, b, n, h2, h, dtype, cuda, density=0.15,
+                     empty_row=None, reach=None):
+    """Random K3 inputs at a GatedGN layer's scales and an asymmetric mask;
+    ``reach`` keeps only the edges with ``-reach <= j - i <= reach // 2``."""
+    mk = lambda *s, sc=1.0: torch.as_tensor(
+        (rng.standard_normal(s) * sc).astype(np.float32), device=cuda)
+    mask = rng.random((n, n)) < density
+    if reach is not None:
+        i, j = np.indices((n, n))
+        mask &= (j - i >= -reach) & (j - i <= reach // 2)
+    if empty_row is not None:
+        mask[empty_row] = False
+    return (mk(b, n, h2).to(dtype), mk(b, n, h2).to(dtype),
+            torch.as_tensor(mask, device=cuda), mk(h2, h, sc=0.3),
+            mk(h, sc=0.1), mk(h, 1, sc=0.3), mk(1, sc=0.1)), mask
+
+
+@pytest.mark.parametrize("activation", ["silu", "tanh", "relu", "elu"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,n,h2,h,layout", [
+    (1, 1500, 32, 64, "full"),         # the slice's widths
+    (3, 1001, 32, 64, "full"),         # ragged N, B > 1, one empty row
+    (2, 700, 32, 64, "band"),          # per-block windows
+    (1, 300, 5, 11, "uniform band"),   # narrow widths, zero-padded lanes
+])
+def test_gn_allpairs_kernel_matches_plain(cuda, activation, dtype, tol, b, n,
+                                          h2, h, layout):
+    rng = np.random.default_rng(5)
+    band_mask = layout != "full"
+    args, mask = _allpairs_inputs(rng, b, n, h2, h, dtype, cuda,
+                                  empty_row=n // 2,
+                                  reach=60 if band_mask else None)
+    band = None if not band_mask else band_windows(
+        mask, block=64, width_mult=32, uniform=layout == "uniform band")
+    ghat = torch.as_tensor(rng.standard_normal((b, n, h)).astype(
+        np.float32), device=cuda)
+    f0, b0 = gn_allpairs.gn_allpairs_fwd.launches, \
+        gn_allpairs.gn_allpairs_bwd.launches
+    out = gn_allpairs.gn_allpairs_fwd(*args, activation, band)
+    grads = gn_allpairs.gn_allpairs_bwd(*args, ghat, activation, band)
+    torch.cuda.synchronize()
+    assert (gn_allpairs.gn_allpairs_fwd.launches,
+            gn_allpairs.gn_allpairs_bwd.launches) == (f0 + 1, b0 + 1)
+    ref = gn_allpairs.gn_allpairs_fwd_plain(*args, activation, band)
+    refg = gn_allpairs.gn_allpairs_bwd_plain(*args, ghat, activation, band)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert _rel(out, ref) <= tol
+    assert not out[:, n // 2].any()
+    gtol = max(tol, 5e-3) if activation == "relu" else tol
+    for g, r, name in zip(grads, refg, ("dpi", "dpj", "dw2", "db2", "dwg",
+                                        "dbg")):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r) <= gtol, (name, _rel(g, r))
+
+
+def test_gn_allpairs_backward_is_deterministic(cuda):
+    rng = np.random.default_rng(6)
+    args, _ = _allpairs_inputs(rng, 2, 900, 32, 64, torch.float32, cuda)
+    ghat = torch.randn(2, 900, 64, device=cuda)
+    first = gn_allpairs.gn_allpairs_bwd(*args, ghat)
+    again = gn_allpairs.gn_allpairs_bwd(*args, ghat)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("with_band", [False, True])
+def test_gatedgn_layer_runs_k3_on_the_card(cuda, with_band):
+    """``GatedGraphNetwork(adj=...)`` on CUDA tensors launches K3 forward
+    and backward, with and without the window table."""
+    rng = np.random.default_rng(7)
+    n = 400
+    _, mask = _allpairs_inputs(rng, 1, n, 32, 64, torch.float32, cuda,
+                               reach=40)
+    band = band_windows(mask, block=64, width_mult=32, uniform=False) \
+        if with_band else None
+    layer = GatedGraphNetwork(64, 64).to(cuda)
+    x = torch.randn(2, n, 64, device=cuda)
+    f0, b0 = gn_allpairs.gn_allpairs_fwd.launches, \
+        gn_allpairs.gn_allpairs_bwd.launches
+    layer(x, adj=torch.as_tensor(mask, device=cuda), adj_band=band
+          ).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (gn_allpairs.gn_allpairs_fwd.launches,
+            gn_allpairs.gn_allpairs_bwd.launches) == (f0 + 1, b0 + 1)
+    assert all(torch.isfinite(p.grad).all() for p in layer.parameters())
+
+
+def test_gn_allpairs_wrapper_rejects_bad_inputs(cuda):
+    rng = np.random.default_rng(8)
+    args = list(_allpairs_inputs(rng, 1, 10, 32, 64, torch.float32, cuda)[0])
+    with pytest.raises(ValueError):        # h above the kernel's 64
+        wide = list(args)
+        wide[3], wide[4], wide[5] = (torch.zeros(32, 80, device=cuda),
+                                     torch.zeros(80, device=cuda),
+                                     torch.zeros(80, 1, device=cuda))
+        gn_allpairs.gn_allpairs_fwd(*wide)
+    with pytest.raises(ValueError):        # mask on another device
+        cpu = list(args)
+        cpu[2] = cpu[2].cpu()
+        gn_allpairs.gn_allpairs_fwd(*cpu)

@@ -21,7 +21,7 @@ KW = dict(input_size=3, hidden_size=8, num_layers=3, leaking_rate=0.9,
 
 def _pair(**over):
     kw = {**KW, **over}
-    return JReservoir(**kw), Reservoir(**kw)
+    return JReservoir(**kw), Reservoir(**kw, device="cpu")
 
 
 def _close(a, b):

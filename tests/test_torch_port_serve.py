@@ -38,7 +38,7 @@ def _setup(rng, mode, n_streams, store, with_u):
                   leaking_rate=1.0, spectral_radius=0.99, alpha_decay=True,
                   receptive_field=2, global_attr=True, seed=2,
                   operator_mode=mode)
-    je, te = JEncoder(**enc_kw), SGPEncoder(**enc_kw)
+    je, te = JEncoder(**enc_kw), SGPEncoder(**enc_kw, device="cpu")
     order = je.output_size // 6
     exog = EXOG if with_u else 0
     m_kw = dict(input_size=je.output_size, order=order, n_nodes=N,
@@ -59,7 +59,7 @@ def _setup(rng, mode, n_streams, store, with_u):
             op._variant = "pallas"
     tfc = OnlineForecaster(te, tgr, tm, ScalerParams(
         torch.as_tensor(bias), torch.as_tensor(scale)),
-        store_dtype=store, n_streams=n_streams)
+        store_dtype=store, n_streams=n_streams, device="cpu")
     return jfc, tfc
 
 

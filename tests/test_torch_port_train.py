@@ -2,6 +2,11 @@
 modules bit-exact (numpy on both sides), the masked metrics, one
 ``Predictor`` train step of the GatedGN slice and ``evaluate``.
 
+The train step runs on the ELL table (the 100-nn slice) and on the dense
+all-pairs mask of the dataset's similarity thresholded at the PV-US
+full-graph density, 14.75% (the full-graph slice), with and without band
+windows.
+
 Tolerances: metrics 1e-6 relative (the same f32 sums); the train step's
 loss and gradients 1e-5 relative to each tensor's largest value (f32, other
 summation orders through the model); the parameters after clip and Adam at
@@ -22,19 +27,22 @@ from sgp_tpu.data import WindowedLoader as JLoader
 from sgp_tpu.data import Windowing as JWindowing
 from sgp_tpu.data.datasets import SyntheticDiffusion as JSynthetic
 from sgp_tpu.data.splitters import TemporalSplitter as JSplitter
+from sgp_tpu.graph.sparse import Graph as JGraph
 from sgp_tpu.graph.sparse import padded_incoming as j_padded_incoming
 from sgp_tpu.models import graph_layers as j_graph_layers
 from sgp_tpu.models.gated_gn import GatedGraphNetworkMLPModel as JModel
 from sgp_tpu.train import MaskedMetrics as JMetrics
 from sgp_tpu.train import Predictor as JPredictor
+from sgp_tpu.ops.spmm import dense_adj_mask as j_dense_adj_mask
 from sgp_tpu.train import metrics as jmetrics
 
 from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
                                 TemporalSplitter, WindowedLoader, Windowing)
 from sgp_tpu_torch.data.datasets import SyntheticDiffusion
-from sgp_tpu_torch.graph import padded_incoming
+from sgp_tpu_torch.graph import band_windows, padded_incoming
 from sgp_tpu_torch.models import GatedGraphNetworkMLPModel, flax_to_torch
 from sgp_tpu_torch.models.bridge import _gated_gn_targets
+from sgp_tpu_torch.ops import dense_adj_mask
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.train import metrics as tmetrics
 from sgp_tpu_torch.train.predictor import clip_by_global_norm_
@@ -148,7 +156,8 @@ def test_lr_schedule_is_optax_piecewise_constant():
     sched = optax.piecewise_constant_schedule(1e-3, {4: 0.25, 8: 0.25})
     model = torch.nn.Linear(2, 1)
     pred = Predictor(model, lr=1e-3, lr_milestones=[2, 4], lr_gamma=0.25,
-                     steps_per_epoch=2).init(None, StandardScaler().params())
+                     steps_per_epoch=2, device="cpu").init(
+        None, StandardScaler().params())
     for t in range(11):
         np.testing.assert_allclose(pred.optimizer.param_groups[0]["lr"],
                                    float(sched(t)), rtol=1e-6)
@@ -169,20 +178,50 @@ def _to_call(batch, training):
                            "neigh": batch["gn_neigh"]}
 
 
-def _predictors(pipelines, grad_clip):
+def _all_pairs_call(band):
+    """The runners' call on the dense mask, with the window table."""
+    def to_call(batch, training):
+        return (batch["x"],), {"u": batch.get("u"), "training": training,
+                               "adj": batch["gn_adj"], "adj_band": band}
+    return to_call
+
+
+def _full_graph():
+    """The pipeline's similarity thresholded at the PV-US full-graph
+    density (14.75%), as in ``chip_smoke.py`` phase 7."""
+    raw = SyntheticDiffusion(num_nodes=N_NODES, num_steps=N_STEPS, seed=0)
+    thr = float(np.quantile(raw.get_similarity(), 1 - 0.1475))
+    return raw.get_connectivity(threshold=thr, include_self=False)
+
+
+def _predictors(pipelines, grad_clip, layout="ell"):
+    """The JAX and port trainers, weights carried across; ``layout`` "ell"
+    (the k-nn ELL table), "dense" or "band" (the full graph's mask, without
+    or with windows)."""
     (jds, jg, jsplit), (tds, tg, tsplit) = pipelines
     jm, tm = _slice_models(N_NODES)
     batch = jds.gather_batch(jsplit.train[:5])
+    if layout == "ell":
+        to_call = _to_call
+        j_static = {"gn_neigh": j_padded_incoming(jg)}
+        t_static = {"gn_neigh": padded_incoming(tg)}
+    else:
+        g = _full_graph()
+        band = None if layout == "dense" else band_windows(
+            g.to_dense(), block=8, width_mult=8, uniform=False)
+        to_call = _all_pairs_call(band)
+        j_static = {"gn_adj": j_dense_adj_mask(
+            JGraph(g.src, g.dst, g.weight, g.num_nodes))}
+        t_static = {"gn_adj": dense_adj_mask(g, device="cpu")}
     jpred = JPredictor(jm, lr=1e-3, grad_clip=grad_clip,
-                       batch_to_call=_to_call, seed=0,
-                       static_batch={"gn_neigh": j_padded_incoming(jg)})
+                       batch_to_call=to_call, seed=0, static_batch=j_static)
     jpred.init(batch, jds.scaler_params())
     tpred = Predictor(tm, lr=1e-3, grad_clip=grad_clip,
-                      batch_to_call=_to_call, seed=0,
-                      static_batch={"gn_neigh": padded_incoming(tg)})
+                      batch_to_call=to_call, seed=0, static_batch=t_static,
+                      device="cpu")
     tpred.init(batch, tds.scaler_params())
     flax_to_torch(jax.tree.map(np.asarray, jpred.params), tm)
-    return jpred, tpred, batch
+    return jpred, tpred, batch, to_call
 
 
 def _rel_close(got, want, tol, name):
@@ -192,28 +231,37 @@ def _rel_close(got, want, tol, name):
     assert err <= tol, (name, err)
 
 
-@pytest.mark.parametrize("grad_clip", [5.0, 0.05])
-def test_predictor_train_step_matches_jax(pipelines, grad_clip):
-    jpred, tpred, batch = _predictors(pipelines, grad_clip)
+@pytest.mark.parametrize("grad_clip,layout,kernel", [
+    (5.0, "ell", "ELL_PALLAS"), (0.05, "ell", "ELL_PALLAS"),
+    (5.0, "dense", "ALLPAIRS_PALLAS"), (5.0, "dense", None),
+    (0.05, "band", None)],
+    ids=["5.0", "0.05", "dense-pallas", "dense-xla", "band-xla"])
+def test_predictor_train_step_matches_jax(pipelines, grad_clip, layout,
+                                          kernel):
+    """One step against the JAX trainer; ``kernel`` names the JAX layer's
+    Pallas switch set for it (interpreted), None its blocked XLA math."""
+    jpred, tpred, batch, to_call = _predictors(pipelines, grad_clip, layout)
     jdev = {**jpred.static_batch, **{k: jnp.asarray(v)
                                      for k, v in batch.items()}}
     sc = pipelines[0][0].scaler_params()
 
     def loss_j(params):
-        out = jpred.model.apply(params, *_to_call(jdev, True)[0],
-                                **_to_call(jdev, True)[1])
+        out = jpred.model.apply(params, *to_call(jdev, True)[0],
+                                **to_call(jdev, True)[1])
         v, n = jmetrics._masked_reduce(jmetrics._abs_err,
                                        sc.inverse_transform(out),
                                        jdev["y"], jdev["mask"])
         return v / jnp.maximum(n, 1.0)
 
-    j_graph_layers.ELL_PALLAS = True
+    if kernel is not None:
+        setattr(j_graph_layers, kernel, True)
     try:
         jgrads = jax.grad(loss_j)(jpred.params)
         new_params, _, jloss = jpred._train_step(
             jpred.params, jpred.opt_state, jdev, jax.random.PRNGKey(0))
     finally:
-        j_graph_layers.ELL_PALLAS = None
+        if kernel is not None:
+            setattr(j_graph_layers, kernel, None)
 
     targets = _gated_gn_targets(tpred.model)
     loss = tpred.compute_loss(tpred._place(batch))
@@ -244,7 +292,7 @@ def test_predictor_train_step_matches_jax(pipelines, grad_clip):
 
 
 def test_predictor_evaluate_matches_jax(pipelines):
-    jpred, tpred, _ = _predictors(pipelines, 5.0)
+    jpred, tpred, _, _ = _predictors(pipelines, 5.0)
     (jds, _, jsplit), (tds, _, tsplit) = pipelines
     j_graph_layers.ELL_PALLAS = True
     try:
@@ -264,7 +312,7 @@ def test_predictor_evaluate_matches_jax(pipelines):
 def test_fit_restores_a_copy_of_the_best_epoch(pipelines, monkeypatch):
     """Parameters are updated in place, so fit must keep a copy: epoch 0
     has the best val score and its weights come back."""
-    _, tpred, _ = _predictors(pipelines, 5.0)
+    _, tpred, _, _ = _predictors(pipelines, 5.0)
     (_, _, _), (tds, _, tsplit) = pipelines
     loader = WindowedLoader(tds, tsplit.train, batch_size=5, shuffle=True,
                             limit_batches=1)
