@@ -5,20 +5,23 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives three paths of the port on 5,016 synthetic nodes (data and random
+It drives four paths of the port on 5,016 synthetic nodes (data and random
 weights from a seed): SGP serving on the exact 100-nn graph,
 ``OnlineForecaster`` with the BSR propagation operator at the widths of
 ``configs/largescale_100nn/sgp_pv.yaml``; GatedGN training on the 100-nn
 graph, ``Predictor`` fed by ``WindowedLoader`` at the widths of
-``configs/largescale_100nn/gatedgn_pv.yaml``; and GatedGN training on the
+``configs/largescale_100nn/gatedgn_pv.yaml``; GatedGN training on the
 full similarity graph at the PV-US full-graph density (14.75%) through the
 dense all-pairs aggregation, at the widths of
-``configs/largescale/gatedgn_pv.yaml``. In phases; any failure raises and
-the exit code is not 0:
+``configs/largescale/gatedgn_pv.yaml``; and block-sparse graph attention
+(``bsr_multi_head_attention``) on both graphs, beside the dense
+``TransformerModel`` trained through ``Predictor``. In phases; any failure
+raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
-1. build the three kernels, one ``nvcc`` each, in parallel
-   (``sgp_tpu_torch/csrc/bsr_spmm.cu``, ``gn_ell.cu``, ``gn_allpairs.cu``);
+1. build the four kernels, one ``nvcc`` each, in parallel
+   (``sgp_tpu_torch/csrc/bsr_spmm.cu``, ``gn_ell.cu``, ``gn_allpairs.cu``,
+   ``sddmm.cu``);
 2. the BSR kernel against its plain PyTorch version on the card, at the
    slice's shapes and on ragged / empty-block-row graphs, f32 and bf16,
    with CUDA-event times of both;
@@ -44,7 +47,20 @@ the exit code is not 0:
    against the same steps with the blocked plain all-pairs math on the card
    and a first step of the port on the CPU (on fewer nodes at the same
    density); then step times, peak memory and idle share of the K3 and
-   plain steps.
+   plain steps;
+8. the SDDMM kernel (K2) against its plain version on the 100-nn graph in
+   natural and RCM order (D 64 and 16) and on a ragged 1,001-node graph
+   with an empty block row (D 40), f32 and bf16, with CUDA-event times, the
+   bound and one cuBLAS ``torch.bmm`` on pre-gathered tiles as yardstick;
+9. the attention path: ``bsr_multi_head_attention`` (K2, masked softmax,
+   K1) at H 1 x D 64 and H 4 x D 16 on the 100-nn graph (natural and RCM)
+   and the full graph, held against the edge-list
+   ``sparse_multi_head_attention`` on the card and, on the ragged graph,
+   the port on the CPU; times and peak memory of both forms;
+10. ``TransformerModel`` at the runner's defaults (hidden 64, ff 128, one
+   layer and head over time) trained through ``Predictor`` on phase 5's
+   data: train steps and ``evaluate`` with finite losses, the first step
+   against the port on the CPU, step times and peak memory.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) over the H100's 3.35 TB/s and its f32 FFMA work over
@@ -109,6 +125,9 @@ TOL_GN_BF16 = 2e-2
 TOL_LOSS = 1e-4         # K4 run vs plain-ELL run and vs the CPU port
 TOL_GRAD = 1e-4         # first step's clipped gradients, card vs CPU,
                         # relative to each tensor's largest value
+TOL_ZERO_GRAD = 1e-5    # a gradient that is 0 in exact arithmetic, on the
+                        # card and the CPU, relative to the model's largest
+                        # gradient: rounding noise of sums over ~1e6 terms
 # K4 run vs plain-ELL run, final parameters, max abs difference on the
 # elements whose first-step gradient exceeds GRAD_FLOOR in magnitude. An
 # Adam step moves an element by about lr = 1e-3 whatever its gradient's
@@ -131,6 +150,16 @@ CPU_NODES = 1500        # phase 7's CPU step: fewer nodes, same density
 RAGGED_NODES = 1001     # phase 6's ragged case: N no multiple of anything
 FULL_TIME_ORDER = ("plain", "k3", "k3", "plain")  # phase 7 step timing
 FULL_TIME_STEPS = 8
+# K2 against its plain version, relative to the plain version's largest
+# value: f32 TOL_F32 (the same f32 products summed over D in another
+# order); bf16 inputs 2e-2 (both multiply the bf16 values exactly in f32;
+# the bound leaves room for one bf16 ulp, 2^-8)
+TOL_SDDMM_BF16 = 2e-2
+# block-sparse attention against the edge-list form on the card, max abs
+# difference: the JAX package's own test tolerance (tests/test_sddmm.py)
+TOL_ATT = 1e-4
+ATT_HEADS = ((1, 64), (4, 16))   # H x D of the attention path
+ATT_ITERS = 5                    # launches a timing sample of either form
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -229,9 +258,11 @@ def phase0_card() -> str:
 
 
 def phase1_build():
-    from sgp_tpu_torch.ops import _build, bsr_kernel, gn_allpairs, gn_ell
+    from sgp_tpu_torch.ops import _build, bsr_kernel, gn_allpairs, gn_ell, \
+        sddmm
     t0 = time.perf_counter()
-    built = _build.compile_all(["bsr_spmm", "gn_ell", "gn_allpairs"])
+    built = _build.compile_all(["bsr_spmm", "gn_ell", "gn_allpairs",
+                                "sddmm"])
     print(f"[phase 1] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel")
     for name, (seconds, log) in built.items():
@@ -245,6 +276,7 @@ def phase1_build():
     bsr_kernel.build()
     gn_ell.build()
     gn_allpairs.build()
+    sddmm.build()
 
 
 def slice_setup(n_nodes: int, n_steps: int, device):
@@ -763,25 +795,33 @@ def train_and_hold(tag, label, cfg, ds, split, static, to_call, counters,
                 losses=losses, grads0=grads0, launches=launches)
 
 
-def cpu_step(tag, cfg, ds, split, static, to_call, init_state, losses,
-             grads0, what: str):
+def cpu_step(tag, make, loader, init_state, losses, grads0, what: str,
+             exact_zero=()):
     """One step of the port on the CPU from the same weights and batch as
-    the card's first step (``losses[0]``, ``grads0``), held to it."""
+    the card's first step (``losses[0]``, ``grads0``), held to it;
+    ``make(device, init_state)`` builds the trainer, ``loader`` gives the
+    batch. The gradients named in ``exact_zero`` are 0 in exact arithmetic
+    and hold only rounding noise on both sides: they are held to
+    ``TOL_ZERO_GRAD`` of the model's largest gradient instead."""
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    on_cpu = gn_predictor(cfg, ds, static, cpu,
-                          {k: v.cpu() for k, v in init_state.items()},
-                          to_call)
-    c_losses, _, c_grads = train_steps(on_cpu, loaders(cfg, ds, split, 1)[0],
-                                       cpu)
+    on_cpu = make(cpu, {k: v.cpu() for k, v in init_state.items()})
+    c_losses, _, c_grads = train_steps(on_cpu, loader, cpu)
     cpu_s = time.perf_counter() - t0
     c_err = abs(c_losses[0] - losses[0]) / abs(c_losses[0])
-    g_err = max(rel_err(grads0[k], c_grads[k])[1] for k in grads0)
-    print(f"[{tag}] card vs CPU port, first step {what} ({ds.n_nodes} nodes, "
-          f"{cpu_s:.1f} s on the CPU): loss rel err {c_err:.3e} (tol "
-          f"{TOL_LOSS}), clipped gradients max rel err {g_err:.3e} (tol "
-          f"{TOL_GRAD})")
-    assert c_err <= TOL_LOSS and g_err <= TOL_GRAD
+    g_err = max(rel_err(grads0[k], c_grads[k])[1] for k in grads0
+                if k not in exact_zero)
+    top = max(g.abs().max().item() for g in grads0.values())
+    zero = max((max(grads0[k].abs().max().item(),
+                    c_grads[k].abs().max().item()) / top
+                for k in exact_zero), default=0.0)
+    print(f"[{tag}] card vs CPU port, first step {what} ({cpu_s:.1f} s on "
+          f"the CPU): loss rel err {c_err:.3e} (tol {TOL_LOSS}), clipped "
+          f"gradients max rel err {g_err:.3e} (tol {TOL_GRAD})" + (
+              f"; {list(exact_zero)} (0 in exact arithmetic) at most "
+              f"{zero:.3e} of the largest gradient (tol {TOL_ZERO_GRAD})"
+              if exact_zero else ""))
+    assert c_err <= TOL_LOSS and g_err <= TOL_GRAD and zero <= TOL_ZERO_GRAD
     return cpu_s
 
 
@@ -827,9 +867,10 @@ def phase5_train(raw, graph, device) -> dict:
     run = train_and_hold("phase 5", "K4", cfg, ds, split, static, gn_to_call,
                          (gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd), plain_ell,
                          device)
-    cpu_step("phase 5", cfg, ds, split, static, gn_to_call,
-             run["init_state"], run["losses"], run["grads0"],
-             "at the full size")
+    cpu_step("phase 5", lambda dev, init: gn_predictor(
+                 cfg, ds, static, dev, init, gn_to_call),
+             loaders(cfg, ds, split, 1)[0], run["init_state"], run["losses"],
+             run["grads0"], f"at the full size, {ds.n_nodes} nodes")
     time_steps("phase 5", {"k4": (run["pred"], contextlib.nullcontext),
                            "plain": (run["plain"], plain_ell)},
                cfg, ds, split, TIME_ORDER, TIME_STEPS, device)
@@ -999,8 +1040,10 @@ def phase7_full(raw, graph, device) -> dict:
               for k, v in s_pred.model.state_dict().items()}
     s_losses, _, s_grads = train_steps(
         s_pred, loaders(s_cfg, s_ds, s_split, 1)[0], device)
-    cpu_s = cpu_step("phase 7", s_cfg, s_ds, s_split,
-                     {"gn_adj": s_mask.cpu()}, s_call, s_init, s_losses,
+    cpu_s = cpu_step("phase 7", lambda dev, init: gn_predictor(
+                         s_cfg, s_ds, {"gn_adj": s_mask.cpu()}, dev, init,
+                         s_call),
+                     loaders(s_cfg, s_ds, s_split, 1)[0], s_init, s_losses,
                      s_grads, f"on {CPU_NODES} nodes at density "
                      f"{s_graph.num_edges / CPU_NODES ** 2:.4f}")
     print(f"[phase 7] the CPU step at {ds.n_nodes} nodes would take about "
@@ -1011,6 +1054,204 @@ def phase7_full(raw, graph, device) -> dict:
                            "plain": (run["plain"], plain_allpairs)},
                cfg, ds, split, FULL_TIME_ORDER, FULL_TIME_STEPS, device)
     return dict(launches=run["launches"])
+
+
+def ragged_attention_graph(rng):
+    """N 1,001 (no multiple of 128) with no edge ending in nodes 128..255:
+    block row 1 stores no block."""
+    from sgp_tpu_torch.graph import Graph, coalesce
+    n, e = RAGGED_NODES, 30 * RAGGED_NODES
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    dst = np.where((dst >= 128) & (dst < 256), dst % 128, dst)
+    return coalesce(Graph(src, dst, None, n))
+
+
+def sddmm_bound(q, k, nnzb: int) -> dict:
+    """K2's bound: q and k read once, the ``[nnzb, 128, 128]`` f32 scores
+    written once; ``2 * 128^2 * D`` FFMA flop a stored block."""
+    return bound(nbytes(q, k) + nnzb * 128 * 128 * 4,
+                 2 * nnzb * 128 * 128 * q.shape[1])
+
+
+def phase8_sddmm(graph, rcm, ragged, device) -> dict:
+    """K2 against its plain version on the card: the 100-nn graph in
+    natural and RCM order at D 64 and 16, and the ragged graph at D 40, f32
+    and bf16, with CUDA-event times of both (plain, kernel, kernel, plain),
+    the bound and the library yardstick, one ``torch.bmm`` of tiles gathered
+    beforehand. Returns the main path's row (natural order, D 64, f32)."""
+    from sgp_tpu_torch.ops import sddmm
+    rng = np.random.default_rng(SEED)
+    cases = [("slice", graph, 64), ("slice", graph, 16), ("rcm", rcm, 64),
+             ("rcm", rcm, 16), ("ragged", ragged, 40)]
+    rows = {}
+    for name, g, d in cases:
+        st = sddmm.bsr_attention_structure(g, device=device)
+        idx = (st.block_rows, st.block_cols, st.n_block_rows)
+        nnzb, n = st.block_rows.numel(), g.num_nodes
+        for dtype, tol in ((torch.float32, TOL_F32),
+                           (torch.bfloat16, TOL_SDDMM_BF16)):
+            q, k = (torch.as_tensor(rng.standard_normal((n, d)).astype(
+                np.float32), device=device).to(dtype) for _ in range(2))
+            got = sddmm.bsr_sddmm_kernel(q, k, *idx)
+            ref = sddmm.bsr_sddmm_plain(q, k, *idx)
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(got, ref)
+            assert got.shape == ref.shape and torch.isfinite(got).all()
+            pad = n % 128
+            if pad:
+                last = st.n_block_rows - 1
+                assert not got[st.block_rows == last, pad:].any()
+                assert not got[st.block_cols == last][:, :, pad:].any()
+            main = (name, d, dtype) == ("slice", 64, torch.float32)
+            k_ms, p_ms = interleaved_ms(
+                lambda: sddmm.bsr_sddmm_kernel(q, k, *idx),
+                lambda: sddmm.bsr_sddmm_plain(q, k, *idx),
+                KERNEL_ROUNDS if main else 1, 20)
+            # the library yardstick: cuBLAS on the gathered f32 tiles (the
+            # gather is left out of its time; TF32 is off)
+            qt = sddmm._pad_tiles(q, st.n_block_rows)[
+                st.block_rows.long()].float()
+            kt = sddmm._pad_tiles(k, st.n_block_rows)[
+                st.block_cols.long()].float()
+            lib_ms = cuda_ms(lambda: torch.bmm(qt, kt.mT))
+            lib_err = rel_err(torch.bmm(qt, kt.mT), ref)[1]
+            row = dict(case=name, n=n, d=d, nnzb=nnzb,
+                       dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=abs_err, rel_err=rel, tol=tol,
+                       ms=k_ms["median"], q1_q3=[k_ms["q1"], k_ms["q3"]],
+                       plain_ms=p_ms["median"],
+                       plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
+                       library_ms=lib_ms, library_rel_err=lib_err,
+                       **sddmm_bound(q, k, nnzb))
+            print(f"[phase 8] {json.dumps(row)}")
+            assert rel <= tol, f"K2 disagrees with plain: {row}"
+            rows[(name, d, row["dtype"])] = row
+            del qt, kt, got, ref
+    return rows[("slice", 64, "float32")]
+
+
+def attention_inputs(rng, n, h, d, device):
+    return [torch.as_tensor(rng.standard_normal((n, h, d)).astype(
+        np.float32), device=device) for _ in range(3)]
+
+
+def phase9_attention(graphs, ragged, device) -> dict:
+    """The attention path: ``bsr_multi_head_attention`` at N 5,016 on the
+    100-nn graph (natural and RCM order) and the full graph, H 1 x D 64 and
+    H 4 x D 16, f32, with the K2 and K1 counters set to 0 just before and
+    read just after; each result held against the edge-list
+    ``sparse_multi_head_attention`` on the card, and the 1,001-node case
+    against the port on the CPU; then the times and peak memory of both
+    forms."""
+    from sgp_tpu_torch.ops import (bsr_attention_structure,
+                                   bsr_multi_head_attention, bsr_spmm,
+                                   sddmm, sparse_multi_head_attention)
+    rng = np.random.default_rng(SEED)
+    runs = []
+    for name, g in graphs:
+        st = bsr_attention_structure(g, device=device)
+        for h, d in ATT_HEADS:
+            runs.append((name, g, st, attention_inputs(rng, g.num_nodes, h,
+                                                       d, device)))
+    sddmm.bsr_sddmm_kernel.launches = bsr_spmm.launches = 0   # main path
+    outs = [bsr_multi_head_attention(*qkv, st) for _, _, st, qkv in runs]
+    torch.cuda.synchronize()
+    launches = {"bsr_sddmm": sddmm.bsr_sddmm_kernel.launches,
+                "bsr_spmm": bsr_spmm.launches}
+    need = sum(qkv[0].shape[1] for _, _, _, qkv in runs)
+    print(f"[phase 9] launches on the attention path: {json.dumps(launches)}"
+          f" ({len(runs)} calls, {need} heads in all)")
+    assert min(launches.values()) >= need, launches
+
+    for (name, g, st, qkv), out in zip(runs, outs):
+        n, h, d = qkv[0].shape
+        src = torch.as_tensor(g.src, device=device)
+        dst = torch.as_tensor(g.dst, device=device)
+        assert out.shape == (n, h, d) and torch.isfinite(out).all()
+        edge = sparse_multi_head_attention(*qkv, src, dst, n)
+        err = (out - edge).abs().max().item()
+        times, peaks = {}, {}
+        for form, fn in (
+                ("block", lambda: bsr_multi_head_attention(*qkv, st)),
+                ("edge_list", lambda: sparse_multi_head_attention(
+                    *qkv, src, dst, n))):
+            times[form] = cuda_ms(fn, ATT_ITERS, warmup=1)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks[form] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        row = dict(graph=name, n=n, edges=g.num_edges,
+                   nnzb=st.block_rows.numel(), heads=h, d=d,
+                   max_abs_err_vs_edge_list=err, tol=TOL_ATT,
+                   block_ms=times["block"], edge_list_ms=times["edge_list"],
+                   block_peak_extra_mib=peaks["block"],
+                   edge_list_peak_extra_mib=peaks["edge_list"],
+                   scored_pairs_block=st.block_rows.numel() * 128 * 128,
+                   scored_pairs_edge_list=g.num_edges)
+        print(f"[phase 9] {json.dumps(row)}")
+        assert err <= TOL_ATT, row
+        del edge
+
+    # the ragged case on the card and on the CPU port, same inputs
+    cpu = torch.device("cpu")
+    qkv = attention_inputs(rng, ragged.num_nodes, 2, 40, device)
+    got = bsr_multi_head_attention(
+        *qkv, bsr_attention_structure(ragged, device=device))
+    want = bsr_multi_head_attention(
+        *(t.cpu() for t in qkv), bsr_attention_structure(ragged, device=cpu))
+    cpu_err = rel_err(got.cpu(), want)[1]
+    print(f"[phase 9] card vs CPU port, N {ragged.num_nodes}, H 2 x D 40: "
+          f"max rel err {cpu_err:.3e} (tol {TOL_F32})")
+    assert cpu_err <= TOL_F32
+    return launches
+
+
+def transformer_predictor(ds, device, init_state=None):
+    """``--model-name transformer`` at the runner's defaults (hidden 64, ff
+    128, 1 layer, 1 head, axis time, elu, dropout 0, lr 1e-3, clip 5.0)."""
+    from sgp_tpu_torch.models import TransformerModel
+    from sgp_tpu_torch.train import Predictor
+    u_size = ds.covariates["u"].value.shape[-1]
+    model = TransformerModel(
+        input_size=ds.n_channels + u_size, hidden_size=64, ff_size=128,
+        output_size=ds.n_channels, horizon=ds.windowing.horizon_steps,
+        n_layers=1, n_heads=1, axis="time", activation="elu", dropout=0.0)
+    pred = Predictor(model, loss="mae", lr=1e-3, grad_clip=GRAD_CLIP,
+                     seed=SEED, device=device)
+    pred.init(None, ds.scaler_params())
+    if init_state is not None:
+        pred.model.load_state_dict(init_state)
+    return pred
+
+
+def phase10_transformer(raw, graph, device):
+    """``TransformerModel`` through ``Predictor`` on phase 5's data and
+    loaders: train steps and ``evaluate``, checked for finite losses; the
+    first step against the port on the CPU; step times and peak memory."""
+    cfg, ds, split = gn_data(raw, graph)
+    pred = transformer_predictor(ds, device)
+    init_state = {k: v.detach().clone()
+                  for k, v in pred.model.state_dict().items()}
+    train_loader, test_loader = loaders(cfg, ds, split)
+    losses, _, grads0 = train_steps(pred, train_loader, device)
+    metrics = pred.evaluate(test_loader, prefix="test_")
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    print(f"[phase 10] TransformerModel ({n_params} parameters), window "
+          f"{cfg['window']}, batch {cfg['batch_size']}, {ds.n_nodes} nodes: "
+          f"losses {losses}; {json.dumps(metrics)}")
+    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    # a softmax does not see a shift of all its logits: the key
+    # projection's bias gets no gradient in exact arithmetic
+    key_bias = tuple(k for k in grads0 if k.endswith("attention.k.bias"))
+    cpu_step("phase 10", lambda dev, init: transformer_predictor(
+                 ds, dev, init), loaders(cfg, ds, split, 1)[0], init_state,
+             losses, grads0, f"at the full size, {ds.n_nodes} nodes",
+             exact_zero=key_bias)
+    time_steps("phase 10", {"transformer": (pred, contextlib.nullcontext)},
+               cfg, ds, split, ("transformer",) * 2, TRAIN_STEPS, device)
 
 
 def kernel_entry(name, source, replaces, launches, row, half=""):
@@ -1028,25 +1269,41 @@ def kernel_entry(name, source, replaces, launches, row, half=""):
             "library_ms": row.get("library_ms")}
 
 
+def timed(label: str, fn, *args):
+    """``fn(*args)``, printing its wall time (the script's time budget)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     smi = phase0_card()
     device = torch.device("cuda", 0)
-    phase1_build()
+    timed("phase 1", phase1_build)
     ds, graph, scaler = slice_setup(N_NODES, N_STEPS, device)
-    k1 = phase2_kernel(graph, device)
-    res = phase3_slice(ds, graph, scaler, device, N_NODES)
+    k1 = timed("phase 2", phase2_kernel, graph, device)
+    res = timed("phase 3", phase3_slice, ds, graph, scaler, device, N_NODES)
     cfg = read_flat_yaml(GN_CONFIG)
-    k4 = phase4_gn_ell(device, N_NODES, cfg["batch_size"],
-                       cfg["hidden_size"])
-    train = phase5_train(ds, graph, device)
+    k4 = timed("phase 4", phase4_gn_ell, device, N_NODES, cfg["batch_size"],
+               cfg["hidden_size"])
+    train = timed("phase 5", phase5_train, ds, graph, device)
     t0 = time.perf_counter()
     full = full_graph(ds)
     print(f"[setup] the full graph at density {FULL_DENSITY}: "
           f"{full.num_edges} edges in {time.perf_counter() - t0:.1f} s")
     full_cfg = read_flat_yaml(FULL_CONFIG)
-    k3 = phase6_gn_allpairs(full, device, full_cfg["batch_size"],
-                            full_cfg["hidden_size"])
-    full_train = phase7_full(ds, full, device)
+    k3 = timed("phase 6", phase6_gn_allpairs, full, device,
+               full_cfg["batch_size"], full_cfg["hidden_size"])
+    full_train = timed("phase 7", phase7_full, ds, full, device)
+    from sgp_tpu_torch.graph import permute_nodes, rcm_order
+    rcm = permute_nodes(graph, rcm_order(graph))
+    ragged = ragged_attention_graph(np.random.default_rng(SEED))
+    k2 = timed("phase 8", phase8_sddmm, graph, rcm, ragged, device)
+    attention = timed("phase 9", phase9_attention, [
+        ("100-nn", graph), ("100-nn rcm", rcm), ("full", full)], ragged,
+        device)
+    timed("phase 10", phase10_transformer, ds, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -1062,6 +1319,9 @@ def main():
             name, "sgp_tpu_torch/csrc/gn_allpairs.cu",
             f"sgp_tpu/ops/gn_allpairs.py:{line}",
             full_train["launches"][name], k3, half))
+    kernels.append(kernel_entry("bsr_sddmm", "sgp_tpu_torch/csrc/sddmm.cu",
+                                "sgp_tpu/ops/sddmm.py:103",
+                                attention["bsr_sddmm"], k2))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,22 @@ def reset_linear(lin: nn.Linear, generator=None):
     nn.init.zeros_(lin.bias)
 
 
+def reset_flax(module: nn.Module, generator=None):
+    """flax's initializers for every ``nn.Linear`` (lecun-normal kernel,
+    zero bias) and ``nn.LayerNorm`` (unit scale, zero bias) in ``module``."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            reset_linear(m, generator)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+def layer_norm(size: int) -> nn.LayerNorm:
+    """flax's ``nn.LayerNorm``: epsilon 1e-6 (torch's default is 1e-5)."""
+    return nn.LayerNorm(size, eps=1e-6)
+
+
 def maybe_cat_exog(x, u):
     """Concat exogenous onto x along channels, broadcasting missing axes."""
     if u is None:

@@ -1,14 +1,22 @@
-"""Load a flax parameter tree into the port's :class:`SGPModel` or
-:class:`GatedGraphNetworkMLPModel`.
+"""Load a flax parameter tree into a model of the port: :class:`SGPModel`,
+:class:`GatedGraphNetworkMLPModel`, :class:`TransformerModel`, or one of
+the attention layers on its own (``MultiHeadAttention``,
+``AttentionEncoder``, ``CausalLinearAttention``, ``TransformerLayer``,
+``SpatioTemporalTransformerLayer``, ``GATConv``,
+``SpatioTemporalAttention``).
 
 The tree comes as nested dicts of numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), with or without its top-level
 ``"params"`` key. Module names follow flax's creation order: for SGP
 ``GroupedLinear_0``, ``StaticGraphEmbedding_0``, ``Dense_0``,
 ``ResidualMLP_0/…`` or ``MLP_0/…``, ``LinearReadout_0/Dense_0``; for
-GatedGN see :func:`_gated_gn_targets`. ``Dense``
-kernels are transposed from flax's ``[in, out]`` to ``nn.Linear``'s
-``[out, in]``. Any key missing from the tree or left over in it raises.
+GatedGN see :func:`_gated_gn_targets`; for the attention stack the flax
+names of ``sgp_tpu/models/attention.py`` (``q``, ``k``, ``v``, ``out``,
+``LayerNorm_i``, ``MultiHeadAttention_i``, ``MLP_0``, ``DenseGeneral_i``).
+``Dense`` kernels are transposed from flax's ``[in, out]`` to
+``nn.Linear``'s ``[out, in]``; ``DenseGeneral`` kernels ``[in, h, dh]`` and
+``[h, dh, out]`` are flattened over ``h * dh`` first. Any key missing from
+the tree or left over in it raises.
 """
 from __future__ import annotations
 
@@ -18,12 +26,43 @@ import numpy as np
 import torch
 from torch import nn
 
+from sgp_tpu_torch.models.attention import (AttentionEncoder,
+                                            CausalLinearAttention,
+                                            MultiHeadAttention,
+                                            SpatioTemporalTransformerLayer,
+                                            TransformerLayer,
+                                            TransformerModel)
 from sgp_tpu_torch.models.blocks import MLP
 from sgp_tpu_torch.models.gated_gn import GatedGraphNetworkMLPModel
-from sgp_tpu_torch.models.graph_layers import GatedGraphNetwork
+from sgp_tpu_torch.models.graph_layers import (GATConv, GatedGraphNetwork,
+                                               SpatioTemporalAttention)
 from sgp_tpu_torch.models.sgp import SGPModel
 
 Path = Tuple[str, ...]
+
+
+def _heads_in(a: np.ndarray) -> np.ndarray:
+    """A ``DenseGeneral((h, dh))`` kernel ``[in, h, dh]`` as ``[h*dh, in]``
+    (its bias ``[h, dh]`` as ``[h*dh]`` passes through ``_flat``)."""
+    return a.reshape(a.shape[0], -1).T
+
+
+def _heads_out(a: np.ndarray) -> np.ndarray:
+    """A ``DenseGeneral(out, axis=(-2, -1))`` kernel ``[h, dh, out]`` as
+    ``[out, h*dh]``."""
+    return a.reshape(-1, a.shape[-1]).T
+
+
+def _flat(a: np.ndarray) -> np.ndarray:
+    return a.reshape(-1)
+
+
+def to_torch_layout(value: np.ndarray, how) -> np.ndarray:
+    """A flax array in its torch parameter's layout: ``how`` is ``True``
+    (transpose), ``False`` (as it is) or a function of the array."""
+    if how is True:
+        return value.T
+    return value if how is False else how(value)
 
 
 def _linear(out: dict, prefix: Path, lin: nn.Linear):
@@ -104,6 +143,103 @@ def _gated_gn_targets(model: GatedGraphNetworkMLPModel
     return out
 
 
+def _dense_general(out: dict, prefix: Path, lin: nn.Linear, heads_in: bool):
+    out[prefix + ("kernel",)] = (lin.weight,
+                                 _heads_in if heads_in else _heads_out)
+    out[prefix + ("bias",)] = (lin.bias, _flat)
+
+
+def _layer_norm(out: dict, prefix: Path, ln: nn.LayerNorm):
+    out[prefix + ("scale",)] = (ln.weight, False)
+    out[prefix + ("bias",)] = (ln.bias, False)
+
+
+def _mha(out: dict, scope: Path, m: MultiHeadAttention):
+    for name in ("q", "k", "v"):
+        _dense_general(out, scope + (name,), getattr(m, name), True)
+    _dense_general(out, scope + ("out",), m.out, False)
+
+
+def _attention_encoder(out: dict, scope: Path, m: AttentionEncoder):
+    for i, lin in enumerate((m.q_in, m.k_in, m.v_in)):
+        _linear(out, scope + (f"Dense_{i}",), lin)
+    _mha(out, scope + ("MultiHeadAttention_0",), m.mha)
+
+
+def _linear_attention(out: dict, scope: Path, m: CausalLinearAttention):
+    for i, lin in enumerate((m.q, m.k, m.v)):
+        _dense_general(out, scope + (f"DenseGeneral_{i}",), lin, True)
+    _dense_general(out, scope + ("DenseGeneral_3",), m.out, False)
+
+
+def _transformer_layer(out: dict, scope: Path, m: TransformerLayer):
+    if m.proj is not None:
+        _linear(out, scope + ("Dense_0",), m.proj)
+    _layer_norm(out, scope + ("LayerNorm_0",), m.norm1)
+    _mha(out, scope + ("MultiHeadAttention_0",), m.attention)
+    _layer_norm(out, scope + ("LayerNorm_1",), m.norm2)
+    _trunk(out, scope + ("MLP_0",), m.mlp)
+
+
+def _st_transformer_layer(out: dict, scope: Path,
+                          m: SpatioTemporalTransformerLayer):
+    _transformer_layer(out, scope + ("TransformerLayer_0",), m.temporal)
+    _transformer_layer(out, scope + ("TransformerLayer_1",), m.spatial)
+
+
+def _transformer_model(out: dict, scope: Path, m: TransformerModel):
+    _linear(out, scope + ("Dense_0",), m.encoder)
+    for i, layer in enumerate(m.layers):
+        if isinstance(layer, SpatioTemporalTransformerLayer):
+            _st_transformer_layer(
+                out, scope + (f"SpatioTemporalTransformerLayer_{i}",), layer)
+        else:
+            _transformer_layer(out, scope + (f"TransformerLayer_{i}",), layer)
+    _trunk(out, scope + ("MLP_0",), m.readout)
+
+
+def _gat_conv(out: dict, scope: Path, m: GATConv):
+    _dense_general(out, scope + ("DenseGeneral_0",), m.lin, True)
+    out[scope + ("a_src",)] = (m.a_src, False)
+    out[scope + ("a_dst",)] = (m.a_dst, False)
+
+
+def _st_attention(out: dict, scope: Path, m: SpatioTemporalAttention):
+    if m.proj is not None:
+        _linear(out, scope + ("Dense_0",), m.proj)
+    _mha(out, scope + ("MultiHeadAttention_0",), m.temporal)
+    _layer_norm(out, scope + ("LayerNorm_0",), m.norm1)
+    _mha(out, scope + ("MultiHeadAttention_1",), m.spatial)
+    _layer_norm(out, scope + ("LayerNorm_1",), m.norm2)
+
+
+# the attention trees: model class -> its target builder
+_ATTENTION = {
+    TransformerModel: _transformer_model,
+    TransformerLayer: _transformer_layer,
+    SpatioTemporalTransformerLayer: _st_transformer_layer,
+    MultiHeadAttention: _mha,
+    AttentionEncoder: _attention_encoder,
+    CausalLinearAttention: _linear_attention,
+    GATConv: _gat_conv,
+    SpatioTemporalAttention: _st_attention,
+}
+
+
+def targets(model: nn.Module) -> Dict[Path, Tuple[torch.Tensor, object]]:
+    """flax path -> (torch parameter, layout: see :func:`to_torch_layout`)
+    for every parameter of ``model``."""
+    if isinstance(model, GatedGraphNetworkMLPModel):
+        return _gated_gn_targets(model)
+    if isinstance(model, SGPModel):
+        return _targets(model)
+    if type(model) in _ATTENTION:
+        out: Dict[Path, Tuple[torch.Tensor, object]] = {}
+        _ATTENTION[type(model)](out, (), model)
+        return out
+    raise TypeError(f"no flax mapping for {type(model).__name__}")
+
+
 def _flatten(tree: dict, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     flat = {}
     for key, value in tree.items():
@@ -115,32 +251,27 @@ def _flatten(tree: dict, prefix: Path = ()) -> Dict[Path, np.ndarray]:
 
 
 def flax_to_torch(params_np: dict, model: nn.Module) -> nn.Module:
-    """Copy the flax tree ``params_np`` into ``model`` (an ``SGPModel`` or a
-    ``GatedGraphNetworkMLPModel``) in place; returns the model."""
-    if isinstance(model, GatedGraphNetworkMLPModel):
-        _load(params_np, _gated_gn_targets(model))
-    elif isinstance(model, SGPModel):
-        _load(params_np, _targets(model))
-    else:
-        raise TypeError(f"no flax mapping for {type(model).__name__}")
+    """Copy the flax tree ``params_np`` into ``model`` (any model of
+    :func:`targets`) in place; returns the model."""
+    _load(params_np, targets(model))
     return model
 
 
-def _load(params_np: dict, targets: Dict[Path, Tuple[torch.Tensor, bool]]):
-    """Copy ``params_np`` into the ``targets`` parameters, raising on any
+def _load(params_np: dict, wanted: Dict[Path, Tuple[torch.Tensor, object]]):
+    """Copy ``params_np`` into the ``wanted`` parameters, raising on any
     key missing or left over and on any shape that does not fit."""
     if set(params_np) == {"params"}:
         params_np = params_np["params"]
     flat = _flatten(params_np)
-    missing = sorted("/".join(p) for p in targets.keys() - flat.keys())
-    extra = sorted("/".join(p) for p in flat.keys() - targets.keys())
+    missing = sorted("/".join(p) for p in wanted.keys() - flat.keys())
+    extra = sorted("/".join(p) for p in flat.keys() - wanted.keys())
     if missing or extra:
         raise KeyError(f"flax tree does not match the model: missing "
                        f"{missing}, left over {extra}")
     with torch.no_grad():
-        for path, (param, transpose) in targets.items():
+        for path, (param, how) in wanted.items():
             value = torch.from_numpy(np.array(
-                flat[path].T if transpose else flat[path], np.float32))
+                to_torch_layout(flat[path], how), np.float32))
             if value.shape != param.shape:
                 raise ValueError(f"{'/'.join(path)}: flax shape "
                                  f"{tuple(flat[path].shape)} does not fit "

@@ -1,8 +1,11 @@
-"""Trainable graph layers (``torch.nn``): the edge-gated GatedGN layer.
+"""Trainable graph layers (``torch.nn``): the edge-gated GatedGN layer and
+the two attention layers.
 
-Counterpart of ``GatedGraphNetwork`` in ``sgp_tpu/models/graph_layers.py``
-(``tsl/nn/layers/graph_convs/gated_gn.py``, Satorras et al.). Two of its
-aggregation layouts are ported:
+Counterparts in ``sgp_tpu/models/graph_layers.py``: :class:`GATConv` (PyG
+graph attention over an edge list), :class:`SpatioTemporalAttention`
+(temporal then spatial dense attention) and ``GatedGraphNetwork``
+(``tsl/nn/layers/graph_convs/gated_gn.py``, Satorras et al.), of whose
+aggregation layouts three are ported:
 
 - ELL, ``neigh=(src_idx [N, D], mask [N, D])`` from
   ``graph.padded_incoming``: the projections ``p_j`` are gathered into an
@@ -25,16 +28,92 @@ aggregation layouts are ported:
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from sgp_tpu_torch.models.blocks import (get_activation, lecun_normal_,
-                                         reset_linear)
+from sgp_tpu_torch.models.attention import MultiHeadAttention
+from sgp_tpu_torch.models.blocks import (get_activation, layer_norm,
+                                         lecun_normal_, reset_linear)
 from sgp_tpu_torch.ops.activations import ACTIVATIONS
 from sgp_tpu_torch.ops.gn_allpairs import gn_allpairs_aggregate, row_blocks
 from sgp_tpu_torch.ops.gn_ell import gn_ell_aggregate
+from sgp_tpu_torch.ops.scatter import segment_softmax
+
+
+class GATConv(nn.Module):
+    """Graph attention convolution (``graph_convs/gat_conv.py:19-287``,
+    PyG-style): per-edge logits ``leaky_relu(<x_src, a_src> + <x_dst,
+    a_dst>)`` of a shared projection ``lin`` (``input_size -> heads *
+    output_size``), softmax over each destination's incoming edges, heads
+    concatenated (``concat``) or averaged. ``x [..., n, input_size]``;
+    ``src``/``dst`` ``[E]``."""
+
+    def __init__(self, input_size: int, output_size: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2):
+        super().__init__()
+        self.output_size, self.heads = output_size, heads
+        self.concat, self.negative_slope = concat, negative_slope
+        self.lin = nn.Linear(input_size, heads * output_size)
+        self.a_src = nn.Parameter(torch.empty(heads, output_size))
+        self.a_dst = nn.Parameter(torch.empty(heads, output_size))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """flax's initializers: ``a_src``/``a_dst`` lecun-normal over their
+        ``(heads, output_size)`` shape, whose fan-in is ``heads``."""
+        reset_linear(self.lin, generator)
+        lecun_normal_(self.a_src, self.heads, generator)
+        lecun_normal_(self.a_dst, self.heads, generator)
+
+    def forward(self, x, src, dst):
+        h, dh = self.heads, self.output_size
+        n = x.shape[-2]
+        src, dst = src.long(), dst.long()
+        xp = self.lin(x).view(x.shape[:-1] + (h, dh))     # [..., n, h, dh]
+        alpha_src = (xp * self.a_src).sum(-1)             # [..., n, h]
+        alpha_dst = (xp * self.a_dst).sum(-1)
+        logits = F.leaky_relu(alpha_src[..., src, :] + alpha_dst[..., dst, :],
+                              self.negative_slope)       # [..., e, h]
+        # the edge axis leads for the segment ops
+        att = segment_softmax(logits.movedim(-2, 0), dst, n)
+        msgs = xp[..., src, :, :].movedim(-3, 0)          # [e, ..., h, dh]
+        out = torch.zeros((n,) + msgs.shape[1:], dtype=msgs.dtype,
+                          device=msgs.device)
+        out = out.index_add(0, dst, msgs * att[..., None]).movedim(0, -3)
+        if self.concat:
+            return out.reshape(out.shape[:-2] + (h * dh,))
+        return out.mean(-2)
+
+
+class SpatioTemporalAttention(nn.Module):
+    """Temporal then spatial attention sandwich
+    (``graph_convs/spatio_temporal_att.py:7-59``) on ``[b s n c]``: an input
+    projection ``proj`` when ``input_size`` differs from ``hidden_size``,
+    then ``x = norm1(x + temporal(x))`` and ``norm2(x + spatial(x))``."""
+
+    def __init__(self, hidden_size: int, n_heads: int = 1,
+                 dropout: float = 0.0, input_size: Optional[int] = None):
+        super().__init__()
+        input_size = input_size or hidden_size
+        self.proj = nn.Linear(input_size, hidden_size) \
+            if input_size != hidden_size else None
+        self.temporal = MultiHeadAttention(hidden_size, n_heads, "time",
+                                           dropout=dropout)
+        self.norm1 = layer_norm(hidden_size)
+        self.spatial = MultiHeadAttention(hidden_size, n_heads, "nodes",
+                                          dropout=dropout)
+        self.norm2 = layer_norm(hidden_size)
+
+    def forward(self, x):
+        if self.proj is not None:
+            x = self.proj(x)
+        x = self.norm1(x + self.temporal(x))
+        return self.norm2(x + self.spatial(x))
 
 
 class GatedGraphNetwork(nn.Module):

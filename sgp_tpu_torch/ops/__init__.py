@@ -1,4 +1,5 @@
 from sgp_tpu_torch.ops.bsr_kernel import bsr_spmm, bsr_spmm_plain
+from sgp_tpu_torch.ops.functional import sparse_multi_head_attention
 from sgp_tpu_torch.ops.linalg import spectral_radius_exact
 from sgp_tpu_torch.ops.spmm import (
     BSROperator,
@@ -8,9 +9,12 @@ from sgp_tpu_torch.ops.spmm import (
     build_operator,
     dense_adj_mask,
 )
+from sgp_tpu_torch.ops.sddmm import (bsr_attention_structure, bsr_sddmm,
+                                     bsr_multi_head_attention)
 
 __all__ = [
     "BSROperator", "COOOperator", "DenseOperator", "GlobalMeanOperator",
     "build_operator", "bsr_spmm", "bsr_spmm_plain", "dense_adj_mask",
-    "spectral_radius_exact",
+    "spectral_radius_exact", "bsr_attention_structure", "bsr_sddmm",
+    "bsr_multi_head_attention", "sparse_multi_head_attention",
 ]

@@ -10,7 +10,9 @@ tiles in f32; block rows without tiles give zeros.
   in ``csrc/bsr_spmm.cu`` (CUDA C++ for ``sm_90a``, built with ``nvcc`` at
   first use into the repository's ``build/`` directory, keyed on a hash of
   the source, and loaded with ``ctypes``) or raises; on a CPU tensor it
-  runs :func:`bsr_spmm_plain`. There is no other fallback.
+  runs :func:`bsr_spmm_plain`. There is no other fallback. The kernel has
+  no backward: on the card it raises when a gradient is asked for
+  (``ops/sddmm.py::_BlockSpmv`` wraps it with one).
 - :func:`bsr_spmm_plain` mirrors ``bsr_spmm_xla``: a tile gather, one
   ``torch.bmm`` and an ``index_add_`` over the block rows. It is what the
   CPU tests run, and the kernel's oracle on the card.
@@ -68,6 +70,12 @@ def bsr_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
         return bsr_spmm_plain(blocks, block_cols, block_rows, n_block_rows, x)
     if not x.is_cuda:
         raise ValueError(f"bsr_spmm runs on CPU or CUDA, not {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
+        # the kernel's output carries no autograd history: raise rather than
+        # drop the gradient (the JAX operator is differentiable)
+        raise NotImplementedError(
+            "bsr_spmm has no backward on CUDA tensors; call it under "
+            "torch.no_grad() or wrap it in an autograd Function")
     for name, t, dt in (("blocks", blocks, cdt), ("block_cols", block_cols,
                         torch.int32), ("row_ptr", row_ptr, torch.int32)):
         if t.device != x.device or t.dtype != dt or not t.is_contiguous():

@@ -34,6 +34,12 @@ TRAINING_SLICE = (
     "sgp_tpu_torch.ops.spmm", "sgp_tpu_torch.utils.device",
     "sgp_tpu_torch.train.metrics", "sgp_tpu_torch.train.predictor")
 
+# the attention slice's modules
+ATTENTION_SLICE = (
+    "sgp_tpu_torch.ops.sddmm", "sgp_tpu_torch.ops.scatter",
+    "sgp_tpu_torch.ops.functional", "sgp_tpu_torch.models.attention",
+    "sgp_tpu_torch.models.bridge")
+
 
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -44,6 +50,7 @@ def test_port_never_imports_jax():
     words = proc.stdout.split()
     assert int(words[0]) >= 30
     assert set(TRAINING_SLICE) <= set(words[2:])
+    assert set(ATTENTION_SLICE) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

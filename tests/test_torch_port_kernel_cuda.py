@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 BSR SpMM, K3 GatedGN all-pairs, K4 GatedGN ELL)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1 BSR SpMM, K2 block-sampled SDDMM, K3 GatedGN
+all-pairs, K4 GatedGN ELL) against their plain PyTorch versions, on the
+card.
 
 These tests need a CUDA device and ``nvcc``; they skip elsewhere. The file
 imports no JAX, so it runs on a machine without it:
@@ -9,7 +10,7 @@ imports no JAX, so it runs on a machine without it:
 
 Tolerances for K1: f32 tiles 1e-5 of the largest value (order of
 summation); bf16 tiles 1e-2 (both round the output to bf16; one ulp is
-2^-8). K3's and K4's are stated beside their tests.
+2^-8). K2's, K3's and K4's are stated beside their tests.
 """
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from sgp_tpu_torch.graph import Graph, coalesce, normalize_adj
 from sgp_tpu_torch.graph import band_windows
 from sgp_tpu_torch.models import GatedGraphNetwork
 from sgp_tpu_torch.ops import (bsr_spmm, bsr_spmm_plain, build_operator,
-                               gn_allpairs, gn_ell)
+                               gn_allpairs, gn_ell, sddmm)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,9 @@ def _graph(rng, n, e, active=None):
     (1000, 6000, 300, (), 200),        # empty block rows, ragged F
     (515, 8000, None, (3,), 40),       # leading axis folded into F
     (128, 500, None, (), 1),           # one block, one column
+    (1000, 20000, None, (), 16),       # the attention path's widths (F = D)
+    (1000, 6000, 300, (), 40),
+    (700, 9000, None, (), 64),
 ])
 def test_kernel_matches_plain(cuda, precision, tol, n, e, active, lead, f):
     rng = np.random.default_rng(0)
@@ -79,6 +83,9 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):        # more rows than block rows hold
         bsr_spmm(op.blocks, op.block_cols, op.row_ptr, op.block_rows,
                  torch.zeros(400, 8, device=cuda))
+    with pytest.raises(NotImplementedError):   # no backward on the card
+        bsr_spmm(op.blocks, op.block_cols, op.row_ptr, op.block_rows,
+                 x.clone().requires_grad_())
 
 
 # -- K4: the GatedGN ELL kernel, forward and backward ----------------------
@@ -272,3 +279,136 @@ def test_gn_allpairs_wrapper_rejects_bad_inputs(cuda):
         cpu = list(args)
         cpu[2] = cpu[2].cpu()
         gn_allpairs.gn_allpairs_fwd(*cpu)
+
+
+# -- K2: the block-sampled SDDMM --------------------------------------------
+# Tolerances, relative to the plain version's largest value: f32 1e-5 (the
+# same f32 products summed in another order over D); bf16 inputs 2e-2 (both
+# multiply the bf16 values exactly in f32, so only the order differs; the
+# bound leaves room for one bf16 ulp).
+
+def _attention_graph(rng, n, e, empty_block_row=False):
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    if empty_block_row:                # no edge ends in nodes 128..255
+        dst = np.where((dst >= 128) & (dst < 256), dst % 128, dst)
+    return coalesce(Graph(src, dst, rng.random(e).astype(np.float32), n))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,e,d,empty", [
+    (1001, 30000, 40, True),           # ragged N and D, an empty block row
+    (640, 20000, 64, False),           # the slice's D
+    (300, 3000, 16, False),
+    (128, 500, 1, False),              # one block row, D = 1
+])
+def test_sddmm_kernel_matches_plain(cuda, dtype, tol, n, e, d, empty):
+    rng = np.random.default_rng(9)
+    st = sddmm.bsr_attention_structure(_attention_graph(rng, n, e, empty),
+                                       device=cuda)
+    q, k = (torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32),
+                            device=cuda).to(dtype) for _ in range(2))
+    before = sddmm.bsr_sddmm_kernel.launches
+    got = sddmm.bsr_sddmm(q, k, st)
+    torch.cuda.synchronize()
+    assert sddmm.bsr_sddmm_kernel.launches == before + 1
+    ref = sddmm.bsr_sddmm_plain(q, k, st.block_rows, st.block_cols,
+                                st.n_block_rows)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= tol
+    # every padded entry (rows and columns past N) written, exactly 0
+    pad = n % 128
+    if pad:
+        last = st.n_block_rows - 1
+        assert not got[st.block_rows == last, pad:].any()
+        assert not got[st.block_cols == last][:, :, pad:].any()
+    if empty:
+        assert not (st.block_rows == 1).any()
+
+
+def test_sddmm_kernel_strided_head_view(cuda):
+    """``q[:, h]`` of ``[N, H, D]`` runs without a copy and gives the bits
+    of its contiguous copy."""
+    rng = np.random.default_rng(10)
+    n = 700
+    st = sddmm.bsr_attention_structure(_attention_graph(rng, n, 9000),
+                                       device=cuda)
+    q, k = (torch.as_tensor(rng.standard_normal((n, 4, 16)).astype(
+        np.float32), device=cuda) for _ in range(2))
+    for h in range(4):
+        got = sddmm.bsr_sddmm(q[:, h], k[:, h], st)
+        want = sddmm.bsr_sddmm(q[:, h].contiguous(), k[:, h].contiguous(), st)
+        assert torch.equal(got, want)
+
+
+def test_sddmm_kernel_nnzb_zero(cuda):
+    st = sddmm.bsr_attention_structure(
+        Graph(np.zeros(0, np.int32), np.zeros(0, np.int32), None, 200),
+        device=cuda)
+    q = torch.ones(200, 8, device=cuda)
+    before = sddmm.bsr_sddmm_kernel.launches
+    out = sddmm.bsr_sddmm_kernel(q, q, st.block_rows, st.block_cols,
+                                 st.n_block_rows)
+    assert out.shape == (0, 128, 128) and out.is_cuda
+    assert sddmm.bsr_sddmm_kernel.launches == before
+    att = sddmm.bsr_multi_head_attention(q[:, None], q[:, None], q[:, None],
+                                         st)
+    assert att.shape == (200, 1, 8) and not att.any()
+
+
+def test_sddmm_gradients_and_attention_on_the_card(cuda):
+    """``bsr_sddmm``'s autograd Function and the whole attention op on CUDA
+    tensors (K2 and K1 forward, K2 in the SpMM's backward) against the port
+    on the CPU; the op against the edge-list form on the card."""
+    from sgp_tpu_torch.ops import sparse_multi_head_attention
+    rng = np.random.default_rng(11)
+    n, h, d = 1001, 2, 40
+    g = _attention_graph(rng, n, 30000, empty_block_row=True)
+    arrays = [rng.standard_normal((n, h, d)).astype(np.float32)
+              for _ in range(4)]
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = sddmm.bsr_attention_structure(g, device=dev)
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                   for a in arrays[:3])
+        w = torch.as_tensor(arrays[3], device=dev)
+        k2, k1 = sddmm.bsr_sddmm_kernel.launches, bsr_spmm.launches
+        out = sddmm.bsr_multi_head_attention(q, k, v, st)
+        (out * w).sum().backward()
+        scores = sddmm.bsr_sddmm(q[:, 0], k[:, 0], st)
+        dq, dk = torch.autograd.grad((scores * scores).sum(), (q, k))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert sddmm.bsr_sddmm_kernel.launches - k2 == 2 * h + 1
+            assert bsr_spmm.launches - k1 == h
+            edge = sparse_multi_head_attention(
+                q, k, v, torch.as_tensor(g.src, device=dev),
+                torch.as_tensor(g.dst, device=dev), n)
+            assert (out - edge).abs().max().item() <= 1e-4
+        results[dev.type] = [t.detach().cpu() for t in (
+            out, q.grad, k.grad, v.grad, scores, dq, dk)]
+    for got, want in zip(results["cuda"], results["cpu"]):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_sddmm_wrapper_rejects_bad_inputs(cuda):
+    rng = np.random.default_rng(12)
+    st = sddmm.bsr_attention_structure(_attention_graph(rng, 300, 3000),
+                                       device=cuda)
+    q = torch.zeros(300, 8, device=cuda)
+    args = (st.block_rows, st.block_cols, st.n_block_rows)
+    with pytest.raises(ValueError):        # int64 block rows
+        sddmm.bsr_sddmm_kernel(q, q, st.block_rows.long(), *args[1:])
+    with pytest.raises(ValueError):        # block indices on the CPU
+        sddmm.bsr_sddmm_kernel(q, q, st.block_rows.cpu(), *args[1:])
+    with pytest.raises(ValueError):        # a column stride other than 1
+        wide = torch.zeros(8, 300, device=cuda)
+        sddmm.bsr_sddmm_kernel(wide.T, wide.T, *args)
+    with pytest.raises(TypeError):         # float16
+        sddmm.bsr_sddmm_kernel(q.half(), q.half(), *args)
+    with pytest.raises(ValueError):        # k of another width
+        sddmm.bsr_sddmm_kernel(q, torch.zeros(300, 9, device=cuda), *args)
+    with pytest.raises(ValueError):        # more rows than block rows hold
+        big = torch.zeros(400, 8, device=cuda)
+        sddmm.bsr_sddmm_kernel(big, big, *args)
