@@ -24,7 +24,9 @@ raises and the exit code is not 0:
    ``sddmm.cu``);
 2. the BSR kernel against its plain PyTorch version on the card, at the
    slice's shapes and on ragged / empty-block-row graphs, f32 and bf16,
-   with CUDA-event times of both;
+   with CUDA-event times of both; then its backward (``BSROperator @ x``
+   with x and the tiles needing gradients: K1 on the transposed structure,
+   K2 for the tiles) against the plain versions, launches counted;
 3. the serving slice: warm-up, single-stream and 4-stream steps through the
    BSR kernel, checked for shape, finiteness and launch counts, and held
    against a dense-operator forecaster with the same weights and against
@@ -41,7 +43,8 @@ raises and the exit code is not 0:
 6. the GatedGN all-pairs kernel, forward and backward, against its plain
    version on the full graph in natural order (a full sweep), RCM-ordered
    with per-block band windows, and on a ragged case with an asymmetric
-   mask, f32 and bf16, with CUDA-event times of both;
+   mask, f32 and bf16, with CUDA-event times of both, after ``ptxas``'s
+   registers and spills of each backward instantiation;
 7. the full-graph training slice: train steps and ``evaluate`` through the
    all-pairs kernel, checked for launch counts and finite losses, held
    against the same steps with the blocked plain all-pairs math on the card
@@ -51,7 +54,8 @@ raises and the exit code is not 0:
 8. the SDDMM kernel (K2) against its plain version on the 100-nn graph in
    natural and RCM order (D 64 and 16) and on a ragged 1,001-node graph
    with an empty block row (D 40), f32 and bf16, with CUDA-event times, the
-   bound and one cuBLAS ``torch.bmm`` on pre-gathered tiles as yardstick;
+   bound, one cuBLAS ``torch.bmm`` on pre-gathered tiles beside it, and at
+   the main shape the library call ``torch.sparse.sampled_addmm``;
 9. the attention path: ``bsr_multi_head_attention`` (K2, masked softmax,
    K1) at H 1 x D 64 and H 4 x D 16 on the 100-nn graph (natural and RCM)
    and the full graph, held against the edge-list
@@ -62,9 +66,11 @@ raises and the exit code is not 0:
    data: train steps and ``evaluate`` with finite losses, the first step
    against the port on the CPU, step times and peak memory.
 
-Each kernel's bound is the larger of its bytes (each input read once, each
-output written once) over the H100's 3.35 TB/s and its f32 FFMA work over
-67 TFLOP/s (NVIDIA's data sheet, SXM part).
+Each kernel's bound is the largest of three times (NVIDIA's data sheet,
+SXM part): its bytes (each input read once, each output written once) over
+the H100's 3.35 TB/s; its f32-accurate products by the cheaper route, FFMA
+at 67 TFLOP/s or 3xTF32 at 495 / 3 TFLOP/s; its transcendentals over 16 a
+clock per SM at the SM clock ``nvidia-smi`` reports.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -74,6 +80,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -107,6 +114,8 @@ FULL_DENSITY = 0.1475   # PV-US full graph (paper Table 3)
 BAND_BLOCK = 256        # dst rows per window (the runners' auto_band)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
 FFMA_FLOPS = 67e12          # H100 SXM: f32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM: TF32 on the tensor cores, dense
+MUFU_PER_CLOCK_SM = 16      # transcendentals (ex2, rcp) a clock per SM
 GRAD_CLIP = 5.0         # the runners' default (exp/common.py)
 TRAIN_STEPS = 8         # train steps of each training run
 EVAL_BATCHES = 2        # test batches of evaluate
@@ -221,21 +230,41 @@ def interleaved_ms(kernel, plain, rounds: int, iters: int,
     return quartiles(samples[kernel]), quartiles(samples[plain])
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    f32 FFMA work over its peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FFMA_FLOPS
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+MUFU_RATE = None   # transcendentals a second: set by phase 0 from the card
 
 
-def gated_chain_flops(pairs: int, h2: int, h: int) -> dict:
-    """FFMA work of the gated chain per direction: the w2 product and the
-    gate a pair forward; the recompute, dt, dw2 and three gate-sized sums
-    backward (activations run on the MUFU and are not counted)."""
-    fwd = pairs * (2 * h2 * h + 2 * h)
-    return {"fwd": fwd, "bwd": 3 * fwd}
+def bound(nbytes: float, products: float, ffma: float = 0.0,
+          mufu: float = 0.0) -> dict:
+    """The least time the card could take, the largest of its pipes' times:
+    bytes over the memory rate; the f32-accurate matrix products by the
+    cheaper route, FFMA at 67 TFLOP/s or 3xTF32 at 495 / 3 TFLOP/s on the
+    tensor cores (with the elementwise ``ffma`` work on the FMA pipe
+    beside them); the transcendentals over 16 a clock per SM at the card's
+    SM clock. ``bound_by`` is bytes or operations; ``bound_pipe`` names the
+    pipe."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_tensor = max(products * 3 / TF32_FLOPS, ffma / FFMA_FLOPS)
+    t_ffma = (products + ffma) / FFMA_FLOPS
+    t_mufu = mufu / MUFU_RATE
+    times = {"bytes": t_bytes,
+             "tensor" if t_tensor < t_ffma else "fma": min(t_tensor, t_ffma),
+             "mufu": t_mufu}
+    pipe = max(times, key=times.get)
+    return {"bound_ms": times[pipe] * 1e3,
+            "bound_by": "bytes" if pipe == "bytes" else "operations",
+            "bound_pipe": pipe, "bytes": nbytes, "flops": products + ffma,
+            "mufu_ops": mufu}
+
+
+def gated_chain_work(pairs: int, h2: int, h: int) -> dict:
+    """The gated chain's work per direction, as ``bound``'s arguments: the
+    w2 product a pair forward, and the recompute, dt and dw2 backward (the
+    matrix products); the gate's sums on the FMA pipe (one forward, three
+    backward: the gate, dgz, dwg); a sigmoid (an ex2 and a reciprocal) per
+    channel of s and of mt and for the gate, in each direction."""
+    prod, gate, mufu = 2 * h2 * h, 2 * h, 2 * (h2 + h + 1)
+    return {"fwd": (pairs * prod, pairs * gate, pairs * mufu),
+            "bwd": (3 * pairs * prod, 3 * pairs * gate, pairs * mufu)}
 
 
 def phase0_card() -> str:
@@ -250,11 +279,43 @@ def phase0_card() -> str:
     print(f"[phase 0] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    global MUFU_RATE
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    MUFU_RATE = MUFU_PER_CLOCK_SM * sms * clock_mhz * 1e6
+    print(f"[phase 0] {sms} SMs at a maximum SM clock of {clock_mhz:.0f} MHz: "
+          f"{MUFU_RATE:.4g} transcendentals a second")
     import sgp_tpu_torch  # noqa: F401  (sets the TF32 flags)
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on"
     assert not torch.backends.cudnn.allow_tf32, "TF32 cuDNN is on"
     print("[phase 0] TF32 off in matmul and cuDNN")
     return smi
+
+
+BUILD_LOGS = {}   # nvcc's output of each source built by phase 1
+
+
+def ptxas_report(source: str, kernel: str):
+    """``(kernel <activation, dtype>, registers, spill line)`` of each
+    instantiation of ``kernel`` in ``source``'s build log."""
+    acts = ("silu", "tanh", "relu", "elu")
+    out, name, spill = [], None, ""
+    for ln in BUILD_LOGS.get(source, "").splitlines():
+        m = re.search(kernel + r"ILi(\d)E(f|13__nv_bfloat16)", ln)
+        if "Compiling entry function" in ln:
+            name = (f"{kernel}<{acts[int(m.group(1))]}, "
+                    f"{'f32' if m.group(2) == 'f' else 'bf16'}>") if m else None
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "registers" in ln:
+            out.append((name, ln.split("Used")[1].split(",")[0].strip(),
+                        spill))
+            name = None
+    return out
 
 
 def phase1_build():
@@ -266,6 +327,7 @@ def phase1_build():
     print(f"[phase 1] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel")
     for name, (seconds, log) in built.items():
+        BUILD_LOGS[name] = log
         print(f"[phase 1] nvcc {name}.cu: {seconds:.2f} s")
         kernel = ""
         for ln in log.splitlines():
@@ -362,8 +424,60 @@ def phase2_kernel(graph, device) -> dict:
             assert got.shape == ref.shape and torch.isfinite(got).all()
             assert rel <= tol, f"kernel disagrees with plain: {row}"
             rows.append(row)
+    for name, g, f in cases[::2]:
+        for precision, tol in (("highest", TOL_F32), ("default", TOL_BF16)):
+            bsr_gradient_check(g, f, precision, tol, rng, device)
     return next(r for r in rows if r["case"] == "slice" and r["f"] == 128
                 and r["dtype"] == "float32")
+
+
+def bsr_gradient_check(g, f: int, precision: str, tol: float, rng, device):
+    """C1: ``BSROperator @ x`` with x and the tiles needing gradients on
+    the card. Its backward launches K1 on the transposed structure (dx) and
+    K2 (the tiles' gradient); both are held against the plain versions on
+    the same inputs, and timed beside them."""
+    from sgp_tpu_torch.ops import BSROperator, bsr_spmm, build_operator, sddmm
+    from sgp_tpu_torch.ops.bsr_kernel import bsr_spmm_plain
+    op = build_operator(g, "bsr", precision=precision, device=device)
+    tiles = op.blocks.clone().requires_grad_()
+    trainable = BSROperator(tiles, op.block_cols, op.row_ptr, op.block_rows,
+                            g.num_nodes)
+    x = torch.tensor(rng.standard_normal((g.num_nodes, f)).astype(
+        np.float32), device=device, requires_grad=True)
+    w = torch.as_tensor(rng.standard_normal((g.num_nodes, f)).astype(
+        np.float32), device=device)
+    y = trainable @ x
+    k1, k2 = bsr_spmm.launches, sddmm.bsr_sddmm_kernel.launches
+    d_tiles, dx = torch.autograd.grad(y, (tiles, x), w, retain_graph=True)
+    torch.cuda.synchronize()
+    launches = {"bsr_spmm": bsr_spmm.launches - k1,
+                "bsr_sddmm": sddmm.bsr_sddmm_kernel.launches - k2}
+    assert launches == {"bsr_spmm": 1, "bsr_sddmm": 1}, launches
+    # the plain versions on the same inputs: A^T w over the transposed
+    # tiles, and the SDDMM of w with x as the forward read it
+    nbr = op.row_ptr.numel() - 1
+    perm, t_cols, _, t_rows = trainable._transpose.index(
+        op.block_cols, op.block_rows, nbr)
+
+    def plain():
+        t_tiles = tiles.detach()[perm].transpose(1, 2).float().contiguous()
+        xr = x.detach().to(tiles.dtype).float()
+        return (bsr_spmm_plain(t_tiles, t_cols, t_rows, nbr, w),
+                sddmm.bsr_sddmm_plain(w, xr, op.block_rows, op.block_cols,
+                                      nbr).to(tiles.dtype))
+    dx_ref, dt_ref = plain()
+    errs = {"dx": rel_err(dx, dx_ref), "d_tiles": rel_err(d_tiles, dt_ref)}
+    row = dict(case="gradient", n=g.num_nodes, f=f,
+               dtype=str(tiles.dtype).replace("torch.", ""), tol=tol,
+               launches=launches, rel_err={k: v[1] for k, v in errs.items()},
+               max_abs_err={k: v[0] for k, v in errs.items()},
+               bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                   y, (tiles, x), w, retain_graph=True)),
+               bwd_plain_ms=cuda_ms(plain))
+    print(f"[phase 2] {json.dumps(row)}")
+    assert torch.isfinite(dx).all() and torch.isfinite(d_tiles).all()
+    assert d_tiles.dtype == tiles.dtype and dx.dtype == x.dtype
+    assert all(v[1] <= tol for v in errs.values()), row
 
 
 def build_slice(graph, scaler, mode: str, device, n_nodes: int):
@@ -509,10 +623,10 @@ def ell_bounds(args, ghat, out, grads) -> dict:
     the chain's FFMA work on the valid (node, slot) pairs."""
     p_i, pjn, nmask, w2 = args[:4]
     pairs = int(nmask.sum()) * p_i.shape[0]
-    flops = gated_chain_flops(pairs, w2.shape[0], w2.shape[1])
+    work = gated_chain_work(pairs, w2.shape[0], w2.shape[1])
     return {f"{half}_{k}": v for half, nb in (
         ("fwd", nbytes(*args, out)), ("bwd", nbytes(*args, ghat, *grads)))
-        for k, v in bound(nb, flops[half]).items()}
+        for k, v in bound(nb, *work[half]).items()}
 
 
 def phase4_gn_ell(device, n_nodes: int, batch: int, hidden: int):
@@ -906,13 +1020,13 @@ def allpairs_bounds(args, ghat, out, grads, band) -> dict:
     pairs = p_i.shape[0] * sum(
         int(mask[r0:r1, c0:c1].count_nonzero())
         for r0, r1, c0, c1 in row_blocks(n, w2.shape[1], 4, band))
-    flops = gated_chain_flops(pairs, w2.shape[0], w2.shape[1])
+    work = gated_chain_work(pairs, w2.shape[0], w2.shape[1])
     mask_bytes = n * n
     rest = [t for t in args if t is not mask]
     return {"pairs": pairs, **{f"{half}_{k}": v for half, nb in (
         ("fwd", nbytes(*rest, out) + mask_bytes),
         ("bwd", nbytes(*rest, ghat, *grads) + mask_bytes))
-        for k, v in bound(nb, flops[half]).items()}}
+        for k, v in bound(nb, *work[half]).items()}}
 
 
 def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
@@ -938,6 +1052,14 @@ def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
           f"{time.perf_counter() - t0:.1f} s: block {band[0]}, widths "
           f"{list(band[1])}; windowed pairs "
           f"{sum(band[1]) * band[0] / graph.num_nodes ** 2:.3f} of N^2")
+    spills = []
+    for kernel in ("gn_allpairs_bwd_rows_kernel", "gn_allpairs_bwd_cols_kernel"):
+        for name, regs, spill in ptxas_report("gn_allpairs", kernel):
+            print(f"[phase 6] ptxas {name}: {regs}; {spill}")
+            if not spill.startswith("0 bytes stack frame, 0 bytes spill"):
+                spills.append(name)
+    print(f"[phase 6] K3 backward instantiations that spill: {spills or 'none'}"
+          + ("" if BUILD_LOGS.get("gn_allpairs") else " (not rebuilt here)"))
     cases = [("slice", batch, dense_adj_mask(graph, device=device), None),
              ("rcm band", batch, rcm_mask, band),
              ("ragged", 3, ragged, None)]
@@ -1068,9 +1190,43 @@ def ragged_attention_graph(rng):
 
 def sddmm_bound(q, k, nnzb: int) -> dict:
     """K2's bound: q and k read once, the ``[nnzb, 128, 128]`` f32 scores
-    written once; ``2 * 128^2 * D`` FFMA flop a stored block."""
+    written once; ``2 * 128^2 * D`` flop of products a stored block."""
     return bound(nbytes(q, k) + nnzb * 128 * 128 * 4,
                  2 * nnzb * 128 * 128 * q.shape[1])
+
+
+def library_sddmm(q, k, st):
+    """K2's function in one PyTorch call (a yardstick; the port never calls
+    it): ``torch.sparse.sampled_addmm`` with beta 0 on a CSR that holds
+    every position of the stored blocks inside ``[N, N]``. Returns ``(ms,
+    rel_err against the plain version's tiles at those positions)``, or
+    ``(None, why)`` where this build refuses it."""
+    from sgp_tpu_torch.ops import sddmm
+    n, dev = q.shape[0], q.device
+    nnzb = st.block_rows.numel()
+    r = torch.arange(128, device=dev)
+    rows = (st.block_rows.long()[:, None, None] * 128 + r[:, None]).expand(
+        nnzb, 128, 128)
+    cols = (st.block_cols.long()[:, None, None] * 128 + r).expand(
+        nnzb, 128, 128)
+    keep = (rows < n) & (cols < n)
+    slot = torch.arange(nnzb * 128 * 128, device=dev).view(nnzb, 128, 128)
+    order = torch.argsort(rows[keep] * n + cols[keep])
+    rows, cols, slot = rows[keep][order], cols[keep][order], slot[keep][order]
+    crow = torch.zeros(n + 1, dtype=torch.long, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    qf, kt = q.float(), k.float().T.contiguous()
+    try:
+        pattern = torch.sparse_csr_tensor(
+            crow, cols, torch.ones(cols.numel(), device=dev), size=(n, n))
+        call = lambda: torch.sparse.sampled_addmm(pattern, qf, kt, beta=0.0)
+        got = call().values()
+        ms = cuda_ms(call)
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        return None, f"{type(err).__name__}: {err}"[:300]
+    ref = sddmm.bsr_sddmm_plain(q, k, st.block_rows, st.block_cols,
+                                st.n_block_rows).view(-1)[slot]
+    return ms, rel_err(got, ref)[1]
 
 
 def phase8_sddmm(graph, rcm, ragged, device) -> dict:
@@ -1107,22 +1263,27 @@ def phase8_sddmm(graph, rcm, ragged, device) -> dict:
                 lambda: sddmm.bsr_sddmm_kernel(q, k, *idx),
                 lambda: sddmm.bsr_sddmm_plain(q, k, *idx),
                 KERNEL_ROUNDS if main else 1, 20)
-            # the library yardstick: cuBLAS on the gathered f32 tiles (the
-            # gather is left out of its time; TF32 is off)
+            # beside it, cuBLAS on the gathered f32 tiles: the gather, which
+            # K2 does inside, is left out of this time (TF32 is off)
             qt = sddmm._pad_tiles(q, st.n_block_rows)[
                 st.block_rows.long()].float()
             kt = sddmm._pad_tiles(k, st.n_block_rows)[
                 st.block_cols.long()].float()
-            lib_ms = cuda_ms(lambda: torch.bmm(qt, kt.mT))
-            lib_err = rel_err(torch.bmm(qt, kt.mT), ref)[1]
+            bmm_ms = cuda_ms(lambda: torch.bmm(qt, kt.mT))
+            bmm_err = rel_err(torch.bmm(qt, kt.mT), ref)[1]
             row = dict(case=name, n=n, d=d, nnzb=nnzb,
                        dtype=str(dtype).replace("torch.", ""),
                        max_abs_err=abs_err, rel_err=rel, tol=tol,
                        ms=k_ms["median"], q1_q3=[k_ms["q1"], k_ms["q3"]],
                        plain_ms=p_ms["median"],
                        plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
-                       library_ms=lib_ms, library_rel_err=lib_err,
+                       bmm_pregathered_ms=bmm_ms, bmm_rel_err=bmm_err,
                        **sddmm_bound(q, k, nnzb))
+            if main:
+                row["library_ms"], lib = library_sddmm(q, k, st)
+                row["library_call"] = "torch.sparse.sampled_addmm"
+                row["library_rel_err" if row["library_ms"] is not None
+                    else "library_note"] = lib
             print(f"[phase 8] {json.dumps(row)}")
             assert rel <= tol, f"K2 disagrees with plain: {row}"
             rows[(name, d, row["dtype"])] = row

@@ -17,15 +17,15 @@
 //
 // What differs from the TPU kernel. Pallas computes all N^2 pairs of each
 // 128 x 128 tile on the MXU and multiplies by the mask, because the TPU has
-// no cheap per-pair path. Here the chain is FFMA work (f32 without TF32) and
-// only the set mask entries are computed: at 14.75% density that is 6.8x
-// fewer pairs. Skipping a masked pair differs from multiplying it by 0 only
-// where the pair's chain is not finite; the inputs are finite.
+// no cheap per-pair path. Here only the set mask entries are computed: at
+// 14.75% density that is 6.8x fewer pairs. Skipping a masked pair differs
+// from multiplying it by 0 only where the pair's chain is not finite; the
+// inputs are finite.
 //
-// Design. The per-pair chain is K4's (csrc/gn_ell.cu): lane k holds s[k] and
-// t[k] (h2 <= 32), each lane owns the output channels lane and lane + 32
-// (h <= 64) with its two columns of w2 in registers, t goes through 128 bytes
-// of shared memory, and the gate is a butterfly warp sum. A block of four
+// Design of the forward. The per-pair chain is K4's (csrc/gn_ell.cu): lane k
+// holds s[k] and t[k] (h2 <= 32), each lane owns the output channels lane
+// and lane + 32 (h <= 64) with its two columns of w2 in registers, t goes
+// through 128 bytes of shared memory, and the gate is a butterfly warp sum. A block of four
 // warps takes one work item at a time from a global counter (a persistent
 // grid): a destination row in the forward. The four warps split the row's
 // window into 32-column words (warp w takes words w, w + 4, ...), ballot each
@@ -38,32 +38,53 @@
 // interior node's neighbours).
 //
 // Backward, two passes, deterministic, no atomics on data:
-//  1. rows: chunks of kChunk destination rows. Per pair the chain, the
-//     cotangents and K4's reduce-scatter for dt; d_pi is the row sum (fixed
-//     order as above); each warp keeps its share of dw2 (its two columns, 64
-//     registers), db2, dwg and dbg over the chunk and writes it to a scratch
-//     row per (chunk, warp); a last kernel sums the rows in order.
+//  1. rows: chunks of kChunk destination rows. d_pi is the row sum (fixed
+//     order as above); each warp keeps its share of dw2, db2, dwg and dbg
+//     over the chunk and writes it to a scratch row per (chunk, warp); a last
+//     kernel sums the rows in order.
 //  2. columns: d_pj[j] = sum_i mask[i,j] * ds_ij is a sum across rows, so a
 //     second pass walks the transposed mask per source column (within the
 //     column's range of windows, each pair checked against its row's window)
 //     and recomputes the chain. The mask need not be symmetric.
+// In both passes a warp gathers its set mask entries (ballot and popc ranks)
+// into batches of 16 pairs, and a batch's three h2 x h products -- mt = t @
+// w2, dt = dmt @ w2^T and, in the row pass, dw2 += t^T @ dmt -- run on the
+// tensor cores (mma.sync m16n8k8 TF32, f32 accumulation), with the chain's
+// elementwise work on the accumulator fragments: a sigmoid is computed once
+// for act and dact, the gate and dgz are quad-shuffle sums. dw2 stays in
+// accumulator fragments over the whole chunk. t and dmt go through a per-warp
+// shared tile to be read back as A and B operands; w2 sits in shared memory,
+// split hi/lo, in the B layouts of both products it enters (16 KB each, so
+// every fragment load is one conflict-free 16-byte read). A batch's padding
+// slots take a cotangent of 0 and are left out of every sum.
 //
-// Numerics. f32 inputs: full f32, FFMA only. bf16 inputs round where the
-// Pallas kernel and its wrapper round: w2 and wg arrive rounded to bf16 (held
-// in f32), ghat arrives rounded to bf16 (held in f32), t is rounded to bf16
+// Numerics. f32 inputs: FFMA in the forward; in the backward every product of
+// two f32 operands is 3xTF32 (x = hi + lo, both TF32; hi*hi + hi*lo + lo*hi,
+// about 2^-21 relative), never TF32 alone. bf16 inputs round where the Pallas
+// kernel and its wrapper round: w2 and wg arrive rounded to bf16 (held in
+// f32), ghat arrives rounded to bf16 (held in f32), t is rounded to bf16
 // before the w2 product, dmt is rounded to bf16 for the dw2 product only (dt
-// contracts the rounded w2 with the f32 dmt); every sum is f32.
+// contracts the rounded w2 with the f32 dmt); every sum is f32. A bf16 value
+// is exact in TF32 and is not split: mt and dw2 take one product, dt two.
+// The backward's sigmoid is the MUFU's (ex2, reciprocal: a few ulp). relu's
+// derivative jumps at 0, so where 3xTF32 leaves |mt| < 1e-4 the pair's mt is
+// recomputed with FFMA, and the branch is the one f32 takes.
 //
 // What bounds it on this card. Per pair the forward does 2*h2*h = 4,096 FLOP
 // of FFMA plus the gate, and ~h2 + h + 1 transcendentals, on inputs that sit
 // in L2: FFMA and MUFU issue bound it (bytes are the mask, N^2 bytes, read
-// once). The backward does three times the FFMA plus 31 shuffles a pair in
-// pass 1 and twice the FFMA in pass 2. The ways to a faster kernel: bf16 mma
-// for the h2 x h products, and one recompute pass instead of two.
+// once). The backward does the recompute, dt and dw2 (three h2 x h products a
+// pair in pass 1, two in pass 2) on the tensor cores, three times over for
+// f32; the transcendentals (one sigmoid per channel of s and of mt, and the
+// gate's) and the elementwise chain on the FMA pipe are the rest. The ways to
+// a faster kernel: one recompute pass instead of two, and the forward on the
+// same 16-pair tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,20 +106,6 @@ __device__ __forceinline__ float act(float x) {
   if (A == kTanh) return tanhf(x);
   if (A == kRelu) return fmaxf(x, 0.f);
   return x > 0.f ? x : expm1f(x);  // elu
-}
-
-template <int A>
-__device__ __forceinline__ float dact(float x) {
-  if (A == kSilu) {
-    const float s = sigmoid(x);
-    return s * (1.f + x * (1.f - s));
-  }
-  if (A == kTanh) {
-    const float t = tanhf(x);
-    return 1.f - t * t;
-  }
-  if (A == kRelu) return x > 0.f ? 1.f : 0.f;
-  return x > 0.f ? 1.f : expf(x);  // elu
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -157,42 +164,7 @@ struct LaneWeights {
     m0 = a0 + c0;
     m1 = a1 + c1;
   }
-
-  // dt[lane] = sum_c w2[lane, c] dmt[c], from each lane's dmt of its two
-  // channels: each lane holds the products of its two columns for all 32 k;
-  // a reduce-scatter over the warp (31 shuffles) leaves dt[lane] in lane.
-  __device__ __forceinline__ float dt(float d0, float d1, int lane) const;
 };
-
-// One step of a warp reduce-scatter: r[i] and r[i + O] stand for two
-// indices whose sums go to the lanes without and with bit O; each lane keeps
-// its half, adds the partner's, and r[0 .. O) then stand for its half.
-template <int O>
-__device__ __forceinline__ void reduce_scatter_stage(float (&r)[16], int lane) {
-  const bool hi = lane & O;
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = hi ? r[i] : r[i + O];
-    r[i] = (hi ? r[i + O] : r[i]) + __shfl_xor_sync(kFull, send, O);
-  }
-}
-
-__device__ __forceinline__ float LaneWeights::dt(float d0, float d1, int lane) const {
-  float r[16];
-  const bool hi16 = lane & 16;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float lo = fmaf(w2a[i], d0, w2b[i] * d1);
-    const float up = fmaf(w2a[i + 16], d0, w2b[i + 16] * d1);
-    const float send = hi16 ? lo : up;
-    r[i] = (hi16 ? up : lo) + __shfl_xor_sync(kFull, send, 16);
-  }
-  reduce_scatter_stage<8>(r, lane);
-  reduce_scatter_stage<4>(r, lane);
-  reduce_scatter_stage<2>(r, lane);
-  reduce_scatter_stage<1>(r, lane);
-  return r[0];
-}
 
 // The set entries of one mask row within [lo, hi), this warp's share: the
 // 32-column words w, w + kWarps, ... counted from lo. next() is warp-uniform.
@@ -277,6 +249,428 @@ gn_allpairs_fwd_kernel(const T* __restrict__ p_i, const T* __restrict__ p_j,
   }
 }
 
+// -- the backward on the tensor cores ----------------------------------------
+// A warp gathers the set entries of its mask words into batches of kB = 16
+// pairs and runs the chain of a batch as matrix products on the tensor cores
+// (mma.sync m16n8k8, TF32 in, f32 accumulate). Fragments as in the PTX ISA,
+// with g = lane >> 2 and c = lane & 3: A a0 (row g, col c), a1 (g + 8, c),
+// a2 (g, c + 4), a3 (g + 8, c + 4); B b0 (k c, n g), b1 (k c + 4, n g); C c0,
+// c1 (row g, cols 2c, 2c + 1), c2, c3 (row g + 8, the same cols). A thread
+// thus holds pairs g and g + 8 of a batch, channels nt * 8 + 2c + e.
+
+constexpr int kB = 16;           // pairs a batch: the products' M
+constexpr int kLdT = kH2 + 4;    // row of the t tile: A reads conflict-free
+constexpr int kLdD = kH + 4;     // row of the dmt tile, likewise
+constexpr int kFrag = 1024;      // w2 fragments of one layout, a uint4 each
+// |mt| below which relu's branch is settled by an FFMA recompute: far above
+// 3xTF32's error on mt (~1e-6 at unit scale), rare among the pairs
+constexpr float kReluNear = 1e-4f;
+
+// A warp's staging tile: the batch's t, and dact(mt) overwritten by dmt,
+// in shared memory, to be read back in the A and B layouts; dact(s), kept
+// there for ds (registers are the scarce resource of the row pass).
+struct WarpTile {
+  float t[kB * kLdT];
+  float s[kB * kLdT];
+  float d[kB * kLdD];
+  int idx[kB];                   // the other node of each pair
+};
+// dynamic shared memory of a backward block: w2 split hi/lo in the B layout
+// of mt = t @ w2 and in that of dt = dmt @ w2^T (16 KB each), the tiles
+// (67.25 KB in all)
+constexpr int kBwdSmem = 2 * kFrag * (int)sizeof(uint4) + kWarps * (int)sizeof(WarpTile);
+
+// x rounded to TF32 (10 mantissa bits), as the bits of an f32
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// x = hi + lo, both exact in TF32, to about 2^-22 of x: 3xTF32 operands
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// an operand of four values: split, or as it is when TF32 holds it exactly
+template <bool kExact>
+__device__ __forceinline__ void operand(float v0, float v1, float v2, float v3,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (kExact) {
+      hi[r] = __float_as_uint(v[r]);
+      lo[r] = 0u;
+    } else {
+      split(v[r], hi[r], lo[r]);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: a_hi b_hi + a_hi b_lo + a_lo b_hi, the small terms first; an
+// exact operand has no lo, and its terms are left out
+template <bool kAExact, bool kBExact>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  if (!kBExact) mma(d, ah, bl0, bl1);
+  if (!kAExact) mma(d, al, bh0, bh1);
+  mma(d, ah, bh0, bh1);
+}
+
+// The backward's sigmoid: the MUFU's ex2 and reciprocal (a few ulp), not
+// expf and an IEEE division, whose range reduction and slow-path checks
+// cost more issue than the rest of a pair's chain.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+// act(x), with its derivative in d from the same transcendental: silu's one
+// sigmoid, tanh's tanh, elu's exp
+template <int A>
+__device__ __forceinline__ float act_dact(float x, float& d) {
+  if (A == kSilu) {
+    const float s = sigmoid_fast(x);
+    d = s * (1.f + x * (1.f - s));
+    return x * s;
+  }
+  if (A == kTanh) {
+    const float t = tanhf(x);
+    d = 1.f - t * t;
+    return t;
+  }
+  if (A == kRelu) {
+    d = x > 0.f ? 1.f : 0.f;
+    return fmaxf(x, 0.f);
+  }
+  const float em = expm1f(x);  // elu
+  d = x > 0.f ? 1.f : em + 1.f;
+  return x > 0.f ? x : em;
+}
+
+__device__ __forceinline__ uint4 pack_split(float v0, float v1) {
+  uint4 r;
+  split(v0, r.x, r.z);
+  split(v1, r.y, r.w);
+  return r;
+}
+
+// w2 into the two fragment layouts ({b0 hi, b1 hi, b0 lo, b1 lo} a lane;
+// rows past h2 and columns past h are 0), b2 and wg into shared memory.
+__device__ void load_weights(const float* __restrict__ w2, const float* __restrict__ b2,
+                             const float* __restrict__ wg, int h2, int h, uint4* wmt,
+                             uint4* wdt, float* b2s, float* wgs) {
+  auto at = [&](int k, int col) { return (k < h2 && col < h) ? w2[k * h + col] : 0.f; };
+  for (int q = threadIdx.x; q < kFrag; q += kThreads) {
+    const int lane = q & 31, g = lane >> 2, c = lane & 3;
+    const int kk = q >> 8, nt = (q >> 5) & 7;  // mt: [k step 4][n tile 8][lane]
+    wmt[q] = pack_split(at(kk * 8 + c, nt * 8 + g), at(kk * 8 + c + 4, nt * 8 + g));
+    const int kd = q >> 7, nd = (q >> 5) & 3;  // dt: [k step 8][n tile 4][lane]
+    wdt[q] = pack_split(at(nd * 8 + g, kd * 8 + c), at(nd * 8 + g, kd * 8 + c + 4));
+  }
+  if (threadIdx.x < kH) {
+    b2s[threadIdx.x] = threadIdx.x < h ? b2[threadIdx.x] : 0.f;
+    wgs[threadIdx.x] = threadIdx.x < h ? wg[threadIdx.x] : 0.f;
+  }
+  __syncthreads();
+}
+
+// The set entries of one mask row within [lo, hi), this warp's share (the
+// 32-column words w, w + kWarps, ... counted from lo), kB at a time. With
+// lo_of / hi_of, entry k is taken only where lo_of[k] <= key < hi_of[k] (the
+// column pass's window check). Warp-uniform.
+struct BatchWalk {
+  const uint8_t* row;
+  const int* lo_of;
+  const int* hi_of;
+  int hi, j0, key;
+  unsigned bits;
+
+  __device__ __forceinline__ BatchWalk(const uint8_t* r, int lo, int hi_, int warp,
+                                       const int* lo_of_ = nullptr,
+                                       const int* hi_of_ = nullptr, int key_ = 0)
+      : row(r), lo_of(lo_of_), hi_of(hi_of_), hi(hi_), j0(lo + 32 * (warp - kWarps)),
+        key(key_), bits(0u) {}
+
+  // the next batch's entries into idx[0 .. count); 0 when the share is done
+  __device__ __forceinline__ int fill(int* idx) {
+    const int lane = threadIdx.x & 31;
+    int cnt = 0;
+    while (cnt < kB) {
+      if (bits == 0u) {
+        j0 += 32 * kWarps;
+        if (j0 >= hi) break;
+        const int j = j0 + lane;
+        bool set = j < hi && row[j] != 0;
+        if (set && lo_of != nullptr) set = lo_of[j] <= key && key < hi_of[j];
+        bits = __ballot_sync(kFull, set);
+        continue;
+      }
+      const int take = min(kB - cnt, __popc(bits));
+      const bool mine = (bits >> lane) & 1u;
+      const int rank = __popc(bits & ((1u << lane) - 1u));
+      if (mine && rank < take) idx[cnt + rank] = j0 + lane;
+      bits = __ballot_sync(kFull, mine && rank >= take);
+      cnt += take;
+    }
+    __syncwarp();
+    return cnt;
+  }
+};
+
+// The row pass's weight-gradient partials of one warp in registers: dw2 as
+// the C fragments of a [32 x 64] product, and dbg. db2 and dwg (16 channels
+// a thread) live in shared memory, a slot per (lane row g, channel), so that
+// the pass fits its registers without spilling.
+struct WGrad {
+  float dw[2][8][4];
+  float dbg;
+};
+constexpr int kLdW = kH + 4;                       // a slot row: 2-way banks
+constexpr int kWSum = 2 * 8 * kLdW;                // [db2, dwg][g][channel]
+constexpr int kBwdRowsSmem = kBwdSmem + kWarps * kWSum * (int)sizeof(float);
+
+// One batch of cnt <= kB pairs. kRows: the pairs share the destination row
+// (p_i in own, ghat at gh, p_j rows at po; the weight gradients accumulate,
+// db2 and dwg into the lane's slots at wsum); else they share the source
+// column (p_j in own, p_i and ghat rows at po and gh). ds = dt * dact(s) of the valid pairs accumulates into dsum. Slots past
+// cnt take a cotangent of 0 and are left out of every sum.
+template <int A, typename T, bool kRows>
+__device__ __forceinline__ void pair_batch(const uint4* __restrict__ wmt,
+                                           const uint4* __restrict__ wdt,
+                                           const float* __restrict__ b2s,
+                                           const float* __restrict__ wgs, float bg,
+                                           const float* __restrict__ w2,
+                                           WarpTile& wt, int cnt, const T* __restrict__ po,
+                                           const float (&own)[4][2],
+                                           const float* __restrict__ gh, int h2, int h,
+                                           float (&dsum)[4][2], WGrad& wgr,
+                                           float* __restrict__ wsum) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;  // t, w2 exact in TF32
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  bool ok[2];
+  int node[2];
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    ok[pr] = g + 8 * pr < cnt;
+    node[pr] = ok[pr] ? wt.idx[g + 8 * pr] : 0;
+  }
+  // ghat rows hold kH channels, zero past h: float2 loads of channels 2c,
+  // 2c + 1. (A padding slot's dgz and dmt are set to 0 whatever its ghat.)
+  auto ghat2 = [&](int pr, int nt) {
+    return *reinterpret_cast<const float2*>(gh + (kRows ? 0 : (size_t)node[pr] * kH) +
+                                            nt * 8 + 2 * c);
+  };
+
+  // 1. s in dt's C layout; t (rounded as the input) and dact(s) to the tile
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ch = nt * 8 + 2 * c + e;
+        const float o = (ok[pr] && ch < h2) ? to_f32(po[(size_t)node[pr] * h2 + ch]) : 0.f;
+        float ds;
+        const float t = act_dact<A>(own[nt][e] + o, ds);
+        wt.t[(g + 8 * pr) * kLdT + ch] = round_as(t, T());
+        wt.s[(g + 8 * pr) * kLdT + ch] = ds;
+      }
+  __syncwarp();
+
+  // 2. mt = t @ w2 + b2: M 16 pairs, K h2, N h
+  float m[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    m[nt][0] = m[nt][2] = b2s[nt * 8 + 2 * c];
+    m[nt][1] = m[nt][3] = b2s[nt * 8 + 2 * c + 1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* t0 = wt.t + g * kLdT + kk * 8 + c;
+    uint32_t ah[4], al[4];
+    operand<kBf>(t0[0], t0[8 * kLdT], t0[4], t0[8 * kLdT + 4], ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const uint4 w = wmt[(kk * 8 + nt) * 32 + lane];
+      mma3<kBf, kBf>(m[nt], ah, al, w.x, w.y, w.z, w.w);
+    }
+  }
+
+  // 3. mb and dact(mt) from one transcendental; the gate and dgz are sums
+  //    over the 64 channels: the thread's 16, then 2 quad shuffles
+  // the column pass's pairs have rows of their own: their ghat is loaded
+  // once (the row pass's one row is an L1 broadcast, loaded where used)
+  float2 ecol[2][8];
+  if constexpr (!kRows) {
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) ecol[pr][nt] = ghat2(pr, nt);
+  }
+  auto ghat_at = [&](int pr, int nt, int e) {
+    const float2 v = kRows ? ghat2(pr, nt) : ecol[pr][nt];
+    return e ? v.y : v.x;
+  };
+  float z[2] = {0.f, 0.f}, ez[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int pr = r >> 1, ch = nt * 8 + 2 * c + (r & 1);
+      if (A == kRelu && fabsf(m[nt][r]) < kReluNear && ch < h) {
+        // relu's derivative jumps at 0: take the side f32 FFMA takes
+        const float* t0 = wt.t + (g + 8 * pr) * kLdT;
+        float acc = b2s[ch];
+#pragma unroll 1
+        for (int k = 0; k < h2; ++k) acc = fmaf(t0[k], w2[k * h + ch], acc);
+        m[nt][r] = acc;
+      }
+      float dm;
+      const float mb = act_dact<A>(m[nt][r], dm);
+      m[nt][r] = mb;
+      wt.d[(g + 8 * pr) * kLdD + ch] = dm;
+      z[pr] = fmaf(wgs[ch], mb, z[pr]);
+      ez[pr] = fmaf(ghat_at(pr, nt, r & 1), mb, ez[pr]);
+    }
+  float gate[2], dgz[2];
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      z[pr] += __shfl_xor_sync(kFull, z[pr], o);
+      ez[pr] += __shfl_xor_sync(kFull, ez[pr], o);
+    }
+    gate[pr] = sigmoid_fast(z[pr] + bg);
+    dgz[pr] = ok[pr] ? ez[pr] * gate[pr] * (1.f - gate[pr]) : 0.f;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = nt * 8 + 2 * c + e;
+      float db = 0.f, dw = 0.f;  // the thread's two pairs, then its slots
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        float* dp = wt.d + (g + 8 * pr) * kLdD + ch;
+        const float dmt =
+            ok[pr] ? fmaf(ghat_at(pr, nt, e), gate[pr], wgs[ch] * dgz[pr]) * *dp : 0.f;
+        *dp = dmt;
+        db += dmt;
+        dw = fmaf(m[nt][2 * pr + e], dgz[pr], dw);
+      }
+      if constexpr (kRows) {
+        float* slot = wsum + g * kLdW + ch;  // this thread's own slots
+        slot[0] += db;
+        slot[8 * kLdW] += dw;
+      }
+    }
+  if constexpr (kRows) wgr.dbg += dgz[0] + dgz[1];
+  __syncwarp();
+
+  // 4. dt = dmt @ w2^T: M 16, K h, N h2; ds = dt * dact(s) into dsum
+  float q[4][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float* d0 = wt.d + g * kLdD + kk * 8 + c;
+    uint32_t ah[4], al[4];
+    operand<false>(d0[0], d0[8 * kLdD], d0[4], d0[8 * kLdD + 4], ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const uint4 w = wdt[(kk * 4 + nt) * 32 + lane];
+      mma3<false, kBf>(q[nt], ah, al, w.x, w.y, w.z, w.w);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int pr = r >> 1, e = r & 1;
+      if (ok[pr])
+        dsum[nt][e] =
+            fmaf(q[nt][r], wt.s[(g + 8 * pr) * kLdT + nt * 8 + 2 * c + e], dsum[nt][e]);
+    }
+
+  // 5. rows: dw2 += t^T @ dmt, dmt rounded as the input: M h2, K 16, N h
+  if constexpr (kRows) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* t0 = wt.t + (ks * 8 + c) * kLdT + mi * 16 + g;
+        operand<kBf>(t0[0], t0[8], t0[4 * kLdT], t0[4 * kLdT + 8], ah[mi], al[mi]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float* d0 = wt.d + (ks * 8 + c) * kLdD + nt * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        const float v0 = round_as(d0[0], T()), v1 = round_as(d0[4 * kLdD], T());
+        if (kBf) {
+          bh0 = __float_as_uint(v0);
+          bh1 = __float_as_uint(v1);
+          bl0 = bl1 = 0u;
+        } else {
+          split(v0, bh0, bl0);
+          split(v1, bh1, bl1);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mma3<kBf, kBf>(wgr.dw[mi][nt], ah[mi], al[mi], bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+  __syncwarp();  // the tile and idx are rewritten by the next batch
+}
+
+// The four warps' dsum of one row (or column), summed over the lanes of a
+// channel and then over the warps in order, into out[0 .. h2).
+__device__ __forceinline__ void item_total(float (&dsum)[4][2], float (*d_s)[kH2],
+                                           float* __restrict__ out, int h2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, c = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = dsum[nt][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+      if (lane < 4) d_s[warp][nt * 8 + 2 * c + e] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < h2) {
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) sum += d_s[q][threadIdx.x];
+    out[threadIdx.x] = sum;
+  }
+  __syncthreads();  // d_s is rewritten by the next item
+}
+
+// the thread's projections of one node on the channels of dt's C layout
+template <typename T>
+__device__ __forceinline__ void own_row(const T* __restrict__ p, int h2, float (&own)[4][2]) {
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = nt * 8 + 2 * c + e;
+      own[nt][e] = ch < h2 ? to_f32(p[ch]) : 0.f;
+    }
+}
+
 // Backward pass 1: d_pi and the weight-gradient partials, kChunk rows an item.
 template <int A, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -287,99 +681,76 @@ gn_allpairs_bwd_rows_kernel(const T* __restrict__ p_i, const T* __restrict__ p_j
                             const float* __restrict__ bgp, const float* __restrict__ ghat,
                             float* __restrict__ dpi, float* __restrict__ part,
                             int* __restrict__ counter, int rows, int n, int h2, int h) {
-  __shared__ __align__(16) float t_s[kWarps][kH2];
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* wmt = reinterpret_cast<uint4*>(smem);
+  uint4* wdt = wmt + kFrag;
+  __shared__ float b2s[kH], wgs[kH];
   __shared__ float d_s[kWarps][kH2];
   __shared__ int item_s;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* ts = t_s[warp];
-  LaneWeights w;
-  w.load(w2, b2, wg, bgp, h2, h);
-  const bool in_h2 = lane < h2;
+  const int g = lane >> 2, c = lane & 3;
+  WarpTile* tiles = reinterpret_cast<WarpTile*>(wdt + kFrag);
+  WarpTile& wt = tiles[warp];
+  float* wsum = reinterpret_cast<float*>(tiles + kWarps) + warp * kWSum;
+  load_weights(w2, b2, wg, h2, h, wmt, wdt, b2s, wgs);
+  const float bg = *bgp;
   const int chunks = (rows + kChunk - 1) / kChunk;
 
   for (int chunk = next_item(counter, &item_s); chunk < chunks;
        chunk = next_item(counter, &item_s)) {
-    float dwa[kH2], dwb[kH2];  // this lane's columns c0, c1 of dw2
+    WGrad wgr;
 #pragma unroll
-    for (int k = 0; k < kH2; ++k) dwa[k] = dwb[k] = 0.f;
-    float db2a = 0.f, db2b = 0.f, dwga = 0.f, dwgb = 0.f, dbg = 0.f;
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) wgr.dw[mi][nt][r] = 0.f;
+    wgr.dbg = 0.f;
+    for (int k = lane; k < kWSum; k += 32) wsum[k] = 0.f;
+    __syncwarp();
 
     for (int row = chunk * kChunk; row < min(rows, (chunk + 1) * kChunk); ++row) {
       const int i = row % n;
-      const T* pj = p_j + (size_t)(row - i) * h2 + lane;
-      const float pi = in_h2 ? to_f32(p_i[(size_t)row * h2 + lane]) : 0.f;
-      const float e0 = lane < h ? ghat[(size_t)row * h + lane] : 0.f;
-      const float e1 = lane + 32 < h ? ghat[(size_t)row * h + lane + 32] : 0.f;
-      PairWalk walk(mask + (size_t)i * n, row_lo[i], row_hi[i], warp);
-      float dpi_acc = 0.f;
-      int j = walk.next();
-      float next = (j >= 0 && in_h2) ? to_f32(pj[(size_t)j * h2]) : 0.f;
-      while (j >= 0) {
-        const float cur = next;
-        j = walk.next();
-        if (j >= 0 && in_h2) next = to_f32(pj[(size_t)j * h2]);
-        // recompute the forward chain of this pair
-        const float s = pi + cur;
-        ts[lane] = round_as(act<A>(s), T());
-        __syncwarp();
-        float m0, m1;
-        w.message(ts, m0, m1);
-        const float mb0 = act<A>(m0), mb1 = act<A>(m1);
-        const float g = sigmoid(warp_sum(fmaf(w.wga, mb0, w.wgb * mb1)) + w.bg);
-        // cotangents: e = ghat * mask (mask is 1 here)
-        const float dgz = warp_sum(fmaf(e0, mb0, e1 * mb1)) * g * (1.f - g);
-        const float dmt0 = fmaf(e0, g, w.wga * dgz) * dact<A>(m0);
-        const float dmt1 = fmaf(e1, g, w.wgb * dgz) * dact<A>(m1);
-        db2a += dmt0;
-        db2b += dmt1;
-        dwga = fmaf(mb0, dgz, dwga);
-        dwgb = fmaf(mb1, dgz, dwgb);
-        dbg += dgz;
-        const float q0 = round_as(dmt0, T()), q1 = round_as(dmt1, T());
-        // dw2[k, c] += t[k] * dmt[c] for the lane's two columns
-#pragma unroll
-        for (int k = 0; k < kH2; k += 4) {
-          const float4 t4 = *reinterpret_cast<const float4*>(ts + k);
-          dwa[k] = fmaf(t4.x, q0, dwa[k]);
-          dwb[k] = fmaf(t4.x, q1, dwb[k]);
-          dwa[k + 1] = fmaf(t4.y, q0, dwa[k + 1]);
-          dwb[k + 1] = fmaf(t4.y, q1, dwb[k + 1]);
-          dwa[k + 2] = fmaf(t4.z, q0, dwa[k + 2]);
-          dwb[k + 2] = fmaf(t4.z, q1, dwb[k + 2]);
-          dwa[k + 3] = fmaf(t4.w, q0, dwa[k + 3]);
-          dwb[k + 3] = fmaf(t4.w, q1, dwb[k + 3]);
-        }
-        __syncwarp();  // ts is rewritten by the next pair
-        dpi_acc += w.dt(dmt0, dmt1, lane) * dact<A>(s);
-      }
-      d_s[warp][lane] = dpi_acc;
-      __syncthreads();
-      if (threadIdx.x < h2) {
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < kWarps; ++q) sum += d_s[q][threadIdx.x];
-        dpi[(size_t)row * h2 + threadIdx.x] = sum;
-      }
-      __syncthreads();  // d_s is rewritten by the next row
+      float own[4][2], dsum[4][2] = {};
+      own_row(p_i + (size_t)row * h2, h2, own);
+      BatchWalk walk(mask + (size_t)i * n, row_lo[i], row_hi[i], warp);
+      for (int cnt = walk.fill(wt.idx); cnt > 0; cnt = walk.fill(wt.idx))
+        pair_batch<A, T, true>(wmt, wdt, b2s, wgs, bg, w2, wt, cnt,
+                               p_j + (size_t)(row - i) * h2, own, ghat + (size_t)row * kH,
+                               h2, h, dsum, wgr, wsum);
+      item_total(dsum, d_s, dpi + (size_t)row * h2, h2);
     }
 
     float* p = part + ((size_t)chunk * kWarps + warp) * kPart;
 #pragma unroll
-    for (int k = 0; k < kH2; ++k) {
-      p[k * kH + lane] = dwa[k];
-      p[k * kH + lane + 32] = dwb[k];
-    }
-    p[kH2 * kH + lane] = db2a;
-    p[kH2 * kH + lane + 32] = db2b;
-    p[kH2 * kH + kH + lane] = dwga;
-    p[kH2 * kH + kH + lane + 32] = dwgb;
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          p[(mi * 16 + g + (r >> 1) * 8) * kH + nt * 8 + 2 * c + (r & 1)] = wgr.dw[mi][nt][r];
+    __syncwarp();  // db2, dwg: each channel's 8 slots (rows g) in order
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int ch = lane; ch < kH; ch += 32) {
+        float v = 0.f;
+#pragma unroll
+        for (int gg = 0; gg < 8; ++gg) v += wsum[(q * 8 + gg) * kLdW + ch];
+        p[kH2 * kH + q * kH + ch] = v;
+      }
+    float dbg = wgr.dbg;  // the same in the 4 lanes of a quad: sum over g
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) dbg += __shfl_xor_sync(kFull, dbg, o);
     if (lane == 0) p[kH2 * kH + 2 * kH] = dbg;
   }
 }
 
 // Backward pass 2: d_pj, one source column an item, over the transposed mask.
+// (Two blocks an SM as the floor: ptxas then takes the ~165 registers the
+// pass needs instead of spilling at 128; shared memory allows three.)
 template <int A, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 gn_allpairs_bwd_cols_kernel(const T* __restrict__ p_i, const T* __restrict__ p_j,
                             const uint8_t* __restrict__ mask_t,
                             const int* __restrict__ row_lo, const int* __restrict__ row_hi,
@@ -388,101 +759,88 @@ gn_allpairs_bwd_cols_kernel(const T* __restrict__ p_i, const T* __restrict__ p_j
                             const float* __restrict__ wg, const float* __restrict__ bgp,
                             const float* __restrict__ ghat, float* __restrict__ dpj,
                             int* __restrict__ counter, int cols, int n, int h2, int h) {
-  __shared__ __align__(16) float t_s[kWarps][kH2];
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* wmt = reinterpret_cast<uint4*>(smem);
+  uint4* wdt = wmt + kFrag;
+  __shared__ float b2s[kH], wgs[kH];
   __shared__ float d_s[kWarps][kH2];
   __shared__ int item_s;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* ts = t_s[warp];
-  LaneWeights w;
-  w.load(w2, b2, wg, bgp, h2, h);
-  const bool in_h2 = lane < h2;
+  const int warp = threadIdx.x >> 5;
+  WarpTile& wt = reinterpret_cast<WarpTile*>(wdt + kFrag)[warp];
+  load_weights(w2, b2, wg, h2, h, wmt, wdt, b2s, wgs);
+  const float bg = *bgp;
+  WGrad unused;
 
   for (int col = next_item(counter, &item_s); col < cols;
        col = next_item(counter, &item_s)) {
     const int j = col % n;
     const size_t base = (size_t)(col - j);  // this batch row's first node
-    const float pj = in_h2 ? to_f32(p_j[(size_t)col * h2 + lane]) : 0.f;
-    PairWalk walk(mask_t + (size_t)j * n, col_lo[j], col_hi[j], warp);
-    // the next destination i whose window holds column j
-    auto next_i = [&]() {
-      int i;
-      do {
-        i = walk.next();
-      } while (i >= 0 && !(row_lo[i] <= j && j < row_hi[i]));
-      return i;
-    };
-    float dpj_acc = 0.f;
-    int i = next_i();
-    float pi_n = 0.f, e0_n = 0.f, e1_n = 0.f;
-    if (i >= 0) {
-      pi_n = in_h2 ? to_f32(p_i[(base + i) * h2 + lane]) : 0.f;
-      e0_n = lane < h ? ghat[(base + i) * h + lane] : 0.f;
-      e1_n = lane + 32 < h ? ghat[(base + i) * h + lane + 32] : 0.f;
-    }
-    while (i >= 0) {
-      const float pi = pi_n, e0 = e0_n, e1 = e1_n;
-      i = next_i();
-      if (i >= 0) {
-        pi_n = in_h2 ? to_f32(p_i[(base + i) * h2 + lane]) : 0.f;
-        e0_n = lane < h ? ghat[(base + i) * h + lane] : 0.f;
-        e1_n = lane + 32 < h ? ghat[(base + i) * h + lane + 32] : 0.f;
-      }
-      const float s = pi + pj;
-      ts[lane] = round_as(act<A>(s), T());
-      __syncwarp();
-      float m0, m1;
-      w.message(ts, m0, m1);
-      __syncwarp();  // ts is rewritten by the next pair
-      const float mb0 = act<A>(m0), mb1 = act<A>(m1);
-      const float g = sigmoid(warp_sum(fmaf(w.wga, mb0, w.wgb * mb1)) + w.bg);
-      const float dgz = warp_sum(fmaf(e0, mb0, e1 * mb1)) * g * (1.f - g);
-      const float dmt0 = fmaf(e0, g, w.wga * dgz) * dact<A>(m0);
-      const float dmt1 = fmaf(e1, g, w.wgb * dgz) * dact<A>(m1);
-      dpj_acc += w.dt(dmt0, dmt1, lane) * dact<A>(s);
-    }
-    d_s[warp][lane] = dpj_acc;
-    __syncthreads();
-    if (threadIdx.x < h2) {
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < kWarps; ++q) sum += d_s[q][threadIdx.x];
-      dpj[(size_t)col * h2 + threadIdx.x] = sum;
-    }
+    float own[4][2], dsum[4][2] = {};
+    own_row(p_j + (size_t)col * h2, h2, own);
+    // destinations i of column j whose window holds j
+    BatchWalk walk(mask_t + (size_t)j * n, col_lo[j], col_hi[j], warp, row_lo, row_hi, j);
+    for (int cnt = walk.fill(wt.idx); cnt > 0; cnt = walk.fill(wt.idx))
+      pair_batch<A, T, false>(wmt, wdt, b2s, wgs, bg, w2, wt, cnt, p_i + base * h2, own,
+                              ghat + base * kH, h2, h, dsum, unused, nullptr);
+    item_total(dsum, d_s, dpj + (size_t)col * h2, h2);
   }
 }
 
 // grads = [dw2 (h2*h), db2 (h), dwg (h), dbg (1)]: each entry the sum of its
-// column of the per-(chunk, warp) partials, in order.
+// column of the per-(chunk, warp) partials. A block takes 32 entries; its 8
+// rows of threads sum the partials w = y, y + 8, ... in order, then row 0
+// adds the 8 sums in order: the same order on every run.
+constexpr int kReduceRows = 8;
+
 __global__ void gn_allpairs_wgrad_reduce(const float* __restrict__ part, int n_parts, int h2,
                                          int h, float* __restrict__ grads) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float sums[kReduceRows][32];
+  const int j = blockIdx.x * 32 + threadIdx.x;
   const int n_out = h2 * h + 2 * h + 1;
-  if (j >= n_out) return;
-  int col;
+  int col = 0;
   if (j < h2 * h) col = (j / h) * kH + j % h;
   else if (j < h2 * h + h) col = kH2 * kH + (j - h2 * h);
   else if (j < h2 * h + 2 * h) col = kH2 * kH + kH + (j - h2 * h - h);
   else col = kH2 * kH + 2 * kH;
   float acc = 0.f;
-  for (int w = 0; w < n_parts; ++w) acc += part[(size_t)w * kPart + col];
-  grads[j] = acc;
+  if (j < n_out)
+    for (int w = threadIdx.y; w < n_parts; w += kReduceRows) acc += part[(size_t)w * kPart + col];
+  sums[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < n_out) {
+    float total = 0.f;
+#pragma unroll
+    for (int y = 0; y < kReduceRows; ++y) total += sums[y][threadIdx.x];
+    grads[j] = total;
+  }
+}
+
+// Lets a kernel take `smem` bytes of dynamic shared memory (above 48 KB it
+// must be asked for); a no-op for 0.
+template <typename K>
+int allow_smem(K kernel, int smem) {
+  if (smem > 0)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename K>
-int occupancy(K kernel, int* blocks) {
+int occupancy(K kernel, int smem, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
+  const int err = allow_smem(kernel, smem);
+  if (err != 0) return err;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   *blocks = sms * per_sm;
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int A, typename T>
 int blocks_for(int pass, int* blocks) {
-  if (pass == 0) return occupancy(gn_allpairs_fwd_kernel<A, T>, blocks);
-  if (pass == 1) return occupancy(gn_allpairs_bwd_rows_kernel<A, T>, blocks);
-  return occupancy(gn_allpairs_bwd_cols_kernel<A, T>, blocks);
+  if (pass == 0) return occupancy(gn_allpairs_fwd_kernel<A, T>, 0, blocks);
+  if (pass == 1) return occupancy(gn_allpairs_bwd_rows_kernel<A, T>, kBwdRowsSmem, blocks);
+  return occupancy(gn_allpairs_bwd_cols_kernel<A, T>, kBwdSmem, blocks);
 }
 
 template <int A, typename T>
@@ -507,16 +865,19 @@ int bwd(const void* p_i, const void* p_j, const void* mask, const void* mask_t,
         void* dpi, void* dpj, void* part, void* grads, void* counters, int rows, int n,
         int h2, int h, int blocks_rows, int blocks_cols, cudaStream_t stream) {
   int* cnt = static_cast<int*>(counters);
-  gn_allpairs_bwd_rows_kernel<A, T><<<blocks_rows, kThreads, 0, stream>>>(
+  int err = allow_smem(gn_allpairs_bwd_rows_kernel<A, T>, kBwdRowsSmem);
+  if (err == 0) err = allow_smem(gn_allpairs_bwd_cols_kernel<A, T>, kBwdSmem);
+  if (err != 0) return err;
+  gn_allpairs_bwd_rows_kernel<A, T><<<blocks_rows, kThreads, kBwdRowsSmem, stream>>>(
       static_cast<const T*>(p_i), static_cast<const T*>(p_j),
       static_cast<const uint8_t*>(mask), static_cast<const int*>(row_lo),
       static_cast<const int*>(row_hi), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(wg),
       static_cast<const float*>(bg), static_cast<const float*>(ghat),
       static_cast<float*>(dpi), static_cast<float*>(part), cnt, rows, n, h2, h);
-  int err = static_cast<int>(cudaGetLastError());
+  err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  gn_allpairs_bwd_cols_kernel<A, T><<<blocks_cols, kThreads, 0, stream>>>(
+  gn_allpairs_bwd_cols_kernel<A, T><<<blocks_cols, kThreads, kBwdSmem, stream>>>(
       static_cast<const T*>(p_i), static_cast<const T*>(p_j),
       static_cast<const uint8_t*>(mask_t), static_cast<const int*>(row_lo),
       static_cast<const int*>(row_hi), static_cast<const int*>(col_lo),
@@ -528,7 +889,7 @@ int bwd(const void* p_i, const void* p_j, const void* mask, const void* mask_t,
   if (err != 0) return err;
   const int n_out = h2 * h + 2 * h + 1;
   const int n_parts = (rows + kChunk - 1) / kChunk * kWarps;
-  gn_allpairs_wgrad_reduce<<<(n_out + 255) / 256, 256, 0, stream>>>(
+  gn_allpairs_wgrad_reduce<<<(n_out + 31) / 32, dim3(32, kReduceRows), 0, stream>>>(
       static_cast<const float*>(part), n_parts, h2, h, static_cast<float*>(grads));
   return static_cast<int>(cudaGetLastError());
 }
@@ -586,8 +947,8 @@ extern "C" int sgp_gn_allpairs_fwd(int act, int bf16, const void* p_i, const voi
 
 // The backward for the forward's inputs, the transposed mask mask_t [n, n]
 // uint8, the column ranges col_lo, col_hi [n] int32 (column j is held by
-// rows within [col_lo[j], col_hi[j]) only) and ghat [rows, h] f32 (rounded
-// to the input dtype): dpi, dpj [rows, h2] f32 and grads = [dw2 (h2*h),
+// rows within [col_lo[j], col_hi[j]) only) and ghat [rows, 64] f32 (rounded
+// to the input dtype, columns past h zero): dpi, dpj [rows, h2] f32 and grads = [dw2 (h2*h),
 // db2 (h), dwg (h), dbg (1)] f32 through the scratch `part`
 // [sgp_gn_allpairs_parts(rows), 2177] f32; counters [2] int32 zeroed. Three
 // launches on `stream`.

@@ -73,9 +73,12 @@ class SGPModel(nn.Module):
         self.mlp.reset_parameters(generator)
         self.readout.reset_parameters(generator)
 
-    def forward(self, x, u=None, node_index=None, iid: bool = False):
+    def forward(self, x, u=None, node_index=None, training: bool = False,
+                iid: bool = False):
         # x: [b w n f] / [b n f] (full graph); IID mode (``iid=True``,
-        # per-(time,node) samples): [b w f] / [b f] with node_index [b]
+        # per-(time,node) samples): [b w f] / [b f] with node_index [b].
+        # ``training`` is the JAX model's keyword, taken and unused: dropout
+        # follows ``self.training``, which ``Predictor`` sets.
         squeeze_nodes = False
         if iid:
             if x.ndim == 3:

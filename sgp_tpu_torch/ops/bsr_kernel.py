@@ -6,20 +6,25 @@ dense 128x128 tiles at its nonzero block positions (``Graph.to_bsr``):
 [n_block_rows + 1]``. Each output row accumulates over its block row's
 tiles in f32; block rows without tiles give zeros.
 
-- :func:`bsr_spmm` is the entry. On a CUDA tensor it launches the kernel
-  in ``csrc/bsr_spmm.cu`` (CUDA C++ for ``sm_90a``, built with ``nvcc`` at
-  first use into the repository's ``build/`` directory, keyed on a hash of
-  the source, and loaded with ``ctypes``) or raises; on a CPU tensor it
-  runs :func:`bsr_spmm_plain`. There is no other fallback. The kernel has
-  no backward: on the card it raises when a gradient is asked for
-  (``ops/sddmm.py::_BlockSpmv`` wraps it with one).
+- :func:`bsr_spmm` is the entry, differentiable in the tiles and in x. On
+  a CUDA tensor it launches the kernel in ``csrc/bsr_spmm.cu`` (CUDA C++
+  for ``sm_90a``, built with ``nvcc`` at first use into the repository's
+  ``build/`` directory, keyed on a hash of the source, and loaded with
+  ``ctypes``) or raises; on a CPU tensor it runs :func:`bsr_spmm_plain`.
+  There is no other fallback. Its backward runs on the same routes:
+  ``dx = A^T @ g`` is the block SpMM over the transposed block structure
+  (:class:`BlockTranspose`), ``d_blocks`` the SDDMM of ``g`` and ``x`` at
+  the stored blocks (``ops/sddmm.py``, K2 on the card).
 - :func:`bsr_spmm_plain` mirrors ``bsr_spmm_xla``: a tile gather, one
   ``torch.bmm`` and an ``index_add_`` over the block rows. It is what the
   CPU tests run, and the kernel's oracle on the card.
 
 Both round like the Pallas kernel: with bf16 tiles, x is read as bf16,
 products and sums are f32, and the result is rounded to bf16 before the
-cast back to x's dtype (``bsr_spmm_xla`` skips that last rounding).
+cast back to x's dtype (``bsr_spmm_xla`` skips that last rounding). The
+backward computes in f32 (bf16 tiles are widened exactly, x is rounded to
+bf16 as the forward reads it) and casts each gradient to its input's
+dtype, as ``jax.grad`` of ``bsr_spmm_xla`` does.
 """
 from __future__ import annotations
 
@@ -54,28 +59,37 @@ def _compute_dtype(blocks: torch.Tensor) -> torch.dtype:
 
 def bsr_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
              row_ptr: torch.Tensor, block_rows: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, transpose: "BlockTranspose | None" = None
+             ) -> torch.Tensor:
     """``A @ x`` for ``x [N, F]`` with ``N <= n_block_rows * 128``; returns
     ``[N, F]`` in x's dtype. ``block_rows [nnzb]`` (the block row of each
     tile, sorted) feeds the plain version; the kernel walks ``row_ptr``.
+    Differentiable in ``blocks`` and ``x``; ``transpose`` keeps the
+    transposed structure the backward needs across calls (a new one is
+    built for each backward without it).
 
     The index arrays are trusted: :meth:`BSROperator.from_bsr` validates
     them on the host once."""
-    cdt = _compute_dtype(blocks)
+    _compute_dtype(blocks)
     n_block_rows = row_ptr.numel() - 1
     if x.ndim != 2 or x.shape[0] > n_block_rows * BLOCK:
         raise ValueError(f"x must be [N, F] with N <= {n_block_rows * BLOCK},"
                          f" got {tuple(x.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
+        return _BSRSpmm.apply(blocks, x, block_cols, row_ptr, block_rows,
+                              transpose or BlockTranspose())
+    return _spmm(blocks, block_cols, row_ptr, block_rows, x)
+
+
+def _spmm(blocks, block_cols, row_ptr, block_rows, x):
+    """The forward of :func:`bsr_spmm` (no autograd): the plain version on
+    a CPU tensor, the kernel on a CUDA one."""
+    cdt = _compute_dtype(blocks)
+    n_block_rows = row_ptr.numel() - 1
     if x.device.type == "cpu":
         return bsr_spmm_plain(blocks, block_cols, block_rows, n_block_rows, x)
     if not x.is_cuda:
         raise ValueError(f"bsr_spmm runs on CPU or CUDA, not {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
-        # the kernel's output carries no autograd history: raise rather than
-        # drop the gradient (the JAX operator is differentiable)
-        raise NotImplementedError(
-            "bsr_spmm has no backward on CUDA tensors; call it under "
-            "torch.no_grad() or wrap it in an autograd Function")
     for name, t, dt in (("blocks", blocks, cdt), ("block_cols", block_cols,
                         torch.int32), ("row_ptr", row_ptr, torch.int32)):
         if t.device != x.device or t.dtype != dt or not t.is_contiguous():
@@ -103,6 +117,84 @@ def bsr_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
 
 
 bsr_spmm.launches = 0  # kernel launches since the last reset to 0
+
+
+class BlockTranspose:
+    """The structure of ``A^T`` for one block structure, built on the host
+    the first time a gradient asks for it and kept: the permutation that
+    sorts the tiles by (column, row), and the transposed ``block_cols``,
+    ``row_ptr`` and ``block_rows``. Its f32 tiles ``blocks[perm]^T`` are
+    kept too while the tiles they come from are constant (the same tensor
+    at the same version, needing no gradient), as an operator's are."""
+
+    def __init__(self):
+        self._index = None
+        self._tiles = None
+        self._tiles_of = None
+
+    def index(self, block_cols: torch.Tensor, block_rows: torch.Tensor,
+              n_block_rows: int):
+        """``(perm int64, cols, row_ptr, rows int32)`` on the tiles'
+        device."""
+        if self._index is None:
+            cols = block_cols.cpu().numpy().astype(np.int64)
+            rows = block_rows.cpu().numpy().astype(np.int64)
+            perm = np.lexsort((rows, cols))
+            t_rows = cols[perm]
+            ptr = np.zeros(n_block_rows + 1, np.int64)
+            np.cumsum(np.bincount(t_rows, minlength=n_block_rows),
+                      out=ptr[1:])
+            dev = block_cols.device
+            self._index = (
+                torch.as_tensor(perm, device=dev),
+                torch.as_tensor(rows[perm].astype(np.int32), device=dev),
+                torch.as_tensor(ptr.astype(np.int32), device=dev),
+                torch.as_tensor(t_rows.astype(np.int32), device=dev))
+        return self._index
+
+    def tiles(self, blocks: torch.Tensor, perm: torch.Tensor):
+        """The f32 tiles of ``A^T`` in the transposed order."""
+        key = (blocks, blocks._version)
+        if self._tiles is not None and self._tiles_of[0] is key[0] \
+                and self._tiles_of[1] == key[1]:
+            return self._tiles
+        tiles = blocks.detach()[perm].transpose(1, 2).float().contiguous()
+        if not blocks.requires_grad:
+            self._tiles, self._tiles_of = tiles, key
+        return tiles
+
+
+class _BSRSpmm(torch.autograd.Function):
+    """:func:`bsr_spmm` with its VJP: ``dx = A^T @ g`` through the block
+    SpMM on the transposed structure, ``d_blocks[k] = g_tile[rows[k]] @
+    x_tile[cols[k]]^T`` through the SDDMM, both in f32 on the tensors'
+    device."""
+
+    @staticmethod
+    def forward(ctx, blocks, x, block_cols, row_ptr, block_rows, transpose):
+        ctx.save_for_backward(blocks, x, block_cols, block_rows)
+        ctx.n_block_rows = row_ptr.numel() - 1
+        ctx.transpose = transpose
+        return _spmm(blocks, block_cols, row_ptr, block_rows, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from sgp_tpu_torch.ops.sddmm import _sddmm_forward
+        blocks, x, block_cols, block_rows = ctx.saved_tensors
+        nbr = ctx.n_block_rows
+        g = g.float().contiguous()
+        d_blocks = dx = None
+        if ctx.needs_input_grad[0]:
+            # x as the forward read it: rounded to the tiles' dtype
+            xr = x.detach().to(blocks.dtype).float().contiguous()
+            d_blocks = _sddmm_forward(g, xr, block_rows, block_cols,
+                                      nbr).to(blocks.dtype)
+        if ctx.needs_input_grad[1]:
+            perm, t_cols, t_ptr, t_rows = ctx.transpose.index(
+                block_cols, block_rows, nbr)
+            dx = _spmm(ctx.transpose.tiles(blocks, perm), t_cols, t_ptr,
+                       t_rows, g).to(x.dtype)
+        return d_blocks, dx, None, None, None, None
 
 
 def bsr_spmm_plain(blocks: torch.Tensor, block_cols: torch.Tensor,

@@ -257,7 +257,8 @@ def gn_allpairs_bwd(p_i: torch.Tensor, p_j: torch.Tensor, mask: torch.Tensor,
                          f"got one on {ghat.device}")
     pi_c, pj_c, m8, w2c, b2f, wgc, bgf, bounds, (code, bf16, dev) = \
         _launch_setup(p_i, p_j, mask, w2, b2, wg, bg, activation, band)
-    gh = ghat.to(p_i.dtype).float().contiguous()
+    gh = torch.zeros((b * n, MAX_H), dtype=torch.float32, device=p_i.device)
+    gh[:, :h] = ghat.reshape(b * n, h).to(p_i.dtype)   # rows of 64 channels
     dpi = torch.empty((b, n, h2), dtype=torch.float32, device=p_i.device)
     dpj = torch.empty_like(dpi)
     grads = torch.zeros(h2 * h + 2 * h + 1, dtype=torch.float32,
@@ -269,7 +270,7 @@ def gn_allpairs_bwd(p_i: torch.Tensor, p_j: torch.Tensor, mask: torch.Tensor,
     part = torch.empty((lib.sgp_gn_allpairs_parts(b * n), _PART),
                        dtype=torch.float32, device=p_i.device)
     counters = torch.zeros(2, dtype=torch.int32, device=p_i.device)
-    m8_t = m8.t().contiguous()
+    m8_t = _transposed(mask, m8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sgp_gn_allpairs_bwd(
@@ -288,6 +289,20 @@ def gn_allpairs_bwd(p_i: torch.Tensor, p_j: torch.Tensor, mask: torch.Tensor,
 
 
 gn_allpairs_bwd.launches = 0  # kernel launches since the last reset to 0
+
+_MASK_T = []   # [(mask, its version, its transpose)]: the last mask only
+
+
+def _transposed(mask: torch.Tensor, m8: torch.Tensor) -> torch.Tensor:
+    """``m8^T`` contiguous (``m8`` the kernel's bytes of ``mask``), kept for
+    the next call while ``mask`` is the same tensor at the same version: a
+    training run's mask is constant, so its transpose (``N^2`` bytes) is
+    built once, not every backward."""
+    if _MASK_T and _MASK_T[0][0] is mask and _MASK_T[0][1] == mask._version:
+        return _MASK_T[0][2]
+    m8_t = m8.t().contiguous()
+    _MASK_T[:] = [(mask, mask._version, m8_t)]
+    return m8_t
 
 
 def _split_grads(grads, h2: int, h: int):

@@ -13,7 +13,8 @@ graph attention, numerically the edge-list
   it runs :func:`bsr_sddmm_plain`. There is no other fallback. Its backward
   is plain torch on both devices (the JAX package has no backward kernel).
 - :func:`bsr_masked_softmax` and the block SpMM tail :func:`_block_spmv`,
-  which runs through the port's K1 (``ops/bsr_kernel.py::bsr_spmm``).
+  which runs through the port's K1 (``ops/bsr_kernel.py::bsr_spmm``) and
+  its backward.
 - :func:`bsr_multi_head_attention`, q/k/v ``[N, H, D]``, heads on axis 1.
 
 The JAX op's ``variant=`` argument is gone: the tensor's device decides.
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from sgp_tpu_torch.ops import _build
-from sgp_tpu_torch.ops.bsr_kernel import bsr_spmm
+from sgp_tpu_torch.ops.bsr_kernel import BlockTranspose, bsr_spmm
 from sgp_tpu_torch.ops.scatter import segment_max, segment_sum
 from sgp_tpu_torch.utils.device import resolve_device
 
@@ -49,6 +50,8 @@ class BSRAttentionStructure:
     row_ptr: torch.Tensor        # [n_block_rows + 1] int32
     n_block_rows: int
     num_nodes: int
+    transpose: BlockTranspose = dataclasses.field(   # for the SpMM's VJP
+        default_factory=BlockTranspose, repr=False, compare=False)
 
 
 def bsr_attention_structure(g, device=None) -> BSRAttentionStructure:
@@ -233,39 +236,15 @@ def bsr_masked_softmax(logit_blocks: torch.Tensor,
     return p / denom[rows][:, :, None]
 
 
-class _BlockSpmv(torch.autograd.Function):
-    """``att @ v`` through K1 (its plain version on the CPU). Backward in
-    the same block form: ``d_att`` is an SDDMM of the output gradient with
-    v (K2 on the card), ``dv`` the transposed block product."""
-
-    @staticmethod
-    def forward(ctx, att, v, struct):
-        ctx.save_for_backward(att, v)
-        ctx.struct = struct
-        return bsr_spmm(att, struct.block_cols, struct.row_ptr,
-                        struct.block_rows, v)
-
-    @staticmethod
-    def backward(ctx, g):
-        att, v = ctx.saved_tensors
-        s = ctx.struct
-        d_att = dv = None
-        if ctx.needs_input_grad[0]:
-            d_att = _sddmm_forward(g.float().contiguous(), v.float(),
-                                   s.block_rows, s.block_cols,
-                                   s.n_block_rows)
-        if ctx.needs_input_grad[1]:
-            dv = _tile_grad(att, g.float(), s.block_rows, s.block_cols,
-                            s.n_block_rows, v.shape[0], True).to(v.dtype)
-        return d_att, dv, None
-
-
 def _block_spmv(att_blocks: torch.Tensor, v: torch.Tensor,
                 struct: BSRAttentionStructure) -> torch.Tensor:
     """``att @ v`` with the f32 attention weights in block form (the SpMM
-    tail of attention): K1 with the weights as its tiles. v ``[N, D]``;
-    returns ``[N, D]`` in v's dtype."""
-    return _BlockSpmv.apply(att_blocks, v, struct)
+    tail of attention): K1 with the weights as its tiles, differentiable
+    through ``bsr_spmm``'s backward (``d_att`` on K2, ``dv`` on K1 over the
+    structure's transpose). v ``[N, D]``; returns ``[N, D]`` in v's
+    dtype."""
+    return bsr_spmm(att_blocks, struct.block_cols, struct.row_ptr,
+                    struct.block_rows, v, struct.transpose)
 
 
 def bsr_multi_head_attention(q: torch.Tensor, k: torch.Tensor,

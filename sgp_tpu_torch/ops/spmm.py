@@ -7,7 +7,8 @@ and the same ``build_operator`` thresholds:
   ``torch.matmul`` in full f32 (the package turns TF32 off).
 - :class:`BSROperator` — 128x128 block-sparse rows; ``A @ x`` is the CUDA
   kernel of ``ops/bsr_kernel.py`` on the card and its plain version on the
-  CPU. The device decides; there is no ``variant`` argument.
+  CPU, differentiable on both. The device decides; there is no
+  ``variant`` argument.
 - :class:`COOOperator` — gather + ``index_add_``.
 
 Every operator takes ``x [..., N, F]`` and contracts over ``N``.
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from sgp_tpu_torch.graph.sparse import Graph
-from sgp_tpu_torch.ops.bsr_kernel import BLOCK, bsr_spmm, prepare_bsr
+from sgp_tpu_torch.ops.bsr_kernel import (BLOCK, BlockTranspose, bsr_spmm,
+                                          prepare_bsr)
 from sgp_tpu_torch.utils.device import resolve_device
 
 
@@ -67,7 +69,9 @@ class COOOperator:
 class BSROperator:
     """128x128 block-sparse operator. ``[..., N, F]`` inputs are folded
     into one ``[N, prod(lead) * F]`` product, so a batch of streams is one
-    kernel launch."""
+    kernel launch. Differentiable in x and in the tiles; the transposed
+    structure (and, while the tiles are constant, the transposed tiles) is
+    built the first time a gradient is asked for and kept."""
 
     BLOCK = BLOCK
 
@@ -78,6 +82,7 @@ class BSROperator:
         self.row_ptr = row_ptr              # [n_block_rows + 1] int32
         self.block_rows = block_rows        # [nnzb] int32 (sorted)
         self._num_nodes = int(num_nodes)
+        self._transpose = BlockTranspose()
 
     @classmethod
     def from_bsr(cls, blocks, block_cols, row_ptr, num_nodes: int,
@@ -95,10 +100,10 @@ class BSROperator:
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         args = (self.blocks, self.block_cols, self.row_ptr, self.block_rows)
         if x.ndim == 2:
-            return bsr_spmm(*args, x)
+            return bsr_spmm(*args, x, self._transpose)
         lead, (n, f) = x.shape[:-2], x.shape[-2:]
         folded = x.reshape(-1, n, f).transpose(0, 1).reshape(n, -1)
-        out = bsr_spmm(*args, folded)
+        out = bsr_spmm(*args, folded, self._transpose)
         return out.reshape(n, -1, f).transpose(0, 1).reshape(lead + (n, f))
 
 

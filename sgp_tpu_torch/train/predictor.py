@@ -39,11 +39,15 @@ logger = logging.getLogger(__name__)
 
 def default_batch_to_call(batch, training: bool):
     """``(args, kwargs)`` for the model from a batch: x, and u and
-    node_index when present."""
+    node_index when present; ``iid=True`` for per-(time, node) samples (a
+    1-D node_index with x at most ``[b w f]``)."""
     kwargs = {"training": training}
-    for k in ("u", "node_index"):
-        if k in batch:
-            kwargs[k] = batch[k]
+    if "u" in batch:
+        kwargs["u"] = batch["u"]
+    if "node_index" in batch:
+        kwargs["node_index"] = batch["node_index"]
+        if np.ndim(batch["node_index"]) == 1 and batch["x"].ndim <= 3:
+            kwargs["iid"] = True
     return (batch["x"],), kwargs
 
 

@@ -83,9 +83,41 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):        # more rows than block rows hold
         bsr_spmm(op.blocks, op.block_cols, op.row_ptr, op.block_rows,
                  torch.zeros(400, 8, device=cuda))
-    with pytest.raises(NotImplementedError):   # no backward on the card
-        bsr_spmm(op.blocks, op.block_cols, op.row_ptr, op.block_rows,
-                 x.clone().requires_grad_())
+    xg = x.clone().requires_grad_()        # a gradient, no longer a raise
+    bsr_spmm(op.blocks, op.block_cols, op.row_ptr, op.block_rows,
+             xg).sum().backward()
+    assert xg.grad is not None and xg.grad.shape == x.shape
+
+
+@pytest.mark.parametrize("precision,tol", [("highest", 1e-5),
+                                           ("default", 1e-2)])
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_bsr_spmm_gradients_match_plain(cuda, precision, tol, lead):
+    """``bsr_spmm``'s backward on CUDA tensors (K1 on the transposed
+    structure for dx, K2 for the tiles) against the same Function on the
+    CPU, where it runs the plain versions; ragged N, empty block rows."""
+    rng = np.random.default_rng(13)
+    n, f = 1000, 40
+    g = _graph(rng, n, 6000, 300)
+    x = rng.standard_normal(lead + (n, f)).astype(np.float32)
+    w = rng.standard_normal(lead + (n, f)).astype(np.float32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        op = build_operator(g, "bsr", precision=precision, device=dev)
+        tiles = op.blocks.clone().requires_grad_()
+        trainable = type(op)(tiles, op.block_cols, op.row_ptr,
+                             op.block_rows, n)
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        k1, k2 = bsr_spmm.launches, sddmm.bsr_sddmm_kernel.launches
+        ((trainable @ xt) * torch.as_tensor(w, device=dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (bsr_spmm.launches - k1,
+                    sddmm.bsr_sddmm_kernel.launches - k2) == (2, 1)
+        assert tiles.grad.dtype == tiles.dtype and xt.grad.dtype == xt.dtype
+        grads[dev.type] = (xt.grad.cpu(), tiles.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(got, want) <= tol
 
 
 # -- K4: the GatedGN ELL kernel, forward and backward ----------------------
@@ -234,6 +266,37 @@ def test_gn_allpairs_kernel_matches_plain(cuda, activation, dtype, tol, b, n,
         assert _rel(g, r) <= gtol, (name, _rel(g, r))
 
 
+@pytest.mark.parametrize("activation", ["silu", "elu"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_gn_allpairs_kernel_pads_pair_batches(cuda, activation, dtype, tol):
+    """Rows and columns holding 0, 1, 15, 16, 17 and 33 set entries: the
+    backward's 16-pair batches end full, one short, one over and empty,
+    and their padding slots must add nothing."""
+    rng = np.random.default_rng(14)
+    n, degrees = 240, (0, 1, 15, 16, 17, 33)
+    mask = np.zeros((n, n), bool)
+    for i in range(n):
+        mask[i, rng.choice(n, degrees[i % 6], replace=False)] = True
+    for j, d in zip(range(0, n, 7), degrees * 6):    # columns of each count
+        mask[:, j] = False
+        mask[rng.choice(n, d, replace=False), j] = True
+    args, _ = _allpairs_inputs(rng, 2, n, 32, 64, dtype, cuda)
+    args = (*args[:2], torch.as_tensor(mask, device=cuda), *args[3:])
+    ghat = torch.as_tensor(rng.standard_normal((2, n, 64)).astype(
+        np.float32), device=cuda)
+    grads = gn_allpairs.gn_allpairs_bwd(*args, ghat, activation)
+    refg = gn_allpairs.gn_allpairs_bwd_plain(*args, ghat, activation)
+    torch.cuda.synchronize()
+    empty_rows = torch.as_tensor(~mask.any(1), device=cuda)
+    assert not grads[0][:, empty_rows].any()
+    for g, r, name in zip(grads, refg, ("dpi", "dpj", "dw2", "db2", "dwg",
+                                        "dbg")):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r) <= tol, (name, _rel(g, r))
+
+
 def test_gn_allpairs_backward_is_deterministic(cuda):
     rng = np.random.default_rng(6)
     args, _ = _allpairs_inputs(rng, 2, 900, 32, 64, torch.float32, cuda)
@@ -359,7 +422,7 @@ def test_sddmm_kernel_nnzb_zero(cuda):
 
 def test_sddmm_gradients_and_attention_on_the_card(cuda):
     """``bsr_sddmm``'s autograd Function and the whole attention op on CUDA
-    tensors (K2 and K1 forward, K2 in the SpMM's backward) against the port
+    tensors (K2 and K1 forward, K2 and K1 in the SpMM's backward) against the port
     on the CPU; the op against the edge-list form on the card."""
     from sgp_tpu_torch.ops import sparse_multi_head_attention
     rng = np.random.default_rng(11)
@@ -381,7 +444,7 @@ def test_sddmm_gradients_and_attention_on_the_card(cuda):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert sddmm.bsr_sddmm_kernel.launches - k2 == 2 * h + 1
-            assert bsr_spmm.launches - k1 == h
+            assert bsr_spmm.launches - k1 == 2 * h   # forward and dv
             edge = sparse_multi_head_attention(
                 q, k, v, torch.as_tensor(g.src, device=dev),
                 torch.as_tensor(g.dst, device=dev), n)

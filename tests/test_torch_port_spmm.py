@@ -6,8 +6,12 @@ against ``bsr_spmm_xla``. Tolerances: f32 tiles 1e-5 (order of
 summation); bf16 tiles against the Pallas kernel 1e-2 relative (both
 round the output to bf16, so a different f32 sum order can flip one bf16
 ulp, 2^-8); bf16 tiles against ``bsr_spmm_xla``, which does not round its
-output, the same bf16-level 1e-2.
+output, the same bf16-level 1e-2. Gradients against ``jax.grad`` through
+the JAX operator (``bsr_spmm_xla``) at the same tolerances: f32 the same
+sums in another order; bf16 the forward's output rounding and JAX's bf16
+intermediates, each within a bf16 ulp.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ import sgp_tpu.graph as jg
 from sgp_tpu.ops import build_operator as j_build_operator
 from sgp_tpu.ops.bsr_kernel import (bsr_spmm_prepared, bsr_spmm_xla,
                                     prepare_bsr as j_prepare_bsr)
+from sgp_tpu.ops.spmm import BSROperator as JBSROperator
 from sgp_tpu.ops.spmm import GlobalMeanOperator as JGlobalMean
 
 import sgp_tpu_torch.graph as tg
@@ -123,6 +128,50 @@ def test_dense_operator_transpose_and_global_mean(rng):
     np.testing.assert_allclose(
         (GlobalMeanOperator(n) @ torch.as_tensor(x)).numpy(),
         np.asarray(JGlobalMean(n) @ jnp.asarray(x)), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("lead", [(), (2,)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bsr_gradients_match_jax(rng, lead, dtype):
+    """The gradients of ``sum((A @ x)^2)`` with respect to x and to the
+    tiles, from the port's autograd Function (the transposed block SpMM
+    and the SDDMM, plain versions on the CPU), against ``jax.grad`` of the
+    JAX ``BSROperator``; ragged N and an empty block row."""
+    n, f = 300, 20
+    jgr, tgr = _graphs(rng, n, 2500, n_active=200)
+    x = rng.standard_normal(lead + (n, f)).astype(np.float32)
+    prec = "default" if dtype == "bfloat16" else "highest"
+    jop = j_build_operator(jgr, "bsr", precision=prec)
+    n_br = int(jop.row_ptr.shape[0]) - 1
+
+    def loss(blocks, xj):
+        op = JBSROperator(blocks, jop.block_cols, jop.row_ptr,
+                          jop.block_rows, n, n_br)
+        return jnp.sum((op @ xj) ** 2)
+
+    want_b, want_x = jax.grad(loss, argnums=(0, 1))(jop.blocks,
+                                                    jnp.asarray(x))
+    op = build_operator(tgr, "bsr", precision=prec)
+    tiles = op.blocks.clone().requires_grad_()
+    trainable = BSROperator(tiles, op.block_cols, op.row_ptr, op.block_rows,
+                            n)
+    xt = torch.tensor(x, requires_grad=True)
+    (trainable @ xt).square().sum().backward()
+    assert tiles.grad.dtype == tiles.dtype and xt.grad.dtype == xt.dtype
+    assert _rel(xt.grad, want_x) <= TOL[dtype]
+    assert _rel(tiles.grad.float(), np.asarray(want_b, np.float32)) \
+        <= TOL[dtype]
+    assert trainable._transpose._tiles is None   # trainable: not kept
+    # constant tiles: the transposed tiles are built once and kept
+    x2 = torch.tensor(x, requires_grad=True)
+    (op @ x2).square().sum().backward()
+    kept = op._transpose._tiles
+    assert kept is not None and kept.dtype == torch.float32
+    x3 = torch.tensor(x, requires_grad=True)
+    (op @ x3).square().sum().backward()
+    assert op._transpose._tiles is kept
+    np.testing.assert_array_equal(x3.grad.numpy(), x2.grad.numpy())
+    np.testing.assert_array_equal(x2.grad.numpy(), xt.grad.numpy())
 
 
 def test_kernel_launch_count_stays_zero_on_cpu(rng):

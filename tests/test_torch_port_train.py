@@ -33,6 +33,8 @@ from sgp_tpu.models import graph_layers as j_graph_layers
 from sgp_tpu.models.gated_gn import GatedGraphNetworkMLPModel as JModel
 from sgp_tpu.train import MaskedMetrics as JMetrics
 from sgp_tpu.train import Predictor as JPredictor
+from sgp_tpu.data.scalers import ScalerParams as JScalerParams
+from sgp_tpu.models import SGPModel as JSGPModel
 from sgp_tpu.ops.spmm import dense_adj_mask as j_dense_adj_mask
 from sgp_tpu.train import metrics as jmetrics
 
@@ -40,8 +42,10 @@ from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
                                 TemporalSplitter, WindowedLoader, Windowing)
 from sgp_tpu_torch.data.datasets import SyntheticDiffusion
 from sgp_tpu_torch.graph import band_windows, padded_incoming
-from sgp_tpu_torch.models import GatedGraphNetworkMLPModel, flax_to_torch
-from sgp_tpu_torch.models.bridge import _gated_gn_targets
+from sgp_tpu_torch.data.scalers import ScalerParams
+from sgp_tpu_torch.models import (GatedGraphNetworkMLPModel, SGPModel,
+                                  flax_to_torch)
+from sgp_tpu_torch.models.bridge import _gated_gn_targets, targets
 from sgp_tpu_torch.ops import dense_adj_mask
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.train import metrics as tmetrics
@@ -288,6 +292,72 @@ def test_predictor_train_step_matches_jax(pipelines, grad_clip, layout,
         keep = np.abs(grads[path]) > 1e-6
         np.testing.assert_allclose(param.detach().numpy()[keep], want[keep],
                                    rtol=0, atol=1e-6,
+                                   err_msg="/".join(path))
+
+
+SGP_N, SGP_D, SGP_H = 9, 24, 3
+
+
+def _sgp_batch(rng, iid: bool):
+    """A full-graph batch ``x [b 1 n f]``, or an IID one of per-(time,
+    node) samples ``x [b 1 f]`` with ``node_index [b]``."""
+    b = 6
+    nodes = () if iid else (SGP_N,)
+    batch = {"x": rng.standard_normal((b, 1) + nodes + (SGP_D,)),
+             "y": rng.standard_normal((b, SGP_H) + nodes + (1,)) * 3 + 2,
+             "mask": rng.random((b, SGP_H) + nodes + (1,)) > 0.2}
+    if iid:
+        batch["node_index"] = rng.integers(0, SGP_N, b)
+    return {k: v.astype(np.float32) if v.dtype == np.float64 else v
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("iid", [False, True], ids=["full-graph", "iid"])
+def test_predictor_trains_sgp_model_like_jax(rng, iid):
+    """One ``Predictor.train_step`` of ``SGPModel`` through the default
+    call adapter (``iid=True`` for a 1-D node_index), against the JAX
+    trainer on the same flax weights: the loss, the clipped gradients and
+    the parameters after Adam, at the tolerances of the GatedGN step."""
+    kw = dict(input_size=SGP_D, order=4, n_nodes=SGP_N, hidden_size=14,
+              mlp_size=8, output_size=1, n_layers=2, horizon=SGP_H,
+              resnet=True)
+    batch = _sgp_batch(rng, iid)
+    clip = 0.05
+    jpred = JPredictor(JSGPModel(**kw), lr=1e-3, grad_clip=clip, seed=0)
+    jpred.init(batch, JScalerParams(jnp.full((1,), 2.0), jnp.full((1,), 3.0)))
+    tpred = Predictor(SGPModel(**kw), lr=1e-3, grad_clip=clip, seed=0,
+                      device="cpu")
+    tpred.init(batch, ScalerParams(torch.full((1,), 2.0),
+                                   torch.full((1,), 3.0)))
+    flax_to_torch(jax.tree.map(np.asarray, jpred.params), tpred.model)
+    jdev = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_j(params):
+        args, kwargs = jpred.batch_to_call(jdev, True)
+        out = jpred.model.apply(params, *args, **kwargs)
+        v, n = jmetrics._masked_reduce(jmetrics._abs_err,
+                                       out * 3.0 + 2.0, jdev["y"],
+                                       jdev["mask"])
+        return v / jnp.maximum(n, 1.0)
+
+    clipped, _ = optax.clip_by_global_norm(clip).update(
+        jax.grad(loss_j)(jpred.params), optax.EmptyState())
+    new_params, _, jloss = jpred._train_step(
+        jpred.params, jpred.opt_state, jdev, jax.random.PRNGKey(0))
+    tloss = tpred.train_step(batch)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    flat_g = jax.tree.map(np.asarray, clipped)["params"]
+    flat_p = jax.tree.map(np.asarray, new_params)["params"]
+    for path, (param, transpose) in targets(tpred.model).items():
+        want_g, want_p = flat_g, flat_p
+        for k in path:
+            want_g, want_p = want_g[k], want_p[k]
+        if transpose:
+            want_g, want_p = want_g.T, want_p.T
+        _rel_close(param.grad.numpy(), want_g, 1e-5, "/".join(path))
+        keep = np.abs(want_g) > 1e-6
+        np.testing.assert_allclose(param.detach().numpy()[keep],
+                                   want_p[keep], rtol=0, atol=1e-6,
                                    err_msg="/".join(path))
 
 
