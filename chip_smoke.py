@@ -318,6 +318,34 @@ def ptxas_report(source: str, kernel: str):
     return out
 
 
+def spilling(tag: str, source: str, *kernels) -> list:
+    """Print ptxas's registers and spills of each instantiation of
+    ``kernels`` in ``source``'s build log; return those that spill."""
+    spills = []
+    for kernel in kernels:
+        for name, regs, spill in ptxas_report(source, kernel):
+            print(f"[{tag}] ptxas {name}: {regs}; {spill}")
+            if not spill.startswith("0 bytes stack frame, 0 bytes spill"):
+                spills.append(name)
+    print(f"[{tag}] {source} instantiations that spill: {spills or 'none'}"
+          + ("" if BUILD_LOGS.get(source) else " (not rebuilt here)"))
+    return spills
+
+
+# K4's and K3's medians at the main path's f32 shapes as PERF.md's kernel
+# table records them from this script's earlier runs (NVIDIA H100 80GB
+# HBM3, 700.00 W): K4's backward before its tensor-core design, K3 as it
+# stands. Printed beside this run's; compare within one run only.
+RECORDED_MS = {"gn_ell": {"fwd": 0.8367, "bwd": 2.3474},
+               "gn_allpairs": {"fwd": 1.3545, "bwd": 2.9884}}
+
+
+def beside_recorded(tag: str, source: str, row: dict):
+    for half, ms in RECORDED_MS[source].items():
+        print(f"[{tag}] {source} {half}: {row[f'{half}_ms']:.4f} ms in this "
+              f"run, {ms:.4f} ms recorded (PERF.md)")
+
+
 def phase1_build():
     from sgp_tpu_torch.ops import _build, bsr_kernel, gn_allpairs, gn_ell, \
         sddmm
@@ -635,6 +663,8 @@ def phase4_gn_ell(device, n_nodes: int, batch: int, hidden: int):
     from sgp_tpu_torch.ops import gn_ell
     rng = np.random.default_rng(SEED)
     h, h2 = hidden, hidden // 2
+    spills = spilling("phase 4", "gn_ell", "gn_ell_bwd_kernel")
+    assert not spills, f"K4 backward instantiations spill: {spills}"
     # the slice (every slot valid, as in the exact 100-nn graph); then B*N
     # rows not a multiple of the block's 4, D = 7, 10% padding and one
     # node with no valid neighbour
@@ -682,6 +712,7 @@ def phase4_gn_ell(device, n_nodes: int, batch: int, hidden: int):
             bad = {k: v[1] for k, v in errs.items() if not v[1] <= tol}
             assert not bad, f"K4 disagrees with plain ({name}, {dtype}): {bad}"
             rows[(name, row["dtype"])] = row
+    beside_recorded("phase 4", "gn_ell", rows[("slice", "float32")])
     return rows[("slice", "float32")]
 
 
@@ -1052,14 +1083,8 @@ def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
           f"{time.perf_counter() - t0:.1f} s: block {band[0]}, widths "
           f"{list(band[1])}; windowed pairs "
           f"{sum(band[1]) * band[0] / graph.num_nodes ** 2:.3f} of N^2")
-    spills = []
-    for kernel in ("gn_allpairs_bwd_rows_kernel", "gn_allpairs_bwd_cols_kernel"):
-        for name, regs, spill in ptxas_report("gn_allpairs", kernel):
-            print(f"[phase 6] ptxas {name}: {regs}; {spill}")
-            if not spill.startswith("0 bytes stack frame, 0 bytes spill"):
-                spills.append(name)
-    print(f"[phase 6] K3 backward instantiations that spill: {spills or 'none'}"
-          + ("" if BUILD_LOGS.get("gn_allpairs") else " (not rebuilt here)"))
+    spilling("phase 6", "gn_allpairs", "gn_allpairs_bwd_rows_kernel",
+             "gn_allpairs_bwd_cols_kernel")
     cases = [("slice", batch, dense_adj_mask(graph, device=device), None),
              ("rcm band", batch, rcm_mask, band),
              ("ragged", 3, ragged, None)]
@@ -1112,6 +1137,7 @@ def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
             assert not bad, f"K3 disagrees with plain ({name}, {dtype}): {bad}"
             rows[(name, row["dtype"])] = row
             del args, ghat, out, grads, ref, refg
+    beside_recorded("phase 6", "gn_allpairs", rows[("slice", "float32")])
     return rows[("slice", "float32")]
 
 

@@ -2,7 +2,8 @@
 
 Each kernel is a shared library with a plain C interface, compiled for
 ``sm_90a`` at first use into the repository's ``build/`` directory and
-keyed on a hash of its source and flags, so an edited source builds anew
+keyed on a hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header builds anew
 and an unchanged one is loaded as it is. Nothing here runs at import: the
 CPU tests import every module of the port, and only the card's machine has
 ``nvcc``.
@@ -29,9 +30,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
+    """The library of ``csrc/<name>.cu``, keyed on the source, every header
+    of ``csrc/`` (a source may include any of them) and the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    key = key.hexdigest()[:16]
     return BUILD_DIR / f"{name}_{key}.so"
 
 

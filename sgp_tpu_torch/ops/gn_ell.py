@@ -15,8 +15,10 @@ the per-pair chain is::
 - :func:`gn_ell_fwd` and :func:`gn_ell_bwd` are its two halves. On a CUDA
   tensor each launches its kernel in ``csrc/gn_ell.cu`` (CUDA C++ for
   ``sm_90a``, built with ``nvcc`` at first use into ``build/`` and loaded
-  with ``ctypes``) or raises: on a failed build or launch, and on a shape
-  the kernel does not take (``h2 > 32`` or ``h > 64``). On a CPU tensor
+  with ``ctypes``; the backward runs the tensor-core pair tile it shares
+  with the all-pairs kernel in ``csrc/gated_pair.cuh``) or raises: on a
+  failed build or launch, and on a shape the kernel does not take
+  (``h2 > 32`` or ``h > 64``). On a CPU tensor
   each runs its plain version. Each counts its kernel launches in
   ``.launches``.
 - :func:`gn_ell_fwd_plain` and :func:`gn_ell_bwd_plain` are the plain
@@ -177,8 +179,11 @@ def gn_ell_bwd(p_i: torch.Tensor, pjn: torch.Tensor, nmask: torch.Tensor,
         raise ValueError(f"ghat must be {(b, n, h)}, got {tuple(ghat.shape)}")
     pi_c, w2c, b2f, wgc, bgf = _prep(p_i, pjn, w2, b2, wg, bg)
     mask = (nmask != 0).to(torch.uint8)
+    # rows of 64 channels, zero past h (the kernel reads channel pairs);
+    # f32, not rounded, as the Pallas wrapper leaves it
+    gh = torch.nn.functional.pad(ghat.float(), (0, MAX_H - h))
     pi_c, pjn_c, mask, w2c, b2f, wgc, bgf, gh = _kernel_inputs(
-        (pi_c, pjn, mask, w2c, b2f, wgc, bgf, ghat.float()), p_i.device,
+        (pi_c, pjn, mask, w2c, b2f, wgc, bgf, gh), p_i.device,
         h2, h, activation)
     dev = p_i.device.index if p_i.device.index is not None \
         else torch.cuda.current_device()

@@ -106,9 +106,10 @@ class Predictor:
         self.lr, self.weight_decay, self.grad_clip = lr, weight_decay, \
             grad_clip
         # optax.piecewise_constant_schedule: step t runs at lr times every
-        # gamma whose boundary is <= t
-        self._boundaries = sorted(int(m * steps_per_epoch)
-                                  for m in (lr_milestones or []))
+        # gamma whose boundary is <= t; the reference keys its boundaries in
+        # a dict, so milestones that land on one step apply gamma once
+        self._boundaries = sorted({int(m * steps_per_epoch)
+                                   for m in (lr_milestones or [])})
         self.lr_gamma = lr_gamma
         self.optimizer = None
         self.scheduler = None

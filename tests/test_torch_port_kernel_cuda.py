@@ -142,18 +142,33 @@ def _rel(got, ref):
     return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
 
 
+def _counted_mask(rng, n, d, counts, cuda):
+    """An ``[n, d]`` slot mask whose row i holds ``counts[i % len(counts)]``
+    valid slots at random places."""
+    mask = np.zeros((n, d), bool)
+    for i in range(n):
+        mask[i, rng.choice(d, counts[i % len(counts)], replace=False)] = True
+    return torch.as_tensor(mask, device=cuda)
+
+
 @pytest.mark.parametrize("activation", ["silu", "tanh", "relu", "elu"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,n,d,h2,h", [
-    (2, 1000, 100, 32, 64),            # the slice's widths
-    (3, 77, 7, 32, 64),                # ragged N, D = 7, one empty row
-    (1, 50, 5, 5, 11),                 # narrow widths, zero-padded lanes
+@pytest.mark.parametrize("b,n,d,h2,h,counts", [
+    (2, 1000, 100, 32, 64, None),      # the slice's widths
+    (3, 77, 7, 32, 64, None),          # ragged N, D = 7, one empty row
+    (1, 50, 5, 5, 11, None),           # narrow widths, zero-padded lanes
+    # rows with 0, 1, 15, 16, 17, 33 and 100 valid slots: the backward's
+    # 16-pair batches end full, one short, one over and empty
+    (2, 140, 100, 32, 64, (0, 1, 15, 16, 17, 33, 100)),
 ])
 def test_gn_ell_kernel_matches_plain(cuda, activation, dtype, tol, b, n, d,
-                                     h2, h):
+                                     h2, h, counts):
     rng = np.random.default_rng(2)
     args = _ell_inputs(rng, b, n, d, h2, h, dtype, cuda, empty_row=n // 2)
+    if counts is not None:
+        args = (*args[:2], _counted_mask(rng, n, d, counts, cuda), *args[3:])
+        args[2][n // 2] = False
     ghat = torch.as_tensor(rng.standard_normal((b, n, h)).astype(
         np.float32), device=cuda)
     f0, b0 = gn_ell.gn_ell_fwd.launches, gn_ell.gn_ell_bwd.launches
@@ -167,11 +182,42 @@ def test_gn_ell_kernel_matches_plain(cuda, activation, dtype, tol, b, n, d,
     assert out.shape == ref.shape and out.dtype == torch.float32
     assert _rel(out, ref) <= tol
     assert not out[:, n // 2].any()
+    assert not grads[0][:, n // 2].any()            # no valid slot: no d_pi
+    assert not grads[1][:, ~args[2]].any()          # padding slots: exactly 0
     for g, r, name in zip(grads, refg, ("dpi", "dpjn", "dw2", "db2", "dwg",
                                         "dbg")):
         assert g.shape == r.shape and g.dtype == r.dtype, name
         assert torch.isfinite(g).all(), name
         assert _rel(g, r) <= tol, (name, _rel(g, r))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_gn_ell_relu_near_zero(cuda, dtype, tol):
+    """relu's derivative jumps at 0. Channels 0-7 of w2 and b2 are 0 (mt is
+    exactly 0: both take relu'(0) = 0); channels 8-15 are scaled by 1e-6
+    (every |mt| below the kernel's 1e-4, where it settles the branch with
+    an FFMA recompute). The rest is the slice's chain."""
+    rng = np.random.default_rng(7)
+    args = list(_ell_inputs(rng, 2, 300, 40, 32, 64, dtype, cuda))
+    w2, b2 = args[3].clone(), args[4].clone()
+    w2[:, :8], b2[:8] = 0.0, 0.0
+    w2[:, 8:16] *= 1e-6
+    b2[8:16] = 0.0
+    args[3], args[4] = w2, b2
+    ghat = torch.as_tensor(rng.standard_normal((2, 300, 64)).astype(
+        np.float32), device=cuda)
+    out = gn_ell.gn_ell_fwd(*args, "relu")
+    grads = gn_ell.gn_ell_bwd(*args, ghat, "relu")
+    ref = gn_ell.gn_ell_fwd_plain(*args, "relu")
+    refg = gn_ell.gn_ell_bwd_plain(*args, ghat, "relu")
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= tol
+    for g, r, name in zip(grads, refg, ("dpi", "dpjn", "dw2", "db2", "dwg",
+                                        "dbg")):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r) <= tol, (name, _rel(g, r))
+    assert not grads[3][:8].any()                   # db2 of mt == 0: exactly 0
 
 
 def test_gn_ell_backward_is_deterministic(cuda):

@@ -169,6 +169,26 @@ def test_lr_schedule_is_optax_piecewise_constant():
         pred.scheduler.step()
 
 
+@pytest.mark.parametrize("milestones,steps_per_epoch", [
+    ([2, 2.5, 4], 1),      # 2 and 2.5 both land on step 2
+    ([1, 1.2], 3),         # 3 and 3.6 both land on step 3
+    ([3, 1, 3, 0.5], 2),   # repeated and unsorted milestones
+])
+def test_lr_schedule_colliding_milestones_apply_gamma_once(
+        milestones, steps_per_epoch):
+    # the reference's schedule, built as sgp_tpu/train/predictor.py builds it
+    sched = optax.piecewise_constant_schedule(
+        1e-3, {int(m * steps_per_epoch): 0.25 for m in milestones})
+    pred = Predictor(torch.nn.Linear(2, 1), lr=1e-3, lr_milestones=milestones,
+                     lr_gamma=0.25, steps_per_epoch=steps_per_epoch,
+                     device="cpu").init(None, StandardScaler().params())
+    for t in range(12):
+        np.testing.assert_allclose(pred.optimizer.param_groups[0]["lr"],
+                                   float(sched(t)), rtol=1e-6)
+        pred.optimizer.step()
+        pred.scheduler.step()
+
+
 def _slice_models(n_nodes):
     common = dict(input_window_size=WIN["window"], hidden_size=16,
                   output_size=1, horizon=3, n_nodes=n_nodes, enc_layers=2,
