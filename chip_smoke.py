@@ -333,11 +333,11 @@ def spilling(tag: str, source: str, *kernels) -> list:
 
 
 # K4's and K3's medians at the main path's f32 shapes as PERF.md's kernel
-# table records them from this script's earlier runs (NVIDIA H100 80GB
-# HBM3, 700.00 W): K4's backward before its tensor-core design, K3 as it
-# stands. Printed beside this run's; compare within one run only.
-RECORDED_MS = {"gn_ell": {"fwd": 0.8367, "bwd": 2.3474},
-               "gn_allpairs": {"fwd": 1.3545, "bwd": 2.9884}}
+# table records them from this script's run before K3's forward moved onto
+# the tensor-core tile (NVIDIA H100 80GB HBM3, 700.00 W). Printed beside
+# this run's; compare within one run only.
+RECORDED_MS = {"gn_ell": {"fwd": 0.8347, "bwd": 1.1920},
+               "gn_allpairs": {"fwd": 1.3506, "bwd": 3.0133}}
 
 
 def beside_recorded(tag: str, source: str, row: dict):
@@ -1083,8 +1083,10 @@ def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
           f"{time.perf_counter() - t0:.1f} s: block {band[0]}, widths "
           f"{list(band[1])}; windowed pairs "
           f"{sum(band[1]) * band[0] / graph.num_nodes ** 2:.3f} of N^2")
-    spilling("phase 6", "gn_allpairs", "gn_allpairs_bwd_rows_kernel",
-             "gn_allpairs_bwd_cols_kernel")
+    spills = spilling("phase 6", "gn_allpairs", "gn_allpairs_fwd_kernel",
+                      "gn_allpairs_bwd_rows_kernel",
+                      "gn_allpairs_bwd_cols_kernel")
+    assert not spills, f"K3 instantiations spill: {spills}"
     cases = [("slice", batch, dense_adj_mask(graph, device=device), None),
              ("rcm band", batch, rcm_mask, band),
              ("ragged", 3, ragged, None)]
@@ -1102,6 +1104,9 @@ def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
             torch.cuda.synchronize()
             assert out.shape == ref.shape and out.dtype == torch.float32
             errs = {"out": rel_err(out, ref)}
+            # a coherent bias, which a training run sums over every node,
+            # shows in the mean error and hides under the max
+            bias = ((out - ref).mean() / ref.abs().max()).item()
             for gname, g, r in zip(("d_pi", "d_pj", "dw2", "db2", "dwg",
                                     "dbg"), grads, refg):
                 assert g.shape == r.shape and g.dtype == r.dtype, gname
@@ -1131,7 +1136,8 @@ def phase6_gn_allpairs(graph, device, batch: int, hidden: int):
                        dtype=str(dtype).replace("torch.", ""), tol=tol,
                        rel_err={k: v[1] for k, v in errs.items()},
                        max_abs_err={k: v[0] for k, v in errs.items()},
-                       **times, **allpairs_bounds(args, ghat, out, grads, bnd))
+                       out_mean_err=bias, **times,
+                       **allpairs_bounds(args, ghat, out, grads, bnd))
             print(f"[phase 6] {json.dumps(row)}")
             bad = {k: v[1] for k, v in errs.items() if not v[1] <= tol}
             assert not bad, f"K3 disagrees with plain ({name}, {dtype}): {bad}"

@@ -1,8 +1,9 @@
 // The GatedGN pair chain shared by the all-pairs kernels (gn_allpairs.cu,
 // K3) and the ELL kernels (gn_ell.cu, K4) for Hopper (sm_90a): the per-lane
-// forward chain both forwards run, and the backward's 16-pair tensor-core
-// tile (mma.sync m16n8k8, 3xTF32 for f32 operands) that K3's row and column
-// passes and K4's backward run. The chain, for s = p_i + p_j (h2 wide):
+// forward chain K4's forward runs, and the 16-pair tensor-core tile
+// (mma.sync m16n8k8, 3xTF32 for f32 operands) that K3's forward (fwd_batch),
+// K3's row and column passes and K4's backward (pair_batch) run. The chain,
+// for s = p_i + p_j (h2 wide):
 //
 //   t  = act(s)        mt = t @ w2 + b2        mb = act(mt)   (h wide)
 //   g  = sigmoid(mb . wg + bg)                 out = sum over pairs g * mb
@@ -218,6 +219,8 @@ __device__ __forceinline__ uint4 pack_split(float v0, float v1) {
 
 // w2 into the two fragment layouts ({b0 hi, b1 hi, b0 lo, b1 lo} a lane;
 // rows past h2 and columns past h are 0), b2 and wg into shared memory.
+// kDt false: the forward's mt layout alone (wdt unused).
+template <bool kDt = true>
 __device__ void load_weights(const float* __restrict__ w2, const float* __restrict__ b2,
                              const float* __restrict__ wg, int h2, int h, uint4* wmt,
                              uint4* wdt, float* b2s, float* wgs) {
@@ -226,8 +229,10 @@ __device__ void load_weights(const float* __restrict__ w2, const float* __restri
     const int lane = q & 31, g = lane >> 2, c = lane & 3;
     const int kk = q >> 8, nt = (q >> 5) & 7;  // mt: [k step 4][n tile 8][lane]
     wmt[q] = pack_split(at(kk * 8 + c, nt * 8 + g), at(kk * 8 + c + 4, nt * 8 + g));
-    const int kd = q >> 7, nd = (q >> 5) & 3;  // dt: [k step 8][n tile 4][lane]
-    wdt[q] = pack_split(at(nd * 8 + g, kd * 8 + c), at(nd * 8 + g, kd * 8 + c + 4));
+    if constexpr (kDt) {
+      const int kd = q >> 7, nd = (q >> 5) & 3;  // dt: [k step 8][n tile 4][lane]
+      wdt[q] = pack_split(at(nd * 8 + g, kd * 8 + c), at(nd * 8 + g, kd * 8 + c + 4));
+    }
   }
   if (threadIdx.x < kH) {
     b2s[threadIdx.x] = threadIdx.x < h ? b2[threadIdx.x] : 0.f;
@@ -561,6 +566,117 @@ __device__ __forceinline__ void pair_batch(const uint4* __restrict__ wmt,
       for (int p = 0; p < cnt; ++p)
         store(ds_out + (size_t)wt.idx[p] * h2 + lane, wt.s[p * kLdT + lane]);
   }
+  __syncwarp();  // the tile and idx are rewritten by the next batch
+}
+
+// -- the forward on the tensor cores -----------------------------------------
+// The same 16-pair batches and mt product as pair_batch, without the
+// backward's tiles: a forward warp stages t alone.
+struct FwdTile {
+  float t[kB * kLdT];
+  int idx[kB];                   // the other node of each pair
+};
+// dynamic shared memory of a forward block: w2 split hi/lo in the mt layout
+// (16 KB), the tiles (25.25 KB in all)
+constexpr int kFwdSmem = kFrag * (int)sizeof(uint4) + kWarps * (int)sizeof(FwdTile);
+
+// act(x) with the MUFU's sigmoid for silu; tanh and elu as in act
+template <int A>
+__device__ __forceinline__ float act_fast(float x) {
+  return A == kSilu ? x * sigmoid_fast(x) : act<A>(x);
+}
+
+// k step kk of m += t @ w2 from the warp's t tile (kk * 8 .. kk * 8 + 7),
+// for the n tiles nh .. nh + 3. The step's partial is formed by the mma from
+// 0 and added to m by FADD: the tensor cores round their sum toward zero,
+// so 12 mmas accumulating into m bias mt toward zero by a few ulp, and the
+// forward's outputs with it. A training run sums that bias over every node:
+// so accumulated, chip_smoke.py's full-graph run drifted 2.1e-4 from the
+// plain f32 run in 8 steps (its limit is 1e-4).
+template <bool kBf>
+__device__ __forceinline__ void mt_step(float (&m)[8][4], const float* __restrict__ t,
+                                        const uint4* __restrict__ wmt, int kk, int nh) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const float* t0 = t + g * kLdT + kk * 8 + c;
+  uint32_t ah[4], al[4];
+  operand<kBf>(t0[0], t0[8 * kLdT], t0[4], t0[8 * kLdT + 4], ah, al);
+#pragma unroll
+  for (int nt = nh; nt < nh + 4; ++nt) {
+    const uint4 w = wmt[(kk * 8 + nt) * 32 + lane];
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3<kBf, kBf>(f, ah, al, w.x, w.y, w.z, w.w);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[nt][r] += f[r];
+  }
+}
+
+// One forward batch of cnt <= kB pairs that share a node (own: its
+// projection on the lane's channel, lane < h2; 0 past h2), the other nodes'
+// rows at po: acc[nt][e] += g * mb over the valid pairs, for the thread's
+// channels nt * 8 + 2c + e, each pair's g and mb from the thread's rows g
+// and g + 8. The sum stays in registers, added by FFMA (never inside an mma
+// accumulator, which truncates). A padding slot's t is 0 and its gate 0.
+template <int A, typename T>
+__device__ __forceinline__ void fwd_batch(const uint4* __restrict__ wmt,
+                                          const float* __restrict__ b2s,
+                                          const float* __restrict__ wgs, float bg,
+                                          FwdTile& wt, int cnt, const T* __restrict__ po,
+                                          float own, int h2, float (&acc)[8][2]) {
+  constexpr bool kBf = std::is_same<T, __nv_bfloat16>::value;  // t, w2 exact in TF32
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+
+  // 1. t = act(own + po) rounded as the input, a lane a channel: each pair's
+  //    row is one coalesced load, the 16 loads in flight together
+  float o[kB];
+#pragma unroll
+  for (int p = 0; p < kB; ++p)
+    o[p] = (p < cnt && lane < h2) ? to_f32(po[(size_t)wt.idx[p] * h2 + lane]) : 0.f;
+#pragma unroll
+  for (int p = 0; p < kB; ++p)
+    wt.t[p * kLdT + lane] = p < cnt ? round_as(act_fast<A>(own + o[p]), T()) : 0.f;
+  __syncwarp();
+
+  // 2. mt = t @ w2 + b2 (M 16 pairs, K h2, N h) and mb = act(mt), in two
+  //    halves of 32 channels, the k loop rolled: with the partials of all 8
+  //    n tiles (or of every k step) in flight, ptxas spills the f32 kernels
+  //    even at 168 registers; a half keeps 4 in flight, and the first
+  //    half's mb waits in 16 registers (92-122 registers, no spill).
+  float m[8][4];
+  float z[2] = {0.f, 0.f};  // the gate's sums over the thread's 16 channels
+#pragma unroll
+  for (int nh = 0; nh < 8; nh += 4) {
+#pragma unroll
+    for (int nt = nh; nt < nh + 4; ++nt) {
+      m[nt][0] = m[nt][2] = b2s[nt * 8 + 2 * c];
+      m[nt][1] = m[nt][3] = b2s[nt * 8 + 2 * c + 1];
+    }
+#pragma unroll 1
+    for (int kk = 0; kk < 4; ++kk) mt_step<kBf>(m, wt.t, wmt, kk, nh);
+#pragma unroll
+    for (int nt = nh; nt < nh + 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        m[nt][r] = act_fast<A>(m[nt][r]);
+        z[r >> 1] = fmaf(wgs[nt * 8 + 2 * c + (r & 1)], m[nt][r], z[r >> 1]);
+      }
+  }
+
+  // 3. the gate's sums over the 64 channels: 2 quad shuffles; g * mb of the
+  //    valid pairs into acc
+  float gate[2];
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) z[pr] += __shfl_xor_sync(kFull, z[pr], o2);
+    gate[pr] = g + 8 * pr < cnt ? sigmoid_fast(z[pr] + bg) : 0.f;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      acc[nt][e] = fmaf(gate[0], m[nt][e], acc[nt][e]);
+      acc[nt][e] = fmaf(gate[1], m[nt][2 + e], acc[nt][e]);
+    }
   __syncwarp();  // the tile and idx are rewritten by the next batch
 }
 

@@ -22,20 +22,24 @@
 // from multiplying it by 0 only where the pair's chain is not finite; the
 // inputs are finite.
 //
-// Design of the forward. The per-pair chain is K4's (csrc/gn_ell.cu): lane k
-// holds s[k] and t[k] (h2 <= 32), each lane owns the output channels lane
-// and lane + 32 (h <= 64) with its two columns of w2 in registers, t goes
-// through 128 bytes of shared memory, and the gate is a butterfly warp sum. A block of four
-// warps takes one work item at a time from a global counter (a persistent
-// grid): a destination row in the forward. The four warps split the row's
-// window into 32-column words (warp w takes words w, w + 4, ...), ballot each
-// word's 32 mask bytes and run the chain only on the set bits; p_j[j] comes
-// straight from global memory (642 KB at the slice, L2-resident) and is
-// loaded one pair ahead. The four partial sums of a row are added in a fixed
-// order through shared memory, so an empty row gives exactly 0 and the
-// result does not depend on the schedule. The counter balances rows of very
-// different degree (a threshold graph's boundary nodes have a quarter of an
-// interior node's neighbours).
+// Design of the forward. A block of four warps takes one work item at a time
+// from a global counter (a persistent grid): a destination row. The four
+// warps split the row's window into 32-column words (warp w takes words w,
+// w + 4, ...), ballot each word's 32 mask bytes and gather the set bits into
+// batches of 16 pairs (BatchWalk, gated_pair.cuh). A batch runs on the
+// backward's tensor-core tile (fwd_batch): lane k forms t[k] = act(p_i[k] +
+// p_j[j][k]) of each pair (p_j comes straight from global memory, 642 KB at
+// the slice, L2-resident, one coalesced row a pair) into a shared tile; mt =
+// t @ w2 + b2 is 32 mma.sync m16n8k8 (three times over for f32, 3xTF32), in
+// two halves of 32 channels, each k step's partial added to mt by FADD, with
+// w2 split hi/lo in shared memory in the B layout; mb, the gate's quad-shuffle
+// sum and g * mb are computed on the accumulator fragments, and a thread's
+// 16 channel sums stay in registers over the row. At the row's end they are
+// summed over the warp's 8 rows of threads by shuffles, then the four warps'
+// sums in a fixed order through shared memory, so an empty row gives exactly
+// 0 and the result does not depend on the schedule. The counter balances
+// rows of very different degree (a threshold graph's boundary nodes have a
+// quarter of an interior node's neighbours).
 //
 // Backward, two passes, deterministic, no atomics on data:
 //  1. rows: chunks of kChunk destination rows. d_pi is the row sum (fixed
@@ -58,60 +62,43 @@
 // every fragment load is one conflict-free 16-byte read). A batch's padding
 // slots take a cotangent of 0 and are left out of every sum.
 //
-// Numerics. f32 inputs: FFMA in the forward; in the backward every product of
-// two f32 operands is 3xTF32 (x = hi + lo, both TF32; hi*hi + hi*lo + lo*hi,
-// about 2^-21 relative), never TF32 alone. bf16 inputs round where the Pallas
+// Numerics. f32 inputs: every product of two f32 operands is 3xTF32 (x = hi +
+// lo, both TF32; hi*hi + hi*lo + lo*hi, about 2^-21 relative), never TF32
+// alone; the sums over pairs are FFMA and FADD outside the tensor cores (an
+// mma accumulator adds with truncation), and so are the forward's sums of
+// mt's four k steps (mt_step, gated_pair.cuh). bf16 inputs round where the Pallas
 // kernel and its wrapper round: w2 and wg arrive rounded to bf16 (held in
 // f32), ghat arrives rounded to bf16 (held in f32), t is rounded to bf16
 // before the w2 product, dmt is rounded to bf16 for the dw2 product only (dt
 // contracts the rounded w2 with the f32 dmt); every sum is f32. A bf16 value
 // is exact in TF32 and is not split: mt and dw2 take one product, dt two.
-// The backward's sigmoid is the MUFU's (ex2, reciprocal: a few ulp). relu's
-// derivative jumps at 0, so where 3xTF32 leaves |mt| < 1e-4 the pair's mt is
-// recomputed with FFMA, and the branch is the one f32 takes.
+// The sigmoid is the MUFU's (ex2, reciprocal: a few ulp). relu's derivative
+// jumps at 0, so where 3xTF32 leaves |mt| < 1e-4 the backward recomputes the
+// pair's mt with FFMA, and the branch is the one f32 takes; the forward needs
+// no such step (relu is continuous: an error in mt moves mb by no more).
 //
-// What bounds it on this card. Per pair the forward does 2*h2*h = 4,096 FLOP
-// of FFMA plus the gate, and ~h2 + h + 1 transcendentals, on inputs that sit
-// in L2: FFMA and MUFU issue bound it (bytes are the mask, N^2 bytes, read
-// once). The backward does the recompute, dt and dw2 (three h2 x h products a
-// pair in pass 1, two in pass 2) on the tensor cores, three times over for
-// f32; the transcendentals (one sigmoid per channel of s and of mt, and the
-// gate's) and the elementwise chain on the FMA pipe are the rest. The ways to
-// a faster kernel: one recompute pass instead of two, and the forward on the
-// same 16-pair tile.
+// What bounds it on this card. Per pair the forward does one h2 x h product
+// (2*h2*h = 4,096 FLOP, three times over for f32) plus the gate, and h2 + h
+// + 1 sigmoids, on inputs that sit in L2: the MUFU bounds it (bytes are the
+// mask, N^2 bytes, read once). The backward does the recompute, dt and dw2
+// (three h2 x h products a pair in pass 1, two in pass 2) on the tensor
+// cores, three times over for f32; the transcendentals (one sigmoid per
+// channel of s and of mt, and the gate's) and the elementwise chain on the
+// FMA pipe are the rest. The way to a faster backward: one recompute pass
+// instead of two.
 //
-// The per-lane chain, the backward's pair tile (pair_batch and its helpers)
-// and the weight-gradient reduce are shared with K4 in gated_pair.cuh.
+// The pair tile (fwd_batch, pair_batch and their helpers) and the
+// weight-gradient reduce are shared with K4 in gated_pair.cuh.
 
 #include "gated_pair.cuh"
 
 namespace {
 
 constexpr int kChunk = 4;                     // rows per backward item
-
-// The set entries of one mask row within [lo, hi), this warp's share: the
-// 32-column words w, w + kWarps, ... counted from lo. next() is warp-uniform.
-struct PairWalk {
-  const uint8_t* row;
-  int hi, j0;
-  unsigned bits;
-
-  __device__ __forceinline__ PairWalk(const uint8_t* r, int lo, int hi_, int warp)
-      : row(r), hi(hi_), j0(lo + 32 * (warp - kWarps)), bits(0u) {}
-
-  // the next set column, or -1 when the warp's share is done
-  __device__ __forceinline__ int next() {
-    while (bits == 0u) {
-      j0 += 32 * kWarps;
-      if (j0 >= hi) return -1;
-      const int j = j0 + (threadIdx.x & 31);
-      bits = __ballot_sync(kFull, j < hi && row[j] != 0);
-    }
-    const int k = __ffs(bits) - 1;
-    bits &= bits - 1u;
-    return j0 + k;
-  }
-};
+// forward blocks an SM at the least: ptxas keeps the forward under 128
+// registers (it takes 92-122), and 16 warps an SM hide more of its chain's
+// latency than 12 with more registers each
+constexpr int kFwdBlocks = 4;
 
 // Thread 0 takes the next item from the counter; every thread returns it.
 __device__ __forceinline__ int next_item(int* counter, int* item_s) {
@@ -121,47 +108,42 @@ __device__ __forceinline__ int next_item(int* counter, int* item_s) {
 }
 
 template <int A, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
 gn_allpairs_fwd_kernel(const T* __restrict__ p_i, const T* __restrict__ p_j,
                        const uint8_t* __restrict__ mask, const int* __restrict__ row_lo,
                        const int* __restrict__ row_hi, const float* __restrict__ w2,
                        const float* __restrict__ b2, const float* __restrict__ wg,
                        const float* __restrict__ bgp, float* __restrict__ out,
                        int* __restrict__ counter, int rows, int n, int h2, int h) {
-  __shared__ __align__(16) float t_s[kWarps][kH2];
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* wmt = reinterpret_cast<uint4*>(smem);
+  __shared__ float b2s[kH], wgs[kH];
   __shared__ float acc_s[kWarps][kH];
   __shared__ int item_s;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* ts = t_s[warp];
-  LaneWeights w;
-  w.load(w2, b2, wg, bgp, h2, h);
-  const bool in_h2 = lane < h2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, c = lane & 3;
+  FwdTile& wt = reinterpret_cast<FwdTile*>(wmt + kFrag)[warp];
+  load_weights<false>(w2, b2, wg, h2, h, wmt, nullptr, b2s, wgs);
+  const float bg = *bgp;
 
   for (int row = next_item(counter, &item_s); row < rows;
        row = next_item(counter, &item_s)) {
     const int i = row % n;
-    const T* pj = p_j + (size_t)(row - i) * h2 + lane;  // batch row's p_j
-    const float pi = in_h2 ? to_f32(p_i[(size_t)row * h2 + lane]) : 0.f;
-    PairWalk walk(mask + (size_t)i * n, row_lo[i], row_hi[i], warp);
-    float acc0 = 0.f, acc1 = 0.f;
-    int j = walk.next();
-    float next = (j >= 0 && in_h2) ? to_f32(pj[(size_t)j * h2]) : 0.f;
-    while (j >= 0) {
-      const float cur = next;
-      j = walk.next();
-      if (j >= 0 && in_h2) next = to_f32(pj[(size_t)j * h2]);
-      ts[lane] = round_as(act<A>(pi + cur), T());
-      __syncwarp();
-      float m0, m1;
-      w.message(ts, m0, m1);
-      __syncwarp();  // ts is rewritten by the next pair
-      const float mb0 = act<A>(m0), mb1 = act<A>(m1);
-      const float g = sigmoid(warp_sum(fmaf(w.wga, mb0, w.wgb * mb1)) + w.bg);
-      acc0 = fmaf(g, mb0, acc0);
-      acc1 = fmaf(g, mb1, acc1);
-    }
-    acc_s[warp][lane] = acc0;
-    acc_s[warp][lane + 32] = acc1;
+    const float own = lane < h2 ? to_f32(p_i[(size_t)row * h2 + lane]) : 0.f;
+    float acc[8][2] = {};
+    BatchWalk walk(mask + (size_t)i * n, row_lo[i], row_hi[i], warp);
+    for (int cnt = walk.fill(wt.idx); cnt > 0; cnt = walk.fill(wt.idx))
+      fwd_batch<A, T>(wmt, b2s, wgs, bg, wt, cnt, p_j + (size_t)(row - i) * h2, own, h2,
+                      acc);
+    // each channel's sum over the thread rows g, then over the warps in order
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = acc[nt][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+        if (lane < 4) acc_s[warp][nt * 8 + 2 * c + e] = v;
+      }
     __syncthreads();
     if (threadIdx.x < h) {
       float s = 0.f;
@@ -282,7 +264,7 @@ gn_allpairs_bwd_cols_kernel(const T* __restrict__ p_i, const T* __restrict__ p_j
 
 template <int A, typename T>
 int blocks_for(int pass, int* blocks) {
-  if (pass == 0) return occupancy(gn_allpairs_fwd_kernel<A, T>, 0, blocks);
+  if (pass == 0) return occupancy(gn_allpairs_fwd_kernel<A, T>, kFwdSmem, blocks);
   if (pass == 1) return occupancy(gn_allpairs_bwd_rows_kernel<A, T>, kBwdRowsSmem, blocks);
   return occupancy(gn_allpairs_bwd_cols_kernel<A, T>, kBwdSmem, blocks);
 }
@@ -292,7 +274,9 @@ int fwd(const void* p_i, const void* p_j, const void* mask, const void* row_lo,
         const void* row_hi, const void* w2, const void* b2, const void* wg, const void* bg,
         void* out, void* counter, int rows, int n, int h2, int h, int blocks,
         cudaStream_t stream) {
-  gn_allpairs_fwd_kernel<A, T><<<blocks, kThreads, 0, stream>>>(
+  const int err = allow_smem(gn_allpairs_fwd_kernel<A, T>, kFwdSmem);
+  if (err != 0) return err;
+  gn_allpairs_fwd_kernel<A, T><<<blocks, kThreads, kFwdSmem, stream>>>(
       static_cast<const T*>(p_i), static_cast<const T*>(p_j),
       static_cast<const uint8_t*>(mask), static_cast<const int*>(row_lo),
       static_cast<const int*>(row_hi), static_cast<const float*>(w2),

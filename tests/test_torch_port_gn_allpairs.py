@@ -98,6 +98,25 @@ def test_forward_padding_and_empty_row():
 
 
 @pytest.mark.parametrize("activation", ACTS)
+def test_forward_plain_on_pair_batch_edges(activation):
+    """Rows holding 0, 1, 15, 16, 17 and 33 set entries, where the card's
+    16-pair batches end empty, one short, full and one over: the plain
+    forward, the oracle the card kernel is held to, against the JAX
+    kernel."""
+    n, degrees = 48, (0, 1, 15, 16, 17, 33)
+    arrs = _setup(10, n=n)
+    rng = np.random.default_rng(10)
+    arrs["mask"] = np.zeros((n, n), np.float32)
+    for i in range(n):
+        arrs["mask"][i, rng.choice(n, degrees[i % 6], replace=False)] = 1.0
+    want = j_aggregate(*_jax_args(arrs), activation, interpret=True)
+    got = gn_allpairs.gn_allpairs_fwd_plain(*_torch_args(arrs), activation)
+    assert got.shape == (2, n, 16) and got.dtype == torch.float32
+    _close(got, want, 2e-5)
+    assert not got[:, ::6].any()
+
+
+@pytest.mark.parametrize("activation", ACTS)
 def test_gradients_match_jax_kernel(activation):
     arrs = _setup(2, n=13, b=2, empty_row=3)
     jargs = _jax_args(arrs)

@@ -317,8 +317,8 @@ def test_gn_allpairs_kernel_matches_plain(cuda, activation, dtype, tol, b, n,
                                        (torch.bfloat16, 2e-2)])
 def test_gn_allpairs_kernel_pads_pair_batches(cuda, activation, dtype, tol):
     """Rows and columns holding 0, 1, 15, 16, 17 and 33 set entries: the
-    backward's 16-pair batches end full, one short, one over and empty,
-    and their padding slots must add nothing."""
+    16-pair batches of the forward and the backward end full, one short,
+    one over and empty, and their padding slots must add nothing."""
     rng = np.random.default_rng(14)
     n, degrees = 240, (0, 1, 15, 16, 17, 33)
     mask = np.zeros((n, n), bool)
@@ -331,16 +331,29 @@ def test_gn_allpairs_kernel_pads_pair_batches(cuda, activation, dtype, tol):
     args = (*args[:2], torch.as_tensor(mask, device=cuda), *args[3:])
     ghat = torch.as_tensor(rng.standard_normal((2, n, 64)).astype(
         np.float32), device=cuda)
+    out = gn_allpairs.gn_allpairs_fwd(*args, activation)
+    ref = gn_allpairs.gn_allpairs_fwd_plain(*args, activation)
     grads = gn_allpairs.gn_allpairs_bwd(*args, ghat, activation)
     refg = gn_allpairs.gn_allpairs_bwd_plain(*args, ghat, activation)
     torch.cuda.synchronize()
     empty_rows = torch.as_tensor(~mask.any(1), device=cuda)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert _rel(out, ref) <= tol, ("out", _rel(out, ref))
+    assert not out[:, empty_rows].any()
     assert not grads[0][:, empty_rows].any()
     for g, r, name in zip(grads, refg, ("dpi", "dpj", "dw2", "db2", "dwg",
                                         "dbg")):
         assert g.shape == r.shape and g.dtype == r.dtype, name
         assert torch.isfinite(g).all(), name
         assert _rel(g, r) <= tol, (name, _rel(g, r))
+
+
+def test_gn_allpairs_forward_is_deterministic(cuda):
+    rng = np.random.default_rng(15)
+    args, _ = _allpairs_inputs(rng, 2, 900, 32, 64, torch.float32, cuda)
+    first = gn_allpairs.gn_allpairs_fwd(*args)
+    again = gn_allpairs.gn_allpairs_fwd(*args)
+    assert torch.equal(first, again)
 
 
 def test_gn_allpairs_backward_is_deterministic(cuda):
