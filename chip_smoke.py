@@ -22,11 +22,14 @@ raises and the exit code is not 0:
 1. build the four kernels, one ``nvcc`` each, in parallel
    (``sgp_tpu_torch/csrc/bsr_spmm.cu``, ``gn_ell.cu``, ``gn_allpairs.cu``,
    ``sddmm.cu``);
-2. the BSR kernel against its plain PyTorch version on the card, at the
-   slice's shapes and on ragged / empty-block-row graphs, f32 and bf16,
-   with CUDA-event times of both; then its backward (``BSROperator @ x``
-   with x and the tiles needing gradients: K1 on the transposed structure,
-   K2 for the tiles) against the plain versions, launches counted;
+2. the BSR kernel against its plain PyTorch version on the card, after
+   ``ptxas``'s registers and spills of each instantiation (a spill fails),
+   at the slice's shapes (F 16, 64, 128, 512) and on ragged /
+   empty-block-row graphs (F 200, 1), f32 and bf16, with the mean error
+   beside the max, a second call held to the first one's bits, and
+   CUDA-event times of both; then its backward (``BSROperator @ x`` with x
+   and the tiles needing gradients: K1 on the transposed structure, K2 for
+   the tiles) against the plain versions, launches counted;
 3. the serving slice: warm-up, single-stream and 4-stream steps through the
    BSR kernel, checked for shape, finiteness and launch counts, and held
    against a dense-operator forecaster with the same weights and against
@@ -106,6 +109,7 @@ SEED = 0
 TOL_F32 = 1e-5          # kernel vs plain, f32 tiles: order of summation
 TOL_BF16 = 1e-2         # kernel vs plain, bf16 tiles: one bf16 ulp (2^-8)
                         # after a different f32 summation order
+TOL_K1_BIAS = 1e-7      # K1's mean f32 error at the slice, of the largest
 TOL_SLICE = 1e-4        # BSR-kernel forecaster vs dense / CPU forecaster
 
 GN_CONFIG = ROOT / "configs" / "largescale_100nn" / "gatedgn_pv.yaml"
@@ -300,15 +304,19 @@ BUILD_LOGS = {}   # nvcc's output of each source built by phase 1
 
 
 def ptxas_report(source: str, kernel: str):
-    """``(kernel <activation, dtype>, registers, spill line)`` of each
-    instantiation of ``kernel`` in ``source``'s build log."""
+    """``(kernel <template arguments>, registers, spill line)`` of each
+    instantiation of ``kernel`` in ``source``'s build log: ``<activation,
+    dtype>`` for K3 and K4, ``<dtype, BN>`` for K1."""
     acts = ("silu", "tanh", "relu", "elu")
+    dt = {"f": "f32", "13__nv_bfloat16": "bf16"}
     out, name, spill = [], None, ""
     for ln in BUILD_LOGS.get(source, "").splitlines():
         m = re.search(kernel + r"ILi(\d)E(f|13__nv_bfloat16)", ln)
+        k1 = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", ln)
         if "Compiling entry function" in ln:
-            name = (f"{kernel}<{acts[int(m.group(1))]}, "
-                    f"{'f32' if m.group(2) == 'f' else 'bf16'}>") if m else None
+            name = (f"{kernel}<{acts[int(m.group(1))]}, {dt[m.group(2)]}>"
+                    if m else f"{kernel}<{dt[k1.group(1)]}, {k1.group(2)}>"
+                    if k1 else None)
         elif name and "spill" in ln:
             spill = ln.strip()
         elif name and "registers" in ln:
@@ -332,18 +340,21 @@ def spilling(tag: str, source: str, *kernels) -> list:
     return spills
 
 
-# K4's and K3's medians at the main path's f32 shapes as PERF.md's kernel
-# table records them from this script's run before K3's forward moved onto
-# the tensor-core tile (NVIDIA H100 80GB HBM3, 700.00 W). Printed beside
-# this run's; compare within one run only.
-RECORDED_MS = {"gn_ell": {"fwd": 0.8347, "bwd": 1.1920},
-               "gn_allpairs": {"fwd": 1.3506, "bwd": 3.0133}}
+# The kernels' medians at the main path's f32 shapes as PERF.md's kernel
+# table records them from this script's run before K1's redesign, which also
+# moved the TF32 helpers K3 and K4 share into mma_common.cuh (NVIDIA H100
+# 80GB HBM3, 700.00 W). Printed beside this run's; compare within one run
+# only.
+RECORDED_MS = {"bsr_spmm": {"": 0.4019},
+               "gn_ell": {"fwd": 0.8372, "bwd": 1.1848},
+               "gn_allpairs": {"fwd": 0.7220, "bwd": 2.9824}}
 
 
 def beside_recorded(tag: str, source: str, row: dict):
     for half, ms in RECORDED_MS[source].items():
-        print(f"[{tag}] {source} {half}: {row[f'{half}_ms']:.4f} ms in this "
-              f"run, {ms:.4f} ms recorded (PERF.md)")
+        key = f"{half}_ms" if half else "ms"
+        print(f"[{tag}] {source} {half or 'kernel'}: {row[key]:.4f} ms in "
+              f"this run, {ms:.4f} ms recorded (PERF.md)")
 
 
 def phase1_build():
@@ -416,7 +427,12 @@ def phase2_kernel(graph, device) -> dict:
         rng.integers(0, m, 20 * m), rng.integers(0, m, 20 * m),
         rng.random(20 * m).astype(np.float32), 1000)))
     cases = [("slice", slice_g, 128), ("slice", slice_g, STREAMS * 128),
-             ("ragged+empty rows", ragged_g, 200)]
+             ("slice", slice_g, 16), ("slice", slice_g, 64),
+             ("ragged+empty rows", ragged_g, 200),
+             ("ragged+empty rows", ragged_g, 1)]
+    spills = spilling("phase 2", "bsr_spmm", "bsr_spmm_kernel",
+                      "bsr_spmm_join")
+    assert not spills, f"K1 spills registers: {spills}"
     rows = []
     for name, g, f in cases:
         x = torch.as_tensor(rng.standard_normal(
@@ -428,16 +444,26 @@ def phase2_kernel(graph, device) -> dict:
             got = bsr_spmm(*args, x)
             ref = bsr_spmm_plain(op.blocks, op.block_cols, op.block_rows,
                                  n_br, x)
+            again = bsr_spmm(*args, x)
             torch.cuda.synchronize()
             abs_err, rel = rel_err(got, ref)
-            ms = cuda_ms(lambda: bsr_spmm(*args, x))
-            plain_ms = cuda_ms(lambda: bsr_spmm_plain(
-                op.blocks, op.block_cols, op.block_rows, n_br, x))
+            # a coherent bias (the tensor cores truncate their sums) shows
+            # in the mean error and hides under the max
+            bias = ((got.float() - ref.float()).mean()
+                    / ref.float().abs().max()).item()
+            main = name == "slice" and f == 128 and precision == "highest"
+            k_ms, p_ms = interleaved_ms(
+                lambda: bsr_spmm(*args, x), lambda: bsr_spmm_plain(
+                    op.blocks, op.block_cols, op.block_rows, n_br, x),
+                KERNEL_ROUNDS if main else 1, 20)
             row = dict(case=name, n=g.num_nodes, f=f, nnzb=op.blocks.shape[0],
                        dtype=str(op.blocks.dtype).replace("torch.", ""),
-                       max_abs_err=abs_err, rel_err=rel, tol=tol, ms=ms,
-                       plain_ms=plain_ms)
-            if name == "slice" and f == 128 and precision == "highest":
+                       max_abs_err=abs_err, rel_err=rel, tol=tol,
+                       out_mean_err=bias, bitwise_repeat=torch.equal(got, again),
+                       ms=k_ms["median"], q1_q3=[k_ms["q1"], k_ms["q3"]],
+                       plain_ms=p_ms["median"],
+                       plain_q1_q3=[p_ms["q1"], p_ms["q3"]])
+            if main:
                 # tiles, indices, x read once and the output written once;
                 # 2 FLOP per stored nonzero and column of x
                 nbytes = sum(t.numel() * t.element_size() for t in (
@@ -451,8 +477,12 @@ def phase2_kernel(graph, device) -> dict:
             print(f"[phase 2] {json.dumps(row)}")
             assert got.shape == ref.shape and torch.isfinite(got).all()
             assert rel <= tol, f"kernel disagrees with plain: {row}"
+            assert row["bitwise_repeat"], f"two calls differ: {row}"
+            if main:
+                assert abs(bias) <= TOL_K1_BIAS, f"K1 output is biased: {row}"
+                beside_recorded("phase 2", "bsr_spmm", row)
             rows.append(row)
-    for name, g, f in cases[::2]:
+    for name, g, f in (cases[0], cases[4]):
         for precision, tol in (("highest", TOL_F32), ("default", TOL_BF16)):
             bsr_gradient_check(g, f, precision, tol, rng, device)
     return next(r for r in rows if r["case"] == "slice" and r["f"] == 128

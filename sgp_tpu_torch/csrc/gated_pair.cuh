@@ -19,6 +19,8 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int kH2 = 32;                       // max h2: one lane per channel
@@ -131,19 +133,6 @@ struct WarpTile {
 // (67.25 KB in all)
 constexpr int kBwdSmem = 2 * kFrag * (int)sizeof(uint4) + kWarps * (int)sizeof(WarpTile);
 
-// x rounded to TF32 (10 mantissa bits), as the bits of an f32
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r & 0xffffe000u;
-}
-
-// x = hi + lo, both exact in TF32, to about 2^-22 of x: 3xTF32 operands
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
 // an operand of four values: split, or as it is when TF32 holds it exactly
 template <bool kExact>
 __device__ __forceinline__ void operand(float v0, float v1, float v2, float v3,
@@ -158,26 +147,6 @@ __device__ __forceinline__ void operand(float v0, float v1, float v2, float v3,
       split(v[r], hi[r], lo[r]);
     }
   }
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b: a_hi b_hi + a_hi b_lo + a_lo b_hi, the small terms first; an
-// exact operand has no lo, and its terms are left out
-template <bool kAExact, bool kBExact>
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                     uint32_t bl0, uint32_t bl1) {
-  if (!kBExact) mma(d, ah, bl0, bl1);
-  if (!kAExact) mma(d, al, bh0, bh1);
-  mma(d, ah, bh0, bh1);
 }
 
 // The backward's sigmoid: the MUFU's ex2 and reciprocal (a few ulp), not
@@ -721,15 +690,6 @@ __global__ void wgrad_reduce(const float* __restrict__ part, int n_parts, int h2
     for (int y = 0; y < kReduceRows; ++y) total += sums[y][threadIdx.x];
     grads[j] = total;
   }
-}
-
-// Lets a kernel take `smem` bytes of dynamic shared memory (above 48 KB it
-// must be asked for); a no-op for 0.
-template <typename K>
-int allow_smem(K kernel, int smem) {
-  if (smem > 0)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename K>

@@ -45,8 +45,12 @@ def build():
     returns ``(lib, seconds, log)`` as :func:`_build.build` does."""
     lib, seconds, log = _build.build("bsr_spmm")
     for name in ("sgp_bsr_spmm_f32", "sgp_bsr_spmm_bf16"):
-        _build.bind(lib, name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        _build.bind(lib, name, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                     + [ctypes.c_void_p])
+    for name in ("sgp_bsr_spmm_workspace_f32", "sgp_bsr_spmm_workspace_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_longlong
     return lib, seconds, log
 
 
@@ -100,16 +104,32 @@ def _spmm(blocks, block_cols, row_ptr, block_rows, x):
         raise ValueError(f"blocks {tuple(blocks.shape)} / block_cols "
                          f"{tuple(block_cols.shape)} do not match")
     n, f = x.shape
+    nnzb = blocks.shape[0]
+    # the kernel copies x in 16-byte pieces: rows padded with zero columns
+    # to a multiple of 16 bytes, the base 16-byte aligned
+    per16 = 16 // blocks.element_size()
+    ldx = -(-f // per16) * per16
     xk = x.to(cdt).contiguous()
+    if ldx != f or xk.data_ptr() % 16:
+        xk = torch.nn.functional.pad(xk, (0, ldx - f))
+    if blocks.data_ptr() % 16:
+        blocks = blocks.clone()
     out = torch.empty((n, f), dtype=cdt, device=x.device)
     lib = build()[0]
-    fn = lib.sgp_bsr_spmm_bf16 if cdt == torch.bfloat16 \
-        else lib.sgp_bsr_spmm_f32
+    bf16 = cdt == torch.bfloat16
+    fn = lib.sgp_bsr_spmm_bf16 if bf16 else lib.sgp_bsr_spmm_f32
     with torch.cuda.device(x.device):
+        ws_bytes = (lib.sgp_bsr_spmm_workspace_bf16 if bf16 else
+                    lib.sgp_bsr_spmm_workspace_f32)(nnzb, f)
+        if ws_bytes < 0:
+            raise RuntimeError(f"bsr_spmm launch plan failed: CUDA error "
+                               f"{-ws_bytes}")
+        # the parts of the block rows that two CTAs share, joined in order
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(blocks.data_ptr(), block_cols.data_ptr(),
                  row_ptr.data_ptr(), xk.data_ptr(), out.data_ptr(),
-                 n_block_rows, n, f, stream)
+                 ws.data_ptr(), nnzb, n_block_rows, n, f, ldx, stream)
     if err != 0:
         raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {err}")
     bsr_spmm.launches += 1

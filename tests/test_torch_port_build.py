@@ -57,3 +57,28 @@ def test_a_new_header_changes_the_library_path(csrc):
     before = _build._lib_path("gn_ell")
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build._lib_path("gn_ell") != before
+
+
+def test_tf32_helpers_are_defined_once_and_shared():
+    """K1 (the block SpMM) and the pair tile of K3 and K4 take ``tf32``,
+    ``split``, ``mma``, ``mma3`` and ``allow_smem`` from one header, and no
+    source defines its own copy."""
+    helpers = ("tf32", "split", "mma", "mma3", "allow_smem")
+    header = (_build.CSRC / "mma_common.cuh").read_text()
+    for fn in helpers:
+        assert re.search(rf"\b{fn}\(", header), fn
+    for path in (_build.CSRC / "bsr_spmm.cu", _build.CSRC / "gated_pair.cuh"):
+        text = path.read_text()
+        assert '#include "mma_common.cuh"' in text, path.name
+        for fn in helpers:
+            assert not re.search(
+                rf"^\S.*\b(void|int|uint32_t)\s+{fn}\(", text, re.M), \
+                (path.name, fn)
+
+
+@pytest.mark.parametrize("name", ["bsr_spmm", "gn_allpairs", "gn_ell"])
+def test_editing_the_tf32_header_changes_the_library_path(csrc, name):
+    before = _build._lib_path(name)
+    header = csrc / "mma_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert _build._lib_path(name) != before
