@@ -1,9 +1,8 @@
 // The GatedGN pair chain shared by the all-pairs kernels (gn_allpairs.cu,
-// K3) and the ELL kernels (gn_ell.cu, K4) for Hopper (sm_90a): the per-lane
-// forward chain K4's forward runs, and the 16-pair tensor-core tile
-// (mma.sync m16n8k8, 3xTF32 for f32 operands) that K3's forward (fwd_batch),
-// K3's row and column passes and K4's backward (pair_batch) run. The chain,
-// for s = p_i + p_j (h2 wide):
+// K3) and the ELL kernels (gn_ell.cu, K4) for Hopper (sm_90a): the 16-pair
+// tensor-core tile (mma.sync m16n8k8, 3xTF32 for f32 operands) that both
+// forwards (fwd_batch), K3's row and column passes and K4's backward
+// (pair_batch) run. The chain, for s = p_i + p_j (h2 wide):
 //
 //   t  = act(s)        mt = t @ w2 + b2        mb = act(mt)   (h wide)
 //   g  = sigmoid(mb . wg + bg)                 out = sum over pairs g * mb
@@ -52,56 +51,6 @@ __device__ __forceinline__ float round_as(float v, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// The weights of one lane: its two columns of w2 (rows past h2 and columns
-// past h are 0) and its entries of b2 and wg.
-struct LaneWeights {
-  float w2a[kH2], w2b[kH2];
-  float b2a, b2b, wga, wgb, bg;
-
-  __device__ __forceinline__ void load(const float* __restrict__ w2,
-                                       const float* __restrict__ b2,
-                                       const float* __restrict__ wg,
-                                       const float* __restrict__ bgp, int h2, int h) {
-    const int lane = threadIdx.x & 31;
-    const bool ok0 = lane < h, ok1 = lane + 32 < h;
-#pragma unroll
-    for (int k = 0; k < kH2; ++k) {
-      w2a[k] = (k < h2 && ok0) ? w2[k * h + lane] : 0.f;
-      w2b[k] = (k < h2 && ok1) ? w2[k * h + lane + 32] : 0.f;
-    }
-    b2a = ok0 ? b2[lane] : 0.f;
-    b2b = ok1 ? b2[lane + 32] : 0.f;
-    wga = ok0 ? wg[lane] : 0.f;
-    wgb = ok1 ? wg[lane + 32] : 0.f;
-    bg = *bgp;
-  }
-
-  // mt for the lane's two channels from t in shared memory (32 floats).
-  __device__ __forceinline__ void message(const float* ts, float& m0, float& m1) const {
-    float a0 = b2a, a1 = b2b, c0 = 0.f, c1 = 0.f;  // two chains per channel
-#pragma unroll
-    for (int k = 0; k < kH2; k += 4) {
-      const float4 t4 = *reinterpret_cast<const float4*>(ts + k);
-      a0 = fmaf(t4.x, w2a[k], a0);
-      a1 = fmaf(t4.x, w2b[k], a1);
-      c0 = fmaf(t4.y, w2a[k + 1], c0);
-      c1 = fmaf(t4.y, w2b[k + 1], c1);
-      a0 = fmaf(t4.z, w2a[k + 2], a0);
-      a1 = fmaf(t4.z, w2b[k + 2], a1);
-      c0 = fmaf(t4.w, w2a[k + 3], c0);
-      c1 = fmaf(t4.w, w2b[k + 3], c1);
-    }
-    m0 = a0 + c0;
-    m1 = a1 + c1;
-  }
-};
-
 // -- the backward on the tensor cores ----------------------------------------
 // A warp gathers the set entries of its mask words into batches of kB = 16
 // pairs and runs the chain of a batch as matrix products on the tensor cores
@@ -149,7 +98,7 @@ __device__ __forceinline__ void operand(float v0, float v1, float v2, float v3,
   }
 }
 
-// The backward's sigmoid: the MUFU's ex2 and reciprocal (a few ulp), not
+// The tile's sigmoid: the MUFU's ex2 and reciprocal (a few ulp), not
 // expf and an IEEE division, whose range reduction and slow-path checks
 // cost more issue than the rest of a pair's chain.
 __device__ __forceinline__ float sigmoid_fast(float x) {
@@ -308,6 +257,31 @@ struct WGrad {
 };
 constexpr int kBwdRowsSmem = kBwdSmem + kWarps * kWSum * (int)sizeof(float);
 
+// k step kk of m += t @ w2 from a warp's t tile (kk * 8 .. kk * 8 + 7),
+// for the n tiles nh .. nh + nn - 1. The step's partial is formed by the mma from
+// 0 and added to m by FADD: the tensor cores round their sum toward zero,
+// so 12 mmas accumulating into m bias mt toward zero by a few ulp, and the
+// forward's outputs with it. A training run sums that bias over every node:
+// so accumulated, chip_smoke.py's full-graph run drifted 2.1e-4 from the
+// plain f32 run in 8 steps (its limit is 1e-4).
+template <bool kBf>
+__device__ __forceinline__ void mt_step(float (&m)[8][4], const float* __restrict__ t,
+                                        const uint4* __restrict__ wmt, int kk, int nh,
+                                        int nn = 4) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const float* t0 = t + g * kLdT + kk * 8 + c;
+  uint32_t ah[4], al[4];
+  operand<kBf>(t0[0], t0[8 * kLdT], t0[4], t0[8 * kLdT + 4], ah, al);
+#pragma unroll
+  for (int nt = nh; nt < nh + nn; ++nt) {
+    const uint4 w = wmt[(kk * 8 + nt) * 32 + lane];
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3<kBf, kBf>(f, ah, al, w.x, w.y, w.z, w.w);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[nt][r] += f[r];
+  }
+}
+
 // One batch of cnt <= kB pairs. kRows: the pairs share the destination row
 // (p_i in own, ghat at gh, p_j rows at po; the weight gradients accumulate,
 // db2 and dwg into the lane's slots at wsum); else they share the source
@@ -317,14 +291,17 @@ constexpr int kBwdRowsSmem = kBwdSmem + kWarps * kWSum * (int)sizeof(float);
 // input for the dt product too, as the Pallas ELL kernel does (the
 // all-pairs one rounds it for dw2 only); kStoreDs also stores each valid
 // pair's ds at the pair's row of ds_out (h2 wide, in T), through the tile's
-// s; kDwFresh forms each batch's dw2 terms in fresh fragments and adds them
-// to wgr.dw with FADD. (The tensor cores add into their accumulator with
-// truncation, a drift of up to ~2^-23 of the sum an mma: K4's warp keeps
-// dw2 over ~2,400 pairs, 450 mmas, and drifts by ~2e-5 of it; with fresh
-// fragments the sum over batches rounds to nearest. K3's chunks are a
-// third as long.)
+// s; kFresh forms each k step of mt and dt, and each batch's dw2 terms, in
+// fresh fragments and adds them by FADD. (The tensor cores add into their
+// accumulator with truncation, a drift of up to ~2^-23 of the sum an mma:
+// K4's warp keeps dw2 over ~2,400 pairs, 450 mmas, and drifts by ~2e-5 of
+// it; with fresh fragments the sum over batches rounds to nearest. mt and
+// dt summed over their 4 and 8 k steps in the accumulator put d_pi 4-6x and
+// d_pjn 2-3x as far from float64 as the plain version on the 100-nn
+// training slice's inputs, and phase 5 of chip_smoke.py then drifted from
+// the plain run (tools/k4_fwd_probe.py). K3's chunks are a third as long.)
 template <int A, typename T, bool kRows, bool kRoundDt = false, bool kStoreDs = false,
-          bool kDwFresh = false>
+          bool kFresh = false>
 __device__ __forceinline__ void pair_batch(const uint4* __restrict__ wmt,
                                            const uint4* __restrict__ wdt,
                                            const float* __restrict__ b2s,
@@ -375,15 +352,20 @@ __device__ __forceinline__ void pair_batch(const uint4* __restrict__ wmt,
     m[nt][0] = m[nt][2] = b2s[nt * 8 + 2 * c];
     m[nt][1] = m[nt][3] = b2s[nt * 8 + 2 * c + 1];
   }
+  if constexpr (kFresh) {
+#pragma unroll 1
+    for (int kk = 0; kk < 4; ++kk) mt_step<kBf>(m, wt.t, wmt, kk, 0, 8);
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const float* t0 = wt.t + g * kLdT + kk * 8 + c;
-    uint32_t ah[4], al[4];
-    operand<kBf>(t0[0], t0[8 * kLdT], t0[4], t0[8 * kLdT + 4], ah, al);
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* t0 = wt.t + g * kLdT + kk * 8 + c;
+      uint32_t ah[4], al[4];
+      operand<kBf>(t0[0], t0[8 * kLdT], t0[4], t0[8 * kLdT + 4], ah, al);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint4 w = wmt[(kk * 8 + nt) * 32 + lane];
-      mma3<kBf, kBf>(m[nt], ah, al, w.x, w.y, w.z, w.w);
+      for (int nt = 0; nt < 8; ++nt) {
+        const uint4 w = wmt[(kk * 8 + nt) * 32 + lane];
+        mma3<kBf, kBf>(m[nt], ah, al, w.x, w.y, w.z, w.w);
+      }
     }
   }
 
@@ -471,7 +453,14 @@ __device__ __forceinline__ void pair_batch(const uint4* __restrict__ wmt,
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const uint4 w = wdt[(kk * 4 + nt) * 32 + lane];
-      mma3<kDExact, kBf>(q[nt], ah, al, w.x, w.y, w.z, w.w);
+      if constexpr (kFresh) {
+        float f[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3<kDExact, kBf>(f, ah, al, w.x, w.y, w.z, w.w);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) q[nt][r] += f[r];
+      } else {
+        mma3<kDExact, kBf>(q[nt], ah, al, w.x, w.y, w.z, w.w);
+      }
     }
   }
 #pragma unroll
@@ -514,7 +503,7 @@ __device__ __forceinline__ void pair_batch(const uint4* __restrict__ wmt,
         }
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-          if constexpr (kDwFresh) {
+          if constexpr (kFresh) {
             float f[4] = {0.f, 0.f, 0.f, 0.f};
             mma3<kBf, kBf>(f, ah[mi], al[mi], bh0, bh1, bl0, bl1);
 #pragma unroll
@@ -548,35 +537,15 @@ struct FwdTile {
 // dynamic shared memory of a forward block: w2 split hi/lo in the mt layout
 // (16 KB), the tiles (25.25 KB in all)
 constexpr int kFwdSmem = kFrag * (int)sizeof(uint4) + kWarps * (int)sizeof(FwdTile);
+// forward blocks an SM at the least (K3's and K4's): ptxas keeps the forward
+// under 128 registers (K3's takes 92-122), and 16 warps an SM hide more of
+// its chain's latency than 12 with more registers each
+constexpr int kFwdBlocks = 4;
 
 // act(x) with the MUFU's sigmoid for silu; tanh and elu as in act
 template <int A>
 __device__ __forceinline__ float act_fast(float x) {
   return A == kSilu ? x * sigmoid_fast(x) : act<A>(x);
-}
-
-// k step kk of m += t @ w2 from the warp's t tile (kk * 8 .. kk * 8 + 7),
-// for the n tiles nh .. nh + 3. The step's partial is formed by the mma from
-// 0 and added to m by FADD: the tensor cores round their sum toward zero,
-// so 12 mmas accumulating into m bias mt toward zero by a few ulp, and the
-// forward's outputs with it. A training run sums that bias over every node:
-// so accumulated, chip_smoke.py's full-graph run drifted 2.1e-4 from the
-// plain f32 run in 8 steps (its limit is 1e-4).
-template <bool kBf>
-__device__ __forceinline__ void mt_step(float (&m)[8][4], const float* __restrict__ t,
-                                        const uint4* __restrict__ wmt, int kk, int nh) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
-  const float* t0 = t + g * kLdT + kk * 8 + c;
-  uint32_t ah[4], al[4];
-  operand<kBf>(t0[0], t0[8 * kLdT], t0[4], t0[8 * kLdT + 4], ah, al);
-#pragma unroll
-  for (int nt = nh; nt < nh + 4; ++nt) {
-    const uint4 w = wmt[(kk * 8 + nt) * 32 + lane];
-    float f[4] = {0.f, 0.f, 0.f, 0.f};
-    mma3<kBf, kBf>(f, ah, al, w.x, w.y, w.z, w.w);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) m[nt][r] += f[r];
-  }
 }
 
 // One forward batch of cnt <= kB pairs that share a node (own: its

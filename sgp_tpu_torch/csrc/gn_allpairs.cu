@@ -95,10 +95,6 @@
 namespace {
 
 constexpr int kChunk = 4;                     // rows per backward item
-// forward blocks an SM at the least: ptxas keeps the forward under 128
-// registers (it takes 92-122), and 16 warps an SM hide more of its chain's
-// latency than 12 with more registers each
-constexpr int kFwdBlocks = 4;
 
 // Thread 0 takes the next item from the counter; every thread returns it.
 __device__ __forceinline__ int next_item(int* counter, int* item_s) {

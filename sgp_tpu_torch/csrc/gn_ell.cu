@@ -17,15 +17,22 @@
 // padding of D to 128 and N to 32 and its channels-on-sublanes transposes are
 // TPU matters: here N and D are read unpadded and masked slots are skipped.
 //
-// Design of the forward. One warp owns one (b, n) row and walks its D slots;
-// a persistent grid, sized by the occupancy calculator, strides over the B*N
-// rows. Lane k holds s[k] and t[k] (h2 <= 32); each lane owns the two output
-// channels c0 = lane and c1 = lane + 32 (h <= 64), with its two columns of w2
-// in registers (LaneWeights, gated_pair.cuh). t goes through a 128-byte slot
-// of shared memory, so each lane reads all of t as 8 broadcast float4 loads
-// and forms mt[c0], mt[c1] with 64 FFMA. The gate is a butterfly warp sum;
-// the sum over d stays in registers. Channels past h2 and h are zero-padded
-// (every activation in the table maps 0 to 0). No atomics anywhere.
+// Design of the forward: K3's forward tile (fwd_batch, gated_pair.cuh) on a
+// row of slots. One warp owns one (b, n) row; a persistent grid, sized by the
+// occupancy calculator at four blocks an SM, strides over the B*N rows. The
+// warp gathers the row's valid slots (ballot and popc ranks, BatchWalkT<1>)
+// into batches of 16 pairs whose partner is the slot's row of pjn. In a batch
+// lane k forms t[k] = act(p_i[k] + pjn[slot][k]) of each pair (one coalesced
+// row a pair, the 16 loads in flight together) into a shared tile; mt = t @
+// w2 + b2 runs on mma.sync m16n8k8 in two halves of 32 channels, with w2
+// split hi/lo in shared memory in the B layout; mb, the gate's quad-shuffle
+// sum and g * mb are computed on the accumulator fragments, and a thread's 16
+// channel sums stay in registers over the row. At the row's end they are
+// summed over the warp's 8 rows of threads by shuffles, in a fixed order: a
+// row with no valid slot gives exactly 0, and two calls give the same bits.
+// Channels past h2 and h are zero-padded (every activation in the table maps
+// 0 to 0). No atomics and no __syncthreads after the weights are loaded: the
+// warp owns its row.
 //
 // Design of the backward: K3's row pass (gn_allpairs.cu) on a row of slots,
 // with the 16-pair tensor-core tile of gated_pair.cuh. The same persistent
@@ -36,79 +43,79 @@
 // d_pjn beside its sum into d_pi. A masked slot gets a d_pjn of exactly 0,
 // written from the mask's ballot. dw2 stays in fragments over the warp's
 // whole loop, each batch's terms formed by the mma from 0 and added by FADD
-// (kDwFresh: a sum over ~2,400 pairs inside the mma's truncating
-// accumulator drifts by ~2e-5), db2 and dwg in per-lane shared slots; at the end
-// each warp writes one scratch row of partials and a second kernel sums the
-// rows in a fixed order, so the result is deterministic. d_pi needs no
+// (kFresh: a sum over ~2,400 pairs inside the mma's truncating accumulator
+// drifts by ~2e-5), and so are the k steps of mt and dt (summed inside it,
+// they put d_pi 4-6x and d_pjn 2-3x as far from float64 as the plain
+// version); db2 and dwg in per-lane shared slots; at the end each warp
+// writes one scratch row of partials and a second kernel sums the rows in a
+// fixed order, so the result is deterministic. d_pi needs no
 // __syncthreads: the warp owns its row.
 //
-// Numerics. f32 inputs: full f32, FFMA in the forward; in the backward every
-// product of two f32 operands is 3xTF32 (about 2^-21 relative), the sigmoid
-// the MUFU's (a few ulp), and relu's branch is settled by an FFMA recompute
-// where |mt| < 1e-4. bf16 inputs round where the Pallas kernel rounds: t is
-// rounded to bf16 before the w2 product, dmt before the w2^T and dw2 products
-// (w2 and wg arrive already rounded to bf16, held in f32; ghat is not
-// rounded), d_pjn is stored as bf16; every sum is f32. A bf16 value is exact
-// in TF32, so each bf16 product is one mma.
+// Numerics. f32 inputs: in both directions every product of two f32
+// operands is 3xTF32 (about 2^-21 relative) and the sigmoid the MUFU's (a
+// few ulp). The forward forms each k step of mt from 0 and adds it by FADD
+// (mt_step: summed inside the mma's truncating accumulator, mt would carry a
+// bias of a few ulp toward zero into every message), and the sums over
+// slots are FFMA outside the tensor cores. In the backward relu's branch is
+// settled by an FFMA recompute where |mt| < 1e-4. bf16 inputs round where
+// the Pallas kernel rounds: t is rounded to bf16 before the w2 product, dmt
+// before the w2^T and dw2 products (w2 and wg arrive already rounded to
+// bf16, held in f32; ghat is not rounded), d_pjn is stored as bf16; every
+// sum is f32. A bf16 value is exact in TF32, so each bf16 product is one
+// mma.
 //
-// What bounds it on this card. Per pair the forward does 2*h2*h = 4,096 FLOP
-// of FFMA and ~2*(h2+h) transcendental operations on 128 bytes of pjn (f32):
-// 32 FLOP per byte against an FFMA ridge of ~20, so FFMA and MUFU issue bound
-// it, not HBM. The backward does three such products on the tensor cores
-// (three times over for f32) and reads pjn and writes d_pjn (256 bytes a pair
-// for f32): bytes bound it. The ways to a faster kernel: the forward on the
-// same tile, and gathering p_j[src] in the kernel instead of reading the
-// gathered pjn.
+// What bounds it on this card. Per pair the forward does one h2 x h product
+// on the tensor cores (2*h2*h = 4,096 FLOP, three times over for f32) and
+// 2*(h2+h+1) = 194 MUFU operations (an ex2 and a reciprocal a sigmoid) on 128
+// bytes of pjn (f32): the MUFU bounds it, HBM (pjn streams once, unlike K3's
+// L2-resident p_j) a little below. A row of 100 slots fills 7 batches, the
+// last with 4 of its 16 pairs. The backward does three such products on the
+// tensor cores (three times over for f32) and reads pjn and writes d_pjn (256
+// bytes a pair for f32): bytes bound it. The ways to a faster kernel:
+// gathering p_j[src] in both directions instead of reading the gathered pjn
+// (no pjn in HBM, and the gather and its scatter-add gone from the layer),
+// and filling the last batch of a row with the next row's slots.
 
 #include "gated_pair.cuh"
 
 namespace {
 
-// Bit j of the result: slot j0 + j of the row is valid.
-__device__ __forceinline__ unsigned slot_bits(const uint8_t* __restrict__ mrow, int j0, int d) {
-  const int j = j0 + (threadIdx.x & 31);
-  return __ballot_sync(kFull, j < d && mrow[j] != 0);
-}
-
+// The forward: a warp per (b, n) row, its valid slots in batches of 16
+// pairs on K3's forward tile (fwd_batch); the warp owns its row, so its sums
+// need no other warp. Shared memory as K3's forward: w2's mt fragments and
+// a FwdTile a warp (kFwdSmem, dynamic), kFwdBlocks blocks an SM.
 template <int A, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
 gn_ell_fwd_kernel(const T* __restrict__ p_i, const T* __restrict__ pjn,
                   const uint8_t* __restrict__ mask, const float* __restrict__ w2,
                   const float* __restrict__ b2, const float* __restrict__ wg,
                   const float* __restrict__ bgp, float* __restrict__ out, int rows,
                   int n, int d, int h2, int h) {
-  __shared__ __align__(16) float t_s[kWarps][kH2];
-  const int lane = threadIdx.x & 31;
-  float* ts = t_s[threadIdx.x >> 5];
-  LaneWeights w;
-  w.load(w2, b2, wg, bgp, h2, h);
-  const bool in_h2 = lane < h2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* wmt = reinterpret_cast<uint4*>(smem);
+  __shared__ float b2s[kH], wgs[kH];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, c = lane & 3;
+  FwdTile& wt = reinterpret_cast<FwdTile*>(wmt + kFrag)[warp];
+  load_weights<false>(w2, b2, wg, h2, h, wmt, nullptr, b2s, wgs);
+  const float bg = *bgp;
 
-  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
-       row += gridDim.x * kWarps) {
-    const float pi = in_h2 ? to_f32(p_i[(size_t)row * h2 + lane]) : 0.f;
-    const T* pj = pjn + (size_t)row * d * h2 + lane;
-    const uint8_t* mrow = mask + (size_t)(row % n) * d;
-    float acc0 = 0.f, acc1 = 0.f;
-    float next = (in_h2 && d > 0) ? to_f32(pj[0]) : 0.f;
-    unsigned bits = 0;
-    for (int j = 0; j < d; ++j) {
-      const float cur = next;
-      if (in_h2 && j + 1 < d) next = to_f32(pj[(size_t)(j + 1) * h2]);
-      if ((j & 31) == 0) bits = slot_bits(mrow, j, d);
-      if (!((bits >> (j & 31)) & 1u)) continue;  // padding: adds exactly 0
-      ts[lane] = round_as(act<A>(pi + cur), T());
-      __syncwarp();
-      float m0, m1;
-      w.message(ts, m0, m1);
-      __syncwarp();  // ts is rewritten by the next slot
-      const float mb0 = act<A>(m0), mb1 = act<A>(m1);
-      const float g = sigmoid(warp_sum(fmaf(w.wga, mb0, w.wgb * mb1)) + w.bg);
-      acc0 = fmaf(g, mb0, acc0);
-      acc1 = fmaf(g, mb1, acc1);
-    }
-    if (lane < h) out[(size_t)row * h + lane] = acc0;
-    if (lane + 32 < h) out[(size_t)row * h + lane + 32] = acc1;
+  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
+    const float own = lane < h2 ? to_f32(p_i[(size_t)row * h2 + lane]) : 0.f;
+    float acc[8][2] = {};
+    BatchWalkT<1> walk(mask + (size_t)(row % n) * d, 0, d, 0);
+    for (int cnt = walk.fill(wt.idx); cnt > 0; cnt = walk.fill(wt.idx))
+      fwd_batch<A, T>(wmt, b2s, wgs, bg, wt, cnt, pjn + (size_t)row * d * h2, own, h2, acc);
+    // each channel's sum over the 8 lane rows g (a row with no valid slot: 0)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = acc[nt][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+        const int ch = nt * 8 + 2 * c + e;
+        if (lane < 4 && ch < h) out[(size_t)row * h + ch] = v;
+      }
   }
 }
 
@@ -176,14 +183,16 @@ gn_ell_bwd_kernel(const T* __restrict__ p_i, const T* __restrict__ pjn,
 template <int A, typename T>
 int blocks_for(int backward, int* blocks) {
   if (backward) return occupancy(gn_ell_bwd_kernel<A, T>, kBwdRowsSmem, blocks);
-  return occupancy(gn_ell_fwd_kernel<A, T>, 0, blocks);
+  return occupancy(gn_ell_fwd_kernel<A, T>, kFwdSmem, blocks);
 }
 
 template <int A, typename T>
 int fwd(const void* p_i, const void* pjn, const void* mask, const void* w2, const void* b2,
         const void* wg, const void* bg, void* out, int rows, int n, int d, int h2, int h,
         int blocks, cudaStream_t stream) {
-  gn_ell_fwd_kernel<A, T><<<blocks, kThreads, 0, stream>>>(
+  const int err = allow_smem(gn_ell_fwd_kernel<A, T>, kFwdSmem);
+  if (err != 0) return err;
+  gn_ell_fwd_kernel<A, T><<<blocks, kThreads, kFwdSmem, stream>>>(
       static_cast<const T*>(p_i), static_cast<const T*>(pjn),
       static_cast<const uint8_t*>(mask), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(wg),
@@ -230,8 +239,8 @@ int bwd(const void* p_i, const void* pjn, const void* mask, const void* w2, cons
   }
 
 // The persistent grid of the forward (backward = 0) or backward kernel:
-// blocks per SM at full occupancy (the backward with its dynamic shared
-// memory) times the SMs of the current device. The backward's scratch holds
+// blocks per SM at full occupancy (each with its dynamic shared memory)
+// times the SMs of the current device. The backward's scratch holds
 // blocks * 4 rows of 2,177 floats.
 extern "C" int sgp_gn_ell_blocks(int act, int bf16, int backward, int* blocks) {
 #define CALL(A, T) blocks_for<A, T>(backward, blocks)

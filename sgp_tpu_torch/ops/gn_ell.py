@@ -15,8 +15,8 @@ the per-pair chain is::
 - :func:`gn_ell_fwd` and :func:`gn_ell_bwd` are its two halves. On a CUDA
   tensor each launches its kernel in ``csrc/gn_ell.cu`` (CUDA C++ for
   ``sm_90a``, built with ``nvcc`` at first use into ``build/`` and loaded
-  with ``ctypes``; the backward runs the tensor-core pair tile it shares
-  with the all-pairs kernel in ``csrc/gated_pair.cuh``) or raises: on a
+  with ``ctypes``; both run the 16-pair tensor-core tile they share with
+  the all-pairs kernel in ``csrc/gated_pair.cuh``) or raises: on a
   failed build or launch, and on a shape the kernel does not take
   (``h2 > 32`` or ``h > 64``). On a CPU tensor
   each runs its plain version. Each counts its kernel launches in

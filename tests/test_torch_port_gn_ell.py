@@ -81,6 +81,25 @@ def test_forward_padding_and_empty_row():
     assert not got[:, 5].any()
 
 
+@pytest.mark.parametrize("activation", ["silu", "tanh", "relu", "elu"])
+def test_forward_plain_on_pair_batch_slots(activation):
+    """Rows holding 0, 1, 15, 16, 17, 33 and 40 valid slots of D 40, where
+    the card's 16-pair batches end empty, one short, full, one over and at
+    the row's end: the plain forward, the oracle the card kernel is held
+    to, against the JAX kernel."""
+    n, d, counts = 21, 40, (0, 1, 15, 16, 17, 33, 40)
+    arrs = _setup(11, n=n, d=d)
+    rng = np.random.default_rng(11)
+    arrs["nmask"] = np.zeros((n, d), np.float32)
+    for i in range(n):
+        arrs["nmask"][i, rng.choice(d, counts[i % 7], replace=False)] = 1.0
+    want = j_aggregate(*_jax_args(arrs), activation, interpret=True)
+    got = gn_ell.gn_ell_fwd_plain(*_torch_args(arrs), activation)
+    assert got.shape == (2, n, 16) and got.dtype == torch.float32
+    _close(got, want, 2e-5)
+    assert not got[:, ::7].any()
+
+
 def _loss(out):
     return (out * torch.cos(out)).sum()
 

@@ -213,8 +213,10 @@ def _counted_mask(rng, n, d, counts, cuda):
 @pytest.mark.parametrize("b,n,d,h2,h,counts", [
     (2, 1000, 100, 32, 64, None),      # the slice's widths
     (3, 77, 7, 32, 64, None),          # ragged N, D = 7, one empty row
+    (2, 300, 37, 32, 64, None),        # D over one 32-slot mask word, not
+                                       # a multiple of 16
     (1, 50, 5, 5, 11, None),           # narrow widths, zero-padded lanes
-    # rows with 0, 1, 15, 16, 17, 33 and 100 valid slots: the backward's
+    # rows with 0, 1, 15, 16, 17, 33 and 100 valid slots: the kernels'
     # 16-pair batches end full, one short, one over and empty
     (2, 140, 100, 32, 64, (0, 1, 15, 16, 17, 33, 100)),
 ])
@@ -274,6 +276,57 @@ def test_gn_ell_relu_near_zero(cuda, dtype, tol):
         assert torch.isfinite(g).all(), name
         assert _rel(g, r) <= tol, (name, _rel(g, r))
     assert not grads[3][:8].any()                   # db2 of mt == 0: exactly 0
+
+
+def test_gn_ell_forward_is_deterministic(cuda):
+    rng = np.random.default_rng(16)
+    args = _ell_inputs(rng, 2, 600, 30, 32, 64, torch.float32, cuda)
+    first = gn_ell.gn_ell_fwd(*args)
+    again = gn_ell.gn_ell_fwd(*args)
+    assert torch.equal(first, again)
+
+
+def test_gn_ell_forward_has_no_bias(cuda):
+    """At the slice's widths (h2 32, h 64, D 100, every slot valid, f32) the
+    forward's mean error stays within 1e-7 of its largest value: mt's k
+    steps and the sums over slots are kept out of the tensor cores'
+    truncating accumulator, so no bias a training run would sum over every
+    node hides under the max error."""
+    rng = np.random.default_rng(17)
+    args = _ell_inputs(rng, 2, 1000, 100, 32, 64, torch.float32, cuda)
+    args[2].fill_(True)
+    out = gn_ell.gn_ell_fwd(*args)
+    ref = gn_ell.gn_ell_fwd_plain(*args)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert _rel(out, ref) <= 2e-5
+    assert abs((out - ref).mean().item()) / scale <= 1e-7
+
+
+def test_gn_ell_backward_as_close_to_float64_as_plain(cuda):
+    """At the slice's widths (h2 32, h 64, D 100, f32) the backward's d_pi
+    and d_pjn lie within 3x the plain version's distance from float64
+    autograd: mt's and dt's k steps are kept out of the tensor cores'
+    truncating accumulator (summed inside it, they put d_pi 4-6x as far
+    off as the plain version on the training slice's inputs)."""
+    rng = np.random.default_rng(18)
+    args = _ell_inputs(rng, 2, 1000, 100, 32, 64, torch.float32, cuda)
+    ghat = torch.as_tensor(rng.standard_normal((2, 1000, 64)).astype(
+        np.float32), device=cuda)
+    p_i, pjn, w2, b2, wg, bg = (t.double().requires_grad_(True)
+                                for i, t in enumerate(args) if i != 2)
+    silu = torch.nn.functional.silu
+    mb = silu(silu(p_i.unsqueeze(-2) + pjn) @ w2 + b2)
+    g = torch.sigmoid(mb @ wg + bg)
+    out = (g * mb * args[2].double().unsqueeze(-1)).sum(-2)
+    want = torch.autograd.grad((out * ghat.double()).sum(), (p_i, pjn))
+    got = gn_ell.gn_ell_bwd(*args, ghat)[:2]
+    plain = gn_ell.gn_ell_bwd_plain(*args, ghat)[:2]
+    torch.cuda.synchronize()
+    for name, k, pl, w in zip(("d_pi", "d_pjn"), got, plain, want):
+        err = [(x.double() - w).abs().max().item() / w.abs().max().item()
+               for x in (k, pl)]
+        assert err[0] <= 3 * err[1], (name, err)
 
 
 def test_gn_ell_backward_is_deterministic(cuda):
