@@ -58,14 +58,18 @@ raises and the exit code is not 0:
    plain steps;
 8. the SDDMM kernel (K2) against its plain version on the 100-nn graph in
    natural and RCM order (D 64 and 16) and on a ragged 1,001-node graph
-   with an empty block row (D 40), f32 and bf16, with CUDA-event times, the
-   bound, one cuBLAS ``torch.bmm`` on pre-gathered tiles beside it, and at
-   the main shape the library call ``torch.sparse.sampled_addmm``;
+   with an empty block row (D 40), f32 and bf16, after ``ptxas``'s
+   registers and spills of each instantiation (phase 1; a spill fails),
+   with the mean error (the f32 rows' within 1e-7 of the largest output),
+   two calls held to the same bits, CUDA-event times, the bound, one cuBLAS
+   ``torch.bmm`` on pre-gathered tiles beside it, and at the main shape the
+   library call ``torch.sparse.sampled_addmm``;
 9. the attention path: ``bsr_multi_head_attention`` (K2, masked softmax,
    K1) at H 1 x D 64 and H 4 x D 16 on the 100-nn graph (natural and RCM)
    and the full graph, held against the edge-list
    ``sparse_multi_head_attention`` on the card and, on the ragged graph,
-   the port on the CPU; times and peak memory of both forms;
+   the port on the CPU, forward and backward (the SDDMM's through K1);
+   times and peak memory of both forms;
 10. ``TransformerModel`` at the runner's defaults (hidden 64, ff 128, one
    layer and head over time) trained through ``Predictor`` on phase 5's
    data: train steps and ``evaluate`` with finite losses, the first step
@@ -111,8 +115,8 @@ SEED = 0
 TOL_F32 = 1e-5          # kernel vs plain, f32 tiles: order of summation
 TOL_BF16 = 1e-2         # kernel vs plain, bf16 tiles: one bf16 ulp (2^-8)
                         # after a different f32 summation order
-TOL_K1_BIAS = 1e-7      # K1's and K4 forward's mean f32 error at the slice,
-                        # of the largest output
+TOL_K1_BIAS = 1e-7      # K1's, K2's and K4 forward's mean f32 error at the
+                        # slice, of the largest output
 TOL_SLICE = 1e-4        # BSR-kernel forecaster vs dense / CPU forecaster
 
 GN_CONFIG = ROOT / "configs" / "largescale_100nn" / "gatedgn_pv.yaml"
@@ -309,17 +313,19 @@ BUILD_LOGS = {}   # nvcc's output of each source built by phase 1
 def ptxas_report(source: str, kernel: str):
     """``(kernel <template arguments>, registers, spill line)`` of each
     instantiation of ``kernel`` in ``source``'s build log: ``<activation,
-    dtype>`` for K3 and K4, ``<dtype, BN>`` for K1."""
+    dtype>`` for K3 and K4, ``<dtype, BN>`` for K1, ``<dtype>`` for K2."""
     acts = ("silu", "tanh", "relu", "elu")
     dt = {"f": "f32", "13__nv_bfloat16": "bf16"}
     out, name, spill = [], None, ""
     for ln in BUILD_LOGS.get(source, "").splitlines():
         m = re.search(kernel + r"ILi(\d)E(f|13__nv_bfloat16)", ln)
         k1 = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", ln)
+        k2 = re.search(kernel + r"I(f|13__nv_bfloat16)E", ln)
         if "Compiling entry function" in ln:
             name = (f"{kernel}<{acts[int(m.group(1))]}, {dt[m.group(2)]}>"
                     if m else f"{kernel}<{dt[k1.group(1)]}, {k1.group(2)}>"
-                    if k1 else None)
+                    if k1 else f"{kernel}<{dt[k2.group(1)]}>" if k2
+                    else None)
         elif name and "spill" in ln:
             spill = ln.strip()
         elif name and "registers" in ln:
@@ -347,7 +353,7 @@ def spilling(tag: str, source: str, *kernels) -> list:
 # table records them from this script's run after K1's redesign and before
 # K4's forward moved onto the tensor-core tile (NVIDIA H100 80GB HBM3,
 # 700.00 W). Printed beside this run's; compare within one run only.
-RECORDED_MS = {"bsr_spmm": {"": 0.1904},
+RECORDED_MS = {"bsr_spmm": {"": 0.1904}, "bsr_sddmm": {"": 0.1382},
                "gn_ell": {"fwd": 0.8391, "bwd": 1.1736},
                "gn_allpairs": {"fwd": 0.7232, "bwd": 3.0078}}
 
@@ -380,6 +386,8 @@ def phase1_build():
     gn_ell.build()
     gn_allpairs.build()
     sddmm.build()
+    spills = spilling("phase 1", "sddmm", "sddmm_kernel")
+    assert not spills, f"K2 spills registers: {spills}"
 
 
 def slice_setup(n_nodes: int, n_steps: int, device):
@@ -1343,9 +1351,13 @@ def phase8_sddmm(graph, rcm, ragged, device) -> dict:
             q, k = (torch.as_tensor(rng.standard_normal((n, d)).astype(
                 np.float32), device=device).to(dtype) for _ in range(2))
             got = sddmm.bsr_sddmm_kernel(q, k, *idx)
+            again = sddmm.bsr_sddmm_kernel(q, k, *idx)
             ref = sddmm.bsr_sddmm_plain(q, k, *idx)
             torch.cuda.synchronize()
             abs_err, rel = rel_err(got, ref)
+            # a coherent bias (the tensor cores truncate their sums) shows
+            # in the mean error and hides under the max
+            bias = ((got - ref).mean() / ref.abs().max()).item()
             assert got.shape == ref.shape and torch.isfinite(got).all()
             pad = n % 128
             if pad:
@@ -1368,6 +1380,8 @@ def phase8_sddmm(graph, rcm, ragged, device) -> dict:
             row = dict(case=name, n=n, d=d, nnzb=nnzb,
                        dtype=str(dtype).replace("torch.", ""),
                        max_abs_err=abs_err, rel_err=rel, tol=tol,
+                       out_mean_err=bias,
+                       bitwise_repeat=torch.equal(got, again),
                        ms=k_ms["median"], q1_q3=[k_ms["q1"], k_ms["q3"]],
                        plain_ms=p_ms["median"],
                        plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
@@ -1380,8 +1394,13 @@ def phase8_sddmm(graph, rcm, ragged, device) -> dict:
                     else "library_note"] = lib
             print(f"[phase 8] {json.dumps(row)}")
             assert rel <= tol, f"K2 disagrees with plain: {row}"
+            assert row["bitwise_repeat"], f"two calls differ: {row}"
+            if dtype == torch.float32:
+                assert abs(bias) <= TOL_K1_BIAS, f"K2 output is biased: {row}"
+            if main:
+                beside_recorded("phase 8", "bsr_sddmm", row)
             rows[(name, d, row["dtype"])] = row
-            del qt, kt, got, ref
+            del qt, kt, got, again, ref
     return rows[("slice", 64, "float32")]
 
 
@@ -1396,8 +1415,8 @@ def phase9_attention(graphs, ragged, device) -> dict:
     H 4 x D 16, f32, with the K2 and K1 counters set to 0 just before and
     read just after; each result held against the edge-list
     ``sparse_multi_head_attention`` on the card, and the 1,001-node case
-    against the port on the CPU; then the times and peak memory of both
-    forms."""
+    and its backward against the port on the CPU; then the times and peak
+    memory of both forms."""
     from sgp_tpu_torch.ops import (bsr_attention_structure,
                                    bsr_multi_head_attention, bsr_spmm,
                                    sddmm, sparse_multi_head_attention)
@@ -1416,7 +1435,8 @@ def phase9_attention(graphs, ragged, device) -> dict:
     need = sum(qkv[0].shape[1] for _, _, _, qkv in runs)
     print(f"[phase 9] launches on the attention path: {json.dumps(launches)}"
           f" ({len(runs)} calls, {need} heads in all)")
-    assert min(launches.values()) >= need, launches
+    # a head: one K2 for its scores, one K1 for att @ v
+    assert launches == {"bsr_sddmm": need, "bsr_spmm": need}, launches
 
     for (name, g, st, qkv), out in zip(runs, outs):
         n, h, d = qkv[0].shape
@@ -1449,17 +1469,32 @@ def phase9_attention(graphs, ragged, device) -> dict:
         assert err <= TOL_ATT, row
         del edge
 
-    # the ragged case on the card and on the CPU port, same inputs
-    cpu = torch.device("cpu")
-    qkv = attention_inputs(rng, ragged.num_nodes, 2, 40, device)
-    got = bsr_multi_head_attention(
-        *qkv, bsr_attention_structure(ragged, device=device))
-    want = bsr_multi_head_attention(
-        *(t.cpu() for t in qkv), bsr_attention_structure(ragged, device=cpu))
-    cpu_err = rel_err(got.cpu(), want)[1]
-    print(f"[phase 9] card vs CPU port, N {ragged.num_nodes}, H 2 x D 40: "
-          f"max rel err {cpu_err:.3e} (tol {TOL_F32})")
-    assert cpu_err <= TOL_F32
+    # the ragged case and its backward on the card and on the CPU port,
+    # same inputs; the backward launches, a head, K2 once (d_att) and K1
+    # three times (dv, and the SDDMM's dq and dk)
+    arrays = [rng.standard_normal((ragged.num_nodes, 2, 40)).astype(
+        np.float32) for _ in range(4)]
+    res = []
+    for dev in (device, torch.device("cpu")):
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                   for a in arrays[:3])
+        out = bsr_multi_head_attention(
+            q, k, v, bsr_attention_structure(ragged, device=dev))
+        k2, k1 = sddmm.bsr_sddmm_kernel.launches, bsr_spmm.launches
+        (out * torch.as_tensor(arrays[3], device=dev)).sum().backward()
+        if dev == device:
+            torch.cuda.synchronize()
+            bwd = {"bsr_sddmm": sddmm.bsr_sddmm_kernel.launches - k2,
+                   "bsr_spmm": bsr_spmm.launches - k1}
+            assert bwd == {"bsr_sddmm": 2, "bsr_spmm": 6}, bwd
+        res.append([t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)])
+    errs = {name: rel_err(a, b)[1] for name, a, b in zip(
+        ("out", "dq", "dk", "dv"), *res)}
+    print(f"[phase 9] card vs CPU port, N {ragged.num_nodes}, H 2 x D 40, "
+          f"forward and backward (launches {json.dumps(bwd)}): max rel err "
+          + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {TOL_F32})")
+    assert all(v <= TOL_F32 for v in errs.values()), errs
     return launches
 
 

@@ -11,7 +11,9 @@ graph attention, numerically the edge-list
   tensor it launches ``csrc/sddmm.cu`` (CUDA C++ for ``sm_90a``, built with
   ``nvcc`` at first use, loaded with ``ctypes``) or raises; on a CPU tensor
   it runs :func:`bsr_sddmm_plain`. There is no other fallback. Its backward
-  is plain torch on both devices (the JAX package has no backward kernel).
+  is two block SpMMs over the structure (K1 on the card, its plain version
+  on the CPU): ``dQ = dS @ K`` and ``dK = dS^T @ Q``, with no
+  order-dependent sum (the JAX package has no backward kernel).
 - :func:`bsr_masked_softmax` and the block SpMM tail :func:`_block_spmv`,
   which runs through the port's K1 (``ops/bsr_kernel.py::bsr_spmm``) and
   its backward.
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from sgp_tpu_torch.ops import _build
-from sgp_tpu_torch.ops.bsr_kernel import BlockTranspose, bsr_spmm
+from sgp_tpu_torch.ops.bsr_kernel import BlockTranspose, _spmm, bsr_spmm
 from sgp_tpu_torch.ops.scatter import segment_max, segment_sum
 from sgp_tpu_torch.utils.device import resolve_device
 
@@ -113,6 +115,21 @@ def _check_input(name: str, t: torch.Tensor, like: torch.Tensor):
             f"{t.stride()} on {t.device}")
 
 
+def _aligned_rows(x: torch.Tensor) -> torch.Tensor:
+    """x itself where its rows start on 16 bytes (base and row stride), as
+    the kernel's 16-byte copies need; else a copy whose rows are padded with
+    zero columns to a multiple of 16 bytes, viewed back to x's width (D = 1
+    in f32, a head view ``q[:, h]`` of ``[N, 3, 5]``)."""
+    per16 = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and x.stride(0) % per16 == 0:
+        return x
+    n, d = x.shape
+    padded = torch.zeros((n, -(-d // per16) * per16), dtype=x.dtype,
+                         device=x.device)
+    padded[:, :d] = x
+    return padded[:, :d]
+
+
 def bsr_sddmm_kernel(q: torch.Tensor, k: torch.Tensor,
                      block_rows: torch.Tensor, block_cols: torch.Tensor,
                      n_block_rows: int) -> torch.Tensor:
@@ -127,6 +144,7 @@ def bsr_sddmm_kernel(q: torch.Tensor, k: torch.Tensor,
         raise TypeError(f"q and k must be float32 or bfloat16, got {q.dtype}")
     _check_input("q", q, q)
     _check_input("k", k, q)
+    q, k = _aligned_rows(q), _aligned_rows(k)
     n, d = q.shape
     if n > n_block_rows * BLOCK or n_block_rows * BLOCK > 2 ** 31 - 1:
         raise ValueError(f"N = {n} does not fit {n_block_rows} block rows")
@@ -167,41 +185,36 @@ def _sddmm_forward(q, k, block_rows, block_cols, n_block_rows):
     return bsr_sddmm_kernel(q, k, block_rows, block_cols, n_block_rows)
 
 
-def _tile_grad(ds: torch.Tensor, other: torch.Tensor, gather: torch.Tensor,
-               scatter: torch.Tensor, n_block_rows: int, n: int,
-               transpose: bool) -> torch.Tensor:
-    """``sum_g ds[g] @ other_tile[gather[g]]`` (``ds[g]^T`` if ``transpose``)
-    summed into the node tiles ``scatter[g]``: the VJP of the SDDMM."""
-    ot = _pad_tiles(other, n_block_rows)[gather.long()].float()
-    mm = torch.bmm(ds.transpose(1, 2) if transpose else ds, ot)
-    acc = torch.zeros((n_block_rows, BLOCK, other.shape[1]),
-                      dtype=torch.float32, device=ds.device)
-    acc.index_add_(0, scatter.long(), mm)
-    return acc.view(-1, other.shape[1])[:n]
-
-
 class _BSRSDDMM(torch.autograd.Function):
-    """K2 (or its plain version on the CPU) forward; plain torch backward
-    on both devices: ``dQ`` the row sums of ``dS @ K_tile``, ``dK`` the
-    column sums of ``dS^T @ Q_tile``, as ``jax.grad`` of ``bsr_sddmm_xla``
-    gives them."""
+    """K2 (or its plain version on the CPU) forward; the backward is two
+    block SpMMs with the f32 score gradients as tiles (K1 on the card, its
+    plain version on the CPU): ``dQ = A_ds @ K`` over the structure's
+    ``row_ptr``, ``dK = A_ds^T @ Q`` over its transpose with the tiles
+    ``ds[perm]^T``. That is ``jax.grad`` of ``bsr_sddmm_xla``, in f32, cast
+    to the inputs' dtypes; K1 sums in a fixed order, so two calls give the
+    same bits."""
 
     @staticmethod
-    def forward(ctx, q, k, block_rows, block_cols, n_block_rows):
-        ctx.save_for_backward(q, k, block_rows, block_cols)
-        ctx.n_block_rows = n_block_rows
-        return _sddmm_forward(q, k, block_rows, block_cols, n_block_rows)
+    def forward(ctx, q, k, block_rows, block_cols, row_ptr, transpose):
+        ctx.save_for_backward(q, k, block_rows, block_cols, row_ptr)
+        ctx.transpose = transpose
+        return _sddmm_forward(q, k, block_rows, block_cols,
+                              row_ptr.numel() - 1)
 
     @staticmethod
     def backward(ctx, ds):
-        q, k, rows, cols = ctx.saved_tensors
-        nbr, n = ctx.n_block_rows, q.shape[0]
+        q, k, rows, cols, row_ptr = ctx.saved_tensors
+        ds = ds.float().contiguous()
         dq = dk = None
         if ctx.needs_input_grad[0]:
-            dq = _tile_grad(ds, k, cols, rows, nbr, n, False).to(q.dtype)
+            dq = _spmm(ds, cols, row_ptr, rows, k.float()).to(q.dtype)
         if ctx.needs_input_grad[1]:
-            dk = _tile_grad(ds, q, rows, cols, nbr, n, True).to(k.dtype)
-        return dq, dk, None, None, None
+            # the tiles of A_ds^T change every call: not kept in the cache
+            perm, t_cols, t_ptr, t_rows = ctx.transpose.index(
+                cols, rows, row_ptr.numel() - 1)
+            t_tiles = ds[perm].transpose(1, 2).contiguous()
+            dk = _spmm(t_tiles, t_cols, t_ptr, t_rows, q.float()).to(k.dtype)
+        return dq, dk, None, None, None, None
 
 
 def bsr_sddmm(q: torch.Tensor, k: torch.Tensor,
@@ -213,7 +226,7 @@ def bsr_sddmm(q: torch.Tensor, k: torch.Tensor,
         return torch.zeros((0, BLOCK, BLOCK), dtype=torch.float32,
                            device=q.device)
     return _BSRSDDMM.apply(q, k, struct.block_rows, struct.block_cols,
-                           struct.n_block_rows)
+                           struct.row_ptr, struct.transpose)
 
 
 # -- softmax and the block SpMM tail ----------------------------------------

@@ -60,23 +60,29 @@ def test_a_new_header_changes_the_library_path(csrc):
 
 
 def test_tf32_helpers_are_defined_once_and_shared():
-    """K1 (the block SpMM) and the pair tile of K3 and K4 take ``tf32``,
-    ``split``, ``mma``, ``mma3`` and ``allow_smem`` from one header, and no
-    source defines its own copy."""
-    helpers = ("tf32", "split", "mma", "mma3", "allow_smem")
+    """K1 (the block SpMM), K2 (the SDDMM) and the pair tile of K3 and K4
+    take the TF32 helpers (``tf32``, ``split``, their integer forms,
+    ``mma``, ``mma3``), the bf16 ``mma_bf16``, the ``cp.async`` and
+    ``ldmatrix`` helpers and ``allow_smem`` from one header, and no source
+    defines its own copy."""
+    helpers = ("tf32", "split", "tf32_int", "split_int", "mma", "mma3",
+               "mma_bf16", "cp_async16", "cp_async_commit", "cp_async_wait",
+               "ldmatrix_x4", "ldmatrix_x4_trans", "allow_smem")
     header = (_build.CSRC / "mma_common.cuh").read_text()
+    defines = r"^(?:\S.*)?\b(?:void|int|uint32_t)\s+{}\("
     for fn in helpers:
-        assert re.search(rf"\b{fn}\(", header), fn
-    for path in (_build.CSRC / "bsr_spmm.cu", _build.CSRC / "gated_pair.cuh"):
+        assert re.search(defines.format(fn), header, re.M), fn
+    for path in (_build.CSRC / "bsr_spmm.cu", _build.CSRC / "sddmm.cu",
+                 _build.CSRC / "gated_pair.cuh"):
         text = path.read_text()
         assert '#include "mma_common.cuh"' in text, path.name
         for fn in helpers:
-            assert not re.search(
-                rf"^\S.*\b(void|int|uint32_t)\s+{fn}\(", text, re.M), \
+            assert not re.search(defines.format(fn), text, re.M), \
                 (path.name, fn)
 
 
-@pytest.mark.parametrize("name", ["bsr_spmm", "gn_allpairs", "gn_ell"])
+@pytest.mark.parametrize("name", ["bsr_spmm", "gn_allpairs", "gn_ell",
+                                  "sddmm"])
 def test_editing_the_tf32_header_changes_the_library_path(csrc, name):
     before = _build._lib_path(name)
     header = csrc / "mma_common.cuh"

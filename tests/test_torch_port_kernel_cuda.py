@@ -525,6 +525,32 @@ def _attention_graph(rng, n, e, empty_block_row=False):
     return coalesce(Graph(src, dst, rng.random(e).astype(np.float32), n))
 
 
+def _check_sddmm(st, q, k, tol):
+    """K2 once through ``bsr_sddmm`` and once more, against the plain
+    version: one launch, the same bits twice, the padding (rows and columns
+    past N) exactly 0. Returns ``(got, ref)``."""
+    n = q.shape[0]
+    before = sddmm.bsr_sddmm_kernel.launches
+    got = sddmm.bsr_sddmm(q, k, st)
+    torch.cuda.synchronize()
+    assert sddmm.bsr_sddmm_kernel.launches == before + 1
+    again = sddmm.bsr_sddmm_kernel(q, k, st.block_rows, st.block_cols,
+                                   st.n_block_rows)
+    ref = sddmm.bsr_sddmm_plain(q, k, st.block_rows, st.block_cols,
+                                st.n_block_rows)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= tol
+    assert torch.equal(got, again)
+    pad = n % 128
+    if pad:
+        last = st.n_block_rows - 1
+        assert not got[st.block_rows == last, pad:].any()
+        assert not got[st.block_cols == last][:, :, pad:].any()
+    return got, ref
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,e,d,empty", [
@@ -532,6 +558,9 @@ def _attention_graph(rng, n, e, empty_block_row=False):
     (640, 20000, 64, False),           # the slice's D
     (300, 3000, 16, False),
     (128, 500, 1, False),              # one block row, D = 1
+    (700, 9000, 3, False),             # D inside one 16-byte copy
+    (1001, 30000, 128, True),          # Q resident in bf16 only
+    (515, 12000, 200, False),          # Q streamed, a ragged last slab
 ])
 def test_sddmm_kernel_matches_plain(cuda, dtype, tol, n, e, d, empty):
     rng = np.random.default_rng(9)
@@ -539,23 +568,63 @@ def test_sddmm_kernel_matches_plain(cuda, dtype, tol, n, e, d, empty):
                                        device=cuda)
     q, k = (torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32),
                             device=cuda).to(dtype) for _ in range(2))
-    before = sddmm.bsr_sddmm_kernel.launches
-    got = sddmm.bsr_sddmm(q, k, st)
-    torch.cuda.synchronize()
-    assert sddmm.bsr_sddmm_kernel.launches == before + 1
-    ref = sddmm.bsr_sddmm_plain(q, k, st.block_rows, st.block_cols,
-                                st.n_block_rows)
-    assert got.shape == ref.shape and got.dtype == torch.float32
-    assert torch.isfinite(got).all()
-    assert _rel(got, ref) <= tol
-    # every padded entry (rows and columns past N) written, exactly 0
-    pad = n % 128
-    if pad:
-        last = st.n_block_rows - 1
-        assert not got[st.block_rows == last, pad:].any()
-        assert not got[st.block_cols == last][:, :, pad:].any()
+    got, ref = _check_sddmm(st, q, k, tol)
     if empty:
         assert not (st.block_rows == 1).any()
+    if dtype == torch.float32 and d == 64:
+        # a coherent bias (the tensor cores truncate their sums) shows in
+        # the mean error and hides under the max
+        bias = (got - ref).mean() / ref.abs().max()
+        assert abs(bias.item()) <= 1e-7
+
+
+def _block_pattern_graph(rng, n, pattern):
+    """A graph whose stored blocks are exactly ``pattern`` (block row ->
+    block columns): one edge in each, at random nodes of the two blocks."""
+    dst, src = [], []
+    for r, cols in pattern.items():
+        for c in cols:
+            dst.append(r * 128 + rng.integers(0, min(128, n - r * 128)))
+            src.append(c * 128 + rng.integers(0, min(128, n - c * 128)))
+    return coalesce(Graph(np.array(src), np.array(dst), None, n))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [16, 64, 200])
+def test_sddmm_kernel_spreads_any_structure(cuda, dtype, tol, d):
+    """60 block rows, N ragged: rows 0, 10, 11 and 12 store all 60 blocks
+    (each longer than a CTA's range of the 296, so ranges cut inside a
+    row), row 7 none, the rest one block each."""
+    rng = np.random.default_rng(14)
+    n, n_br = 60 * 128 - 37, 60
+    pattern = {r: (range(n_br) if r in (0, 10, 11, 12) else
+                   [int(rng.integers(0, n_br))]) for r in range(n_br)
+               if r != 7}
+    st = sddmm.bsr_attention_structure(_block_pattern_graph(rng, n, pattern),
+                                       device=cuda)
+    assert st.block_rows.numel() == 4 * 60 + 55
+    q, k = (torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32),
+                            device=cuda).to(dtype) for _ in range(2))
+    _check_sddmm(st, q, k, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_sddmm_kernel_unaligned_head_view(cuda, dtype, tol):
+    """``q[:, h]`` of ``[N, 3, 5]``: rows 15 elements apart, starting off
+    16 bytes; the wrapper pads them into an aligned copy, and each head
+    gives the bits of its contiguous copy."""
+    rng = np.random.default_rng(15)
+    n = 700
+    st = sddmm.bsr_attention_structure(_attention_graph(rng, n, 9000),
+                                       device=cuda)
+    q, k = (torch.as_tensor(rng.standard_normal((n, 3, 5)).astype(
+        np.float32), device=cuda).to(dtype) for _ in range(2))
+    for h in range(3):
+        got, _ = _check_sddmm(st, q[:, h], k[:, h], tol)
+        want = sddmm.bsr_sddmm(q[:, h].contiguous(), k[:, h].contiguous(), st)
+        assert torch.equal(got, want)
 
 
 def test_sddmm_kernel_strided_head_view(cuda):
@@ -610,7 +679,9 @@ def _attention_run(dev, g, arrays):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         assert sddmm.bsr_sddmm_kernel.launches - k2 == 2 * h + 1
-        assert bsr_spmm.launches - k1 == 2 * h   # forward and dv
+        # a head: the forward, dv, and the SDDMM's dq and dk; the scores'
+        # own dq and dk
+        assert bsr_spmm.launches - k1 == 4 * h + 2
         edge = sparse_multi_head_attention(
             q, k, v, torch.as_tensor(g.src, device=dev),
             torch.as_tensor(g.dst, device=dev), n)
@@ -629,8 +700,9 @@ def _attention_case():
 
 def test_sddmm_gradients_and_attention_on_the_card(cuda):
     """``bsr_sddmm``'s autograd Function and the whole attention op on CUDA
-    tensors (K2 and K1 forward, K2 and K1 in the SpMM's backward) against the port
-    on the CPU; the op against the edge-list form on the card."""
+    tensors (K2 and K1 forward, K2 and K1 in the SpMM's backward, K1 in the
+    SDDMM's) against the port on the CPU; the op against the edge-list
+    form on the card."""
     g, arrays = _attention_case()
     results = {dev.type: _attention_run(dev, g, arrays)
                for dev in (cuda, torch.device("cpu"))}
@@ -649,8 +721,10 @@ def test_attention_repeated_on_the_card(cuda, monkeypatch):
     buffers it hands the kernels filled with NaN), so that an element no
     thread writes shows as NaN; the other repeats see whatever the caching
     allocator left there. Card results are also held to the first repeat's
-    bits: only the ``index_add_`` of the SDDMM's plain backward and of the
-    softmax's row sums may reorder."""
+    bits: the SDDMM and its backward (K2, and K1 over the structure and its
+    transpose) sum in a fixed order, so ``scores``, ``scores_dq`` and
+    ``scores_dk`` never move; only what lies downstream of the softmax's
+    row sums (an ``index_add_``) may."""
     g, arrays = _attention_case()
     want = _attention_run(torch.device("cpu"), g, arrays)
     empty = torch.empty
@@ -682,6 +756,7 @@ def test_attention_repeated_on_the_card(cuda, monkeypatch):
           + f"; bits moved between repeats: {sorted(moved)}; failures: "
           f"{len(failures)}")
     assert not failures, failures
+    assert not moved & {"scores", "scores_dq", "scores_dk"}, sorted(moved)
 
 
 def test_sddmm_wrapper_rejects_bad_inputs(cuda):

@@ -206,6 +206,54 @@ def test_bsr_multi_head_attention_backward_matches_jax_grad():
         assert _rel(got.numpy(), ref) <= 1e-5
 
 
+@pytest.mark.parametrize("needs", [(True, True), (True, False),
+                                   (False, True)])
+def test_bsr_sddmm_backward_is_two_block_spmms(monkeypatch, needs):
+    """The SDDMM's backward runs the block SpMM's route (K1 on the card,
+    its plain version here) once for each gradient asked for: ``dQ`` over
+    the structure, ``dK`` over its transpose; no ``index_add_`` of its
+    own."""
+    from sgp_tpu_torch.ops import bsr_kernel
+    g = _graph(seed=7)
+    ts = tsddmm.bsr_attention_structure(g, device="cpu")
+    rng = np.random.default_rng(7)
+    q, k = (torch.tensor(_normal(rng, (g.num_nodes, 24)),
+                         requires_grad=r) for r in needs)
+    ds = torch.as_tensor(_normal(rng, (ts.block_rows.numel(), 128, 128)))
+    calls = []
+
+    def counted(blocks, block_cols, row_ptr, block_rows, x):
+        calls.append(torch.equal(row_ptr, ts.row_ptr))
+        return bsr_kernel._spmm(blocks, block_cols, row_ptr, block_rows, x)
+    monkeypatch.setattr(tsddmm, "_spmm", counted)
+    grads = torch.autograd.grad((tsddmm.bsr_sddmm(q, k, ts) * ds).sum(),
+                                [t for t in (q, k) if t.requires_grad])
+    assert len(calls) == sum(needs) == len(grads)
+    # dQ walks the structure's row_ptr, dK the transpose's
+    assert calls == [True] * needs[0] + [False] * needs[1]
+
+
+@pytest.mark.parametrize("shape,view,dtype,copied", [
+    ((700, 3, 5), 1, torch.float32, True),      # rows 60 bytes apart
+    ((700, 1), None, torch.float32, True),      # D = 1: 4 bytes
+    ((700, 4, 16), 2, torch.float32, False),    # 256-byte rows, 128 in
+    ((700, 40), None, torch.bfloat16, False),   # 80-byte rows
+    ((700, 3), None, torch.bfloat16, True),     # 6-byte rows
+])
+def test_aligned_rows_pads_only_unaligned_rows(shape, view, dtype, copied):
+    """K2's copies read rows from 16-byte boundaries: the wrapper keeps an
+    aligned [N, D] as it is and pads the others' rows with zero columns to
+    16 bytes, the same values at the same width."""
+    x = torch.as_tensor(_normal(np.random.default_rng(8), shape)).to(dtype)
+    x = x[:, view] if view is not None else x
+    got = tsddmm._aligned_rows(x)
+    assert got.shape == x.shape and torch.equal(got, x)
+    assert (got.data_ptr() != x.data_ptr()) == copied
+    assert got.data_ptr() % 16 == 0
+    assert got.stride(0) * got.element_size() % 16 == 0
+    assert got.stride(1) == 1
+
+
 @pytest.mark.parametrize("name", ["segment_sum", "segment_mean",
                                   "segment_softmax"])
 @pytest.mark.parametrize("shape", [(60,), (60, 3)])
