@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives four paths of the port on 5,016 synthetic nodes (data and random
+It drives five paths of the port on 5,016 synthetic nodes (data and random
 weights from a seed): SGP serving on the exact 100-nn graph,
 ``OnlineForecaster`` with the BSR propagation operator at the widths of
 ``configs/largescale_100nn/sgp_pv.yaml``; GatedGN training on the 100-nn
@@ -15,8 +15,10 @@ full similarity graph at the PV-US full-graph density (14.75%) through the
 dense all-pairs aggregation, at the widths of
 ``configs/largescale/gatedgn_pv.yaml``; and block-sparse graph attention
 (``bsr_multi_head_attention``) on both graphs, beside the dense
-``TransformerModel`` trained through ``Predictor``. In phases; any failure
-raises and the exit code is not 0:
+``TransformerModel`` trained through ``Predictor``; and the SGP main path,
+the large-scale runner's streaming encode, packed IID training and fused
+evaluation at the ``sgp_pv.yaml`` widths, and the runner itself. In
+phases; any failure raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
 1. build the four kernels, one ``nvcc`` each, in parallel
@@ -73,7 +75,25 @@ raises and the exit code is not 0:
 10. ``TransformerModel`` at the runner's defaults (hidden 64, ff 128, one
    layer and head over time) trained through ``Predictor`` on phase 5's
    data: train steps and ``evaluate`` with finite losses, the first step
-   against the port on the CPU, step times and peak memory.
+   against the port on the CPU, step times and peak memory;
+11. the SGP main path on T 640: ``streaming_encode`` through the BSR
+   kernel (chunks of 64 steps, so each hop is one K1 call at F 8,192; its
+   launches counted) emitting the packed IID rows, held against the same
+   encode through the dense operator, against the port on the CPU (16
+   steps in chunks of 8) and its target and mask lanes against a numpy
+   reference bit for bit; K1 at that width against its plain version,
+   cuSPARSE's BSR product and the dense operator's matmul, with the bound;
+   ``make_fused_iid_multi_step`` (4 calls of 32 steps at batch 4,096, the
+   last under torch.profiler; the first step on fixed draws against the
+   CPU port), ``make_fused_eval`` on the test split (4 batches against the
+   CPU port); then ``run_experiment`` on ``--config
+   largescale_100nn/sgp_pv.yaml --dataset-name synthetic`` for 4 epochs,
+   as parsed (``auto``: the dense operator at this size), with
+   ``operator_mode = "bsr"`` set on the parsed namespace, untrained
+   (``--epochs 0``) and with 1e-5 of the dense encoding's bf16 features one
+   ulp off, at seeds 0, 1 and 2: finite metrics below the untrained
+   model's, K1's launches on the BSR route only, and the routes' test-MAE
+   gap printed beside the one-ulp witness's.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -180,27 +200,29 @@ TOL_SDDMM_BF16 = 2e-2
 TOL_ATT = 1e-4
 ATT_HEADS = ((1, 64), (4, 16))   # H x D of the attention path
 ATT_ITERS = 5                    # launches a timing sample of either form
+# phase 11, the SGP main path at the sgp_pv.yaml widths
+SGP_CHUNK = 64          # the runner's streaming-encode chunk (F 8,192)
+SGP_CPU_STEPS = 16      # encode steps also run by the port on the CPU
+SGP_CPU_CHUNK = 8       # ... in chunks of 8 (F 1,024)
+SGP_CALLS = 4           # multi-step calls of the fused IID trainer
+SGP_STEPS_PER_CALL = 32  # the yaml's batches_epoch
+SGP_EVAL_BATCHES = 4    # test batches of 16 also run on the CPU
+SGP_RUNNER_EPOCHS = 4
+SGP_RUNNER_SEEDS = (0, 1, 2)
+# the share of bf16 features that the dense and BSR routes round the other
+# way (16,539 of 1.64e9: this script on an NVIDIA H100 80GB HBM3, seed 0);
+# the runner's test MAE turns on it, so the routes' MAE gap is printed
+# beside that of the dense route with this share moved by one ulp, and no
+# limit holds it (the encode checks hold the BSR route)
+SGP_FLIP_SHARE = 1e-5
+TOL_EVAL = 1e-4         # fused eval, card vs CPU port, relative
 
 
 def read_flat_yaml(path: Path) -> dict:
-    """The configs are flat ``key: value`` files; read them without
-    PyYAML."""
-    out = {}
-    for line in path.read_text().splitlines():
-        line = line.split("#", 1)[0].strip()
-        if not line:
-            continue
-        key, value = (s.strip() for s in line.split(":", 1))
-        if value in ("true", "false"):
-            out[key] = value == "true"
-        else:
-            for cast in (int, float, str):
-                try:
-                    out[key] = cast(value)
-                    break
-                except ValueError:
-                    pass
-    return out
+    """A config through the port's flat reader (the card's machine has no
+    PyYAML)."""
+    from sgp_tpu_torch.exp.common import load_config
+    return load_config(str(path))
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
@@ -355,7 +377,9 @@ def spilling(tag: str, source: str, *kernels) -> list:
 # 700.00 W). Printed beside this run's; compare within one run only.
 RECORDED_MS = {"bsr_spmm": {"": 0.1904}, "bsr_sddmm": {"": 0.1382},
                "gn_ell": {"fwd": 0.8391, "bwd": 1.1736},
-               "gn_allpairs": {"fwd": 0.7232, "bwd": 3.0078}}
+               "gn_allpairs": {"fwd": 0.7232, "bwd": 3.0078},
+               # K1 at the SGP encode's F 8,192 (phase 11's first run)
+               "bsr_spmm_encode": {"": 10.2367}}
 
 
 def beside_recorded(tag: str, source: str, row: dict):
@@ -863,12 +887,35 @@ def train_steps(pred, loader, device):
     return losses, times, first_grads
 
 
-def idle_share(pred, loader, step_ms: float) -> dict:
-    """Device time over ``PROFILE_STEPS`` train steps under torch.profiler:
-    the union of the device activities' intervals (kernels, copies; not
-    the user annotations) per step, the idle share ``1 - busy / step_ms``
-    against the unprofiled median step, and the device time by name."""
+def device_busy(prof, calls: int) -> dict:
+    """The union of a torch.profiler window's device activities' intervals
+    (kernels, copies; not the user annotations) per call, and the device
+    time by name."""
     from torch.autograd import DeviceType
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    if not spans:
+        return {}
+    busy, end = 0.0, -np.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_busy_ms": busy / 1e3 / calls,
+            "device_activities": len(spans) / calls,
+            "device_ms_by_name": {k[:70]: v / 1e3 / calls for k, v in top}}
+
+
+def idle_share(pred, loader, step_ms: float) -> dict:
+    """Device time over ``PROFILE_STEPS`` train steps under torch.profiler
+    (:func:`device_busy`, per step) and the idle share ``1 - busy /
+    step_ms`` against the unprofiled median step."""
     from torch.profiler import ProfilerActivity, profile
     batches = list(loader)
     pred.train_step(batches[0])          # warm, outside the window
@@ -878,27 +925,13 @@ def idle_share(pred, loader, step_ms: float) -> dict:
         for b in batches[1:PROFILE_STEPS + 1]:
             float(pred.train_step(b))
         torch.cuda.synchronize()
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us()
-    if not spans:
+    busy = device_busy(prof, PROFILE_STEPS)
+    if not busy:
         return {"idle_share": "not measured (no device activity traced)"}
-    busy, end = 0.0, -np.inf
-    for s, e in sorted(spans):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    busy_ms = busy / 1e3 / PROFILE_STEPS
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"idle_share": 1.0 - busy_ms / step_ms,
-            "device_busy_ms_per_step": busy_ms,
-            "device_activities_per_step": len(spans) / PROFILE_STEPS,
-            "device_ms_per_step_by_name": {
-                k[:70]: v / 1e3 / PROFILE_STEPS for k, v in top}}
+    return {"idle_share": 1.0 - busy["device_busy_ms"] / step_ms,
+            "device_busy_ms_per_step": busy["device_busy_ms"],
+            "device_activities_per_step": busy["device_activities"],
+            "device_ms_per_step_by_name": busy["device_ms_by_name"]}
 
 
 @contextlib.contextmanager
@@ -1544,6 +1577,438 @@ def phase10_transformer(raw, graph, device):
                cfg, ds, split, ("transformer",) * 2, TRAIN_STEPS, device)
 
 
+def sgp_setup(raw, graph):
+    """The large-scale runner's data path at the sgp_pv.yaml windows: day
+    encoding as the exogenous input, temporal split, RobustScaler(10, 90)
+    fitted on the train windows' start steps."""
+    from sgp_tpu_torch.data import (RobustScaler, SpatioTemporalDataset,
+                                    TemporalSplitter, Windowing)
+    cfg = read_flat_yaml(CONFIG)
+    ds = SpatioTemporalDataset(
+        raw.target, index=raw.index, mask=raw.mask, graph=graph,
+        covariates={"u": raw.datetime_encoded("day")},
+        windowing=Windowing(window=cfg["window"], horizon=cfg["horizon"],
+                            horizon_lag=cfg["horizon_lag"]))
+    split = TemporalSplitter(0.1, 0.2).split(ds)
+    ds.fit_scaler(RobustScaler(axis=(0, 1), quantile_range=(10., 90.)),
+                  step_index=ds.indices()[split.train])
+    return cfg, ds, split
+
+
+def sgp_encoder(cfg, input_size: int, mode: str, device):
+    """The yaml's encoder, routed as the runner routes its flags."""
+    from sgp_tpu_torch.encode import SGPEncoder
+    from sgp_tpu_torch.exp.common import filter_kwargs
+    return SGPEncoder(**filter_kwargs(SGPEncoder.__init__, {
+        **cfg, "input_size": input_size, "seed": SEED, "operator_mode": mode,
+        "device": device}))
+
+
+def sgp_model(cfg, ds, width: int, u_size: int, device, init_state=None):
+    """The yaml's decoder, as the runner builds it."""
+    import argparse
+    from sgp_tpu_torch.exp.run_traffic_sgp import derive_order
+    from sgp_tpu_torch.models import SGPModel
+    model = SGPModel(
+        input_size=width, order=derive_order(argparse.Namespace(**cfg)),
+        n_nodes=ds.n_nodes, hidden_size=cfg["hidden_size"],
+        mlp_size=cfg["mlp_size"], output_size=ds.n_channels,
+        n_layers=cfg["n_layers"], horizon=ds.windowing.horizon_steps,
+        positional_encoding=cfg["positional_encoding"],
+        emb_size=cfg["emb_size"], exog_size=u_size, resnet=cfg["resnet"],
+        fully_connected=cfg["fully_connected"], dropout=cfg["dropout"],
+        generator=torch.Generator().manual_seed(SEED))
+    if init_state is not None:
+        model.load_state_dict(init_state)
+    return model.to(device)
+
+
+def numpy_lanes(target, mask, h_off) -> np.ndarray:
+    """The packed target and mask lanes from their definition, as uint16:
+    each horizon's f32 target split into its high and low halves, the mask
+    as bf16 1.0 (0x3F80) or 0."""
+    t, n = target.shape[:2]
+    ys = np.stack([np.roll(target, -int(h), 0) for h in h_off], 2)
+    ms = np.stack([np.roll(mask, -int(h), 0) for h in h_off], 2)
+    v = np.ascontiguousarray(ys, np.float32).view(np.uint32).reshape(t, n, -1)
+    return np.concatenate([(v >> 16).astype(np.uint16),
+                           (v & 0xFFFF).astype(np.uint16),
+                           np.where(ms.reshape(t, n, -1), 0x3F80, 0
+                                    ).astype(np.uint16)], -1)
+
+
+def within_bf16_ulp(a: torch.Tensor, b: torch.Tensor, atol: float) -> bool:
+    """Every value of ``a`` within one bf16 ulp of the larger of it and
+    ``b``'s, or within ``atol`` of ``b`` (values near 0, whose ulp is below
+    the f32 routes' own difference)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((a - b).abs() <= torch.clamp(ulp, min=atol)).all())
+
+
+def by_chunks(t_steps: int, fn):
+    """``fn(s, e)`` over SGP_CHUNK-step slices (bounds the temporaries of
+    comparisons over the whole series)."""
+    return [fn(s, min(s + SGP_CHUNK, t_steps))
+            for s in range(0, t_steps, SGP_CHUNK)]
+
+
+def k1_at_encode_width(enc, dense, x, graph, device) -> dict:
+    """K1 at the encode's shape (a hop of the first chunk's states, folded
+    to F = 64 x 128) against its plain version, interleaved CUDA-event
+    times, the bound, cuSPARSE's BSR product and the dense operator's hop
+    (one torch.matmul) on the same states."""
+    from sgp_tpu_torch.encode import build_streaming_ops, reservoir_scan
+    from sgp_tpu_torch.ops import bsr_spmm, bsr_spmm_plain
+    op = build_streaming_ops(enc, graph, device=device)[0]
+    dense_op = build_streaming_ops(dense, graph, device=device)[0]
+    hc = reservoir_scan(enc.reservoir.layers, enc.reservoir.activation,
+                        x[:SGP_CHUNK])                   # [64, N, 128]
+    n = hc.shape[1]
+    folded = hc.transpose(0, 1).reshape(n, -1).contiguous()   # as the op
+    args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+    n_br = op.row_ptr.numel() - 1
+
+    def plain():
+        return bsr_spmm_plain(op.blocks, op.block_cols, op.block_rows, n_br,
+                              folded)
+    got, again, ref = bsr_spmm(*args, folded), bsr_spmm(*args, folded), \
+        plain()
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, ref)
+    bias = ((got - ref).mean() / ref.abs().max()).item()
+    k_ms, p_ms = interleaved_ms(lambda: bsr_spmm(*args, folded), plain,
+                                3, 10, plain_iters=2)
+    f = folded.shape[1]
+    row = dict(case="encode hop", n=n, f=f, nnzb=op.blocks.shape[0],
+               dtype="float32", max_abs_err=abs_err, rel_err=rel,
+               tol=TOL_F32, out_mean_err=bias,
+               bitwise_repeat=torch.equal(got, again), ms=k_ms["median"],
+               q1_q3=[k_ms["q1"], k_ms["q3"]], plain_ms=p_ms["median"],
+               plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
+               dense_tile_gflop=2 * op.blocks.numel() * f / 1e9)
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        *args, folded)) + folded.numel() * 4
+    row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+    row["library_ms"], lib_out = library_bsr(op, folded)
+    if row["library_ms"] is None:
+        row["library_note"] = lib_out
+    else:
+        row["library_max_abs_err"] = rel_err(lib_out, ref)[0]
+    del lib_out
+    row["dense_operator_ms"] = cuda_ms(lambda: dense_op @ hc, 10)
+    row["bsr_operator_ms"] = cuda_ms(lambda: op @ hc, 10)
+    row["dense_operator_rel_err"] = rel_err(
+        (dense_op @ hc).transpose(0, 1).reshape(n, -1), ref)[1]
+    print(f"[phase 11] {json.dumps(row)}")
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert rel <= TOL_F32, f"K1 disagrees with plain at F {f}: {row}"
+    assert row["bitwise_repeat"], f"two calls differ: {row}"
+    assert abs(bias) <= TOL_K1_BIAS, f"K1 output is biased: {row}"
+    assert row["dense_operator_rel_err"] <= TOL_F32, row
+    return row
+
+
+def sgp_train_call_profile(multi, gen, call_ms: float):
+    """A multi-step call under torch.profiler: ``(device busy per call and
+    the idle share against the unprofiled median call, its mean loss)``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss = float(multi(gen))
+        torch.cuda.synchronize()
+    busy = device_busy(prof, 1)
+    if not busy:
+        return {"idle_share": "not measured (no device activity traced)"}, \
+            loss
+    return {"idle_share": 1.0 - busy["device_busy_ms"] / call_ms,
+            **busy}, loss
+
+
+def phase11_sgp(raw, graph, device) -> dict:
+    """The SGP main path at the sgp_pv.yaml widths: the streaming packed
+    encode through K1, packed IID training, the fused evaluation, then the
+    runner end to end on both operator routes."""
+    from sgp_tpu_torch.encode import (encoder_input_array, reservoir_scan,
+                                      rewire_exog_keys, streaming_encode)
+    from sgp_tpu_torch.ops import bsr_spmm
+    from sgp_tpu_torch.train import MaskedMetrics
+    from sgp_tpu_torch.train.fused_window import make_fused_eval
+    from sgp_tpu_torch.train.iid import (make_fused_iid_multi_step,
+                                         make_fused_iid_step, pack_iid_data)
+    from sgp_tpu_torch.train.predictor import clip_by_global_norm_
+    cpu = torch.device("cpu")
+    cfg, ds, split = sgp_setup(raw, graph)
+    x = torch.as_tensor(encoder_input_array(ds, cfg["preprocess_exogenous"]),
+                        device=device)
+    tgt = torch.as_tensor(ds.target, device=device)
+    mask = torch.as_tensor(ds.mask, device=device)
+    h_off = ds.windowing.horizon_offsets()
+    lanes = pack_iid_data(torch.zeros(tgt.shape[:2] + (0,),
+                                      dtype=torch.bfloat16, device=device),
+                          tgt, mask, h_off)
+    enc = sgp_encoder(cfg, x.shape[-1], "bsr", device)
+    d, t_steps = enc.output_size, ds.n_steps
+    n_chunks = -(-t_steps // SGP_CHUNK)
+
+    # 1. the encode, K1's launches counted (the main path)
+    torch.cuda.synchronize()
+    bsr_spmm.launches = 0
+    t0 = time.perf_counter()
+    packed = streaming_encode(enc, x, graph, time_chunk=SGP_CHUNK,
+                              extra_lanes=lanes)
+    torch.cuda.synchronize()
+    encode_ms = [(time.perf_counter() - t0) * 1e3]
+    launches = bsr_spmm.launches
+    hops = cfg["receptive_field"] * (2 if cfg["bidirectional"] else 1)
+    print(f"[phase 11] streaming packed encode: {tuple(packed.shape)} "
+          f"{packed.dtype} ({packed.numel() * 2 / 1e9:.3f} GB), "
+          f"bsr_spmm launches {launches} ({n_chunks} chunks of "
+          f"{SGP_CHUNK} steps x {hops} hops)")
+    assert launches == n_chunks * hops, launches
+    t0 = time.perf_counter()
+    again = streaming_encode(enc, x, graph, time_chunk=SGP_CHUNK,
+                             extra_lanes=lanes)
+    torch.cuda.synchronize()
+    encode_ms.append((time.perf_counter() - t0) * 1e3)
+    same_bits = torch.equal(again.view(torch.int16), packed.view(torch.int16))
+    del again, lanes
+    t0 = time.perf_counter()
+    reservoir_scan(enc.reservoir.layers, enc.reservoir.activation, x)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+
+    # the same encode in f32 through K1 and through the dense operator
+    dense = sgp_encoder(cfg, x.shape[-1], "dense", device)
+    f32 = {}
+    for name, e in (("bsr", enc), ("dense", dense)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f32[name] = streaming_encode(e, x, graph, time_chunk=SGP_CHUNK,
+                                     out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        f32[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    top = max(by_chunks(t_steps, lambda s, e: f32["dense"][s:e].abs().max()
+                        .item()))
+    route_err = max(by_chunks(t_steps, lambda s, e: (
+        f32["bsr"][s:e] - f32["dense"][s:e]).abs().max().item())) / top
+    rounded = all(by_chunks(t_steps, lambda s, e: torch.equal(
+        packed[s:e, :, :d], f32["bsr"][s:e].to(torch.bfloat16))))
+    ulp_ok = all(by_chunks(t_steps, lambda s, e: within_bf16_ulp(
+        packed[s:e, :, :d], f32["dense"][s:e], TOL_F32 * top)))
+    flipped = sum(by_chunks(t_steps, lambda s, e: int((
+        packed[s:e, :, :d] != f32["dense"][s:e].to(torch.bfloat16)).sum())))
+    enc_cpu = sgp_encoder(cfg, x.shape[-1], "bsr", cpu)
+    t0 = time.perf_counter()
+    on_cpu = streaming_encode(enc_cpu, x[:SGP_CPU_STEPS].cpu(), graph,
+                              time_chunk=SGP_CPU_CHUNK,
+                              out_dtype=torch.float32)
+    cpu_s = time.perf_counter() - t0
+    cpu_err = rel_err(f32["bsr"][:SGP_CPU_STEPS].cpu(), on_cpu)[1]
+    lanes_exact = np.array_equal(
+        packed[..., d:].contiguous().view(torch.int16).cpu().numpy().view(
+            np.uint16), numpy_lanes(ds.target, ds.mask, h_off))
+    print(f"[phase 11] encode wall ms (host clock, synchronized): first "
+          f"{encode_ms[0]:.1f}, second {encode_ms[1]:.1f} (same bits: "
+          f"{same_bits}); the reservoir scan alone {scan_ms:.1f} ms; f32 "
+          f"encodes: BSR {f32['bsr_ms']:.1f} ms, dense {f32['dense_ms']:.1f}"
+          f" ms; BSR vs dense route, f32: max rel err {route_err:.3e} (tol "
+          f"{TOL_F32}); packed features = bf16 of the f32 BSR encode bit for"
+          f" bit: {rounded}; within one bf16 ulp of the dense route (or "
+          f"{TOL_F32} of its largest value): {ulp_ok}, {flipped} of "
+          f"{t_steps * ds.n_nodes * d} bf16 features rounded the other way;"
+          f" card vs CPU port, first {SGP_CPU_STEPS} steps in "
+          f"chunks of {SGP_CPU_CHUNK} ({cpu_s:.1f} s on the CPU): max rel "
+          f"err {cpu_err:.3e} (tol {TOL_F32}); target and mask lanes equal "
+          f"the numpy reference bit for bit: {lanes_exact}")
+    assert torch.isfinite(f32["bsr"]).all(), "non-finite encoding"
+    assert route_err <= TOL_F32 and rounded and ulp_ok
+    assert cpu_err <= TOL_F32 and lanes_exact
+    k1 = k1_at_encode_width(enc, dense, x, graph, device)
+    del f32, on_cpu, dense
+    k1.update(launches=launches, encode_ms=encode_ms, scan_ms=scan_ms,
+              k1_share=launches * k1["ms"] / encode_ms[1],
+              scan_share=scan_ms / encode_ms[1])
+    print(f"[phase 11] of the second encode's {encode_ms[1]:.1f} ms: K1 "
+          f"{launches} x {k1['ms']:.4f} ms = {k1['k1_share']:.1%}, the "
+          f"reservoir scan {k1['scan_share']:.1%} (the host launches the "
+          f"scan while the card runs K1, so the shares overlap)")
+    beside_recorded("phase 11", "bsr_spmm_encode", k1)
+
+    # 2. packed IID training
+    rewire_exog_keys(ds, cfg["preprocess_exogenous"], cfg["keep_raw"])
+    u = torch.as_tensor(np.ascontiguousarray(ds.exog_array()),
+                        dtype=torch.float32, device=device)
+    model = sgp_model(cfg, ds, d, u.shape[-1], device)
+    init_state = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=cfg["lr"], eps=1e-8)
+    valid = ds.indices()[split.train]
+    common = dict(batch_size=cfg["batch_size"], grad_clip=GRAD_CLIP)
+    multi = make_fused_iid_multi_step(
+        model, opt, None, tgt, mask, valid, h_off,
+        ds.scaler_params(device=device), u=u, packed=packed,
+        steps_per_call=SGP_STEPS_PER_CALL, **common)
+    draws = multi.single.sample_and_loss.sample(
+        torch.Generator(device=device).manual_seed(SEED + 1))
+    packed_cpu = packed.cpu()
+    firsts = {}
+    for where, dev, m in (
+            ("card", device, model),
+            ("cpu", cpu, sgp_model(cfg, ds, d, u.shape[-1], cpu,
+                                   {k: v.cpu() for k, v in
+                                    init_state.items()}))):
+        step = multi.single if where == "card" else make_fused_iid_step(
+            m, torch.optim.Adam(m.parameters()), None, tgt.cpu(),
+            mask.cpu(), valid, h_off, ds.scaler_params(), u=u.cpu(),
+            packed=packed_cpu, **common)
+        loss = step.sample_and_loss.loss(*(t.to(dev) for t in draws))
+        loss.backward()
+        clip_by_global_norm_([p.grad for p in m.parameters()], GRAD_CLIP)
+        firsts[where] = (float(loss), {k: p.grad.detach().cpu().clone()
+                                       for k, p in m.named_parameters()})
+        m.zero_grad(set_to_none=True)
+    (l_card, g_card), (l_cpu, g_cpu) = firsts["card"], firsts["cpu"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_err = max(rel_err(g_card[k], g_cpu[k])[1] for k in g_card)
+    print(f"[phase 11] card vs CPU port, first step on the same "
+          f"{cfg['batch_size']} draws: loss {l_card:.6f}, rel err "
+          f"{loss_err:.3e} (tol {TOL_LOSS}); clipped gradients max rel err "
+          f"{grad_err:.3e} (tol {TOL_GRAD})")
+    assert loss_err <= TOL_LOSS and grad_err <= TOL_GRAD
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    losses, call_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SGP_CALLS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(multi(gen)))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    median_ms = float(np.median(call_ms[1:]))
+    prof, last = sgp_train_call_profile(multi, gen, median_ms)
+    losses.append(last)
+    train = dict(losses=losses, call_ms=call_ms,
+                 batch_per_s=SGP_STEPS_PER_CALL / median_ms * 1e3,
+                 peak_mib=peak_mib, **prof)
+    print(f"[phase 11] fused IID training, {SGP_CALLS} calls of "
+          f"{SGP_STEPS_PER_CALL} steps (the last under torch.profiler), "
+          f"batch {cfg['batch_size']}: {json.dumps(train)}")
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+
+    # 3. the fused evaluation on the test split, from the packed rows
+    test_items = ds.indices()[split.test]
+    eval_args = (tgt, mask, test_items, ds.windowing.window_offsets(),
+                 h_off)
+    metrics = make_fused_eval(
+        model, packed, *eval_args, ds.scaler_params(device=device),
+        MaskedMetrics.forecasting(), u=u, batch_size=cfg["batch_inference"],
+        x_slice=d)()
+    few = test_items[:SGP_EVAL_BATCHES * cfg["batch_inference"]]
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    few_metrics = {}
+    for where, dev, m, arrays in (
+            ("card", device, model, (packed, tgt, mask, u)),
+            ("cpu", cpu, sgp_model(cfg, ds, d, u.shape[-1], cpu, state),
+             (packed_cpu, tgt.cpu(), mask.cpu(), u.cpu()))):
+        few_metrics[where] = make_fused_eval(
+            m, arrays[0], arrays[1], arrays[2], few, *eval_args[3:],
+            ds.scaler_params(device=dev), MaskedMetrics.forecasting(),
+            u=arrays[3], batch_size=cfg["batch_inference"], x_slice=d)()
+    eval_err = max(abs(few_metrics["card"][k] - v) / abs(v)
+                   for k, v in few_metrics["cpu"].items())
+    print(f"[phase 11] fused eval on the {len(test_items)} test windows: "
+          f"{json.dumps(metrics)}; card vs CPU port on the first "
+          f"{len(few)} ({SGP_EVAL_BATCHES} batches): max rel err "
+          f"{eval_err:.3e} (tol {TOL_EVAL})")
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert eval_err <= TOL_EVAL, few_metrics
+    del packed, packed_cpu, multi, model, opt, x, tgt, mask, u
+    torch.cuda.empty_cache()
+
+    # 4. the runner end to end, as parsed (auto: dense at this size), with
+    # operator_mode = "bsr" set on the parsed namespace, and two witnesses
+    # of the routes' gap: the untrained model (--epochs 0) and the dense
+    # route with a share of its bf16 features moved by one ulp
+    runs = {seed: sgp_runner_runs(seed, device) for seed in SGP_RUNNER_SEEDS}
+    for seed, res in runs.items():
+        print(f"[phase 11] run_experiment seed {seed}: {json.dumps(res)}")
+    gaps = {seed: {k: abs(res[k]["test_mae"] - res["auto"]["test_mae"])
+                   / res["auto"]["test_mae"] for k in ("bsr", "flipped")}
+            for seed, res in runs.items()}
+    by_seed = {k: ", ".join(f"{g[k]:.3e}" for g in gaps.values())
+               for k in ("bsr", "flipped")}
+    print(f"[phase 11] test MAE gap to the dense route at seeds "
+          f"{SGP_RUNNER_SEEDS}: the BSR route {by_seed['bsr']}; the dense "
+          f"route with {SGP_FLIP_SHARE:g} of its bf16 features one ulp off "
+          f"{by_seed['flipped']} (printed, held to no limit)")
+    for res in runs.values():
+        for route, r in res.items():
+            assert all(np.isfinite(r[f"test_{k}"])
+                       for k in ("mae", "mse", "mape")), (route, r)
+            if route != "untrained":
+                assert r["test_mae"] < res["untrained"]["test_mae"], res
+            assert r["launches"] == (n_chunks * hops if route == "bsr"
+                                     else 0), (route, r)
+    k1["train"], k1["runner_gaps"] = train, gaps
+    return k1
+
+
+def sgp_runner_runs(seed: int, device) -> dict:
+    """``run_experiment`` on the sgp_pv.yaml namespace at one seed:
+    ``untrained`` (--epochs 0), ``auto`` (as parsed: dense at this size),
+    ``bsr`` (``operator_mode = "bsr"`` set on the namespace) and
+    ``flipped`` (as ``auto``, its packed encoding with ``SGP_FLIP_SHARE``
+    of the bf16 feature values moved by one ulp, the share of them that
+    the two routes round differently). Each run's test metrics, K1
+    launches and wall time."""
+    import sgp_tpu_torch.exp.run_largescale_sgp as runner
+    from sgp_tpu_torch.exp.common import Experiment
+    from sgp_tpu_torch.ops import bsr_spmm
+    encode = runner.streaming_encode
+
+    def flipped_encode(encoder, *args, **kwargs):
+        packed = encode(encoder, *args, **kwargs)
+        d = encoder.output_size
+        rows = packed.view(torch.int16).view(-1, packed.shape[-1])
+        n_flip = round(SGP_FLIP_SHARE * rows.shape[0] * d)
+        gen = torch.Generator(device=packed.device).manual_seed(seed)
+        at = torch.randint(0, rows.shape[0] * d, (n_flip,), generator=gen,
+                           device=packed.device)
+        rows[at // d, at % d] ^= 1   # the lowest mantissa bit: one ulp
+        return packed
+
+    def bsr_route(args):
+        args.operator_mode = "bsr"
+        return runner.run_experiment(args)
+
+    argv = ["--config", str(CONFIG), "--dataset-name", "synthetic",
+            "--synthetic-nodes", str(N_NODES), "--synthetic-steps",
+            str(N_STEPS), "--seed", str(seed), "--device", str(device)]
+    trained = ["--epochs", str(SGP_RUNNER_EPOCHS)]
+    out = {}
+    for route, fn, flags in (
+            ("untrained", runner.run_experiment, ["--epochs", "0"]),
+            ("auto", runner.run_experiment, trained),
+            ("bsr", bsr_route, trained),
+            ("flipped", runner.run_experiment, trained)):
+        bsr_spmm.launches = 0
+        t0 = time.perf_counter()
+        if route == "flipped":
+            runner.streaming_encode = flipped_encode
+        try:
+            res = Experiment(
+                fn, runner.configure_parser_largescale()).run(argv + flags)
+        finally:
+            runner.streaming_encode = encode
+        out[route] = dict(res, launches=bsr_spmm.launches,
+                          wall_s=time.perf_counter() - t0)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -1594,9 +2059,14 @@ def main():
         ("100-nn", graph), ("100-nn rcm", rcm), ("full", full)], ragged,
         device)
     timed("phase 10", phase10_transformer, ds, graph, device)
+    sgp = timed("phase 11", phase11_sgp, ds, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
+    # the SGP main path's shape: a hop of the streaming encode, F 8,192
+    kernels[0]["encode"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", sgp["launches"], sgp)
     for name, line, half in (("gn_ell_fwd", 104, "fwd"),
                              ("gn_ell_bwd", 114, "bwd")):
         kernels.append(kernel_entry(

@@ -37,6 +37,17 @@ class ScalerParams:
     def inverse_transform(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale + self.bias
 
+    def index_nodes_iid(self, node_index: torch.Tensor) -> "ScalerParams":
+        """Per-(time, node)-sample params for IID batches: node-resolved
+        params ``[..., N, C]`` become ``[B, 1, C]`` to broadcast against
+        ``y [B, H, C]``; params shared by all nodes stay as they are."""
+        def maybe_take(p):
+            if p.ndim >= 2 and p.shape[-2] > 1:
+                flat = p.reshape(p.shape[-2], p.shape[-1])
+                return flat[node_index][:, None, :]
+            return p
+        return ScalerParams(maybe_take(self.bias), maybe_take(self.scale))
+
 
 class Scaler:
     """Base linear scaler; subclasses define :meth:`fit`."""

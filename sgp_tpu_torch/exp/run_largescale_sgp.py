@@ -1,0 +1,312 @@
+"""SGP on large-scale datasets with fused IID (time, node) sampling.
+
+Counterpart of the default branch of ``sgp_tpu/exp/run_largescale_sgp.py``:
+k-nn connectivity, ``RobustScaler(10, 90)``, the whole-series encode, IID
+decoder training on the card (``train/iid.py``) for ``epochs x
+batches_epoch`` steps with the train loss monitored, restartable
+checkpoints, and a fused evaluation of the best weights on the test split.
+
+By default the encoder emits the packed IID training layout directly
+(``streaming_encode`` with the target and mask lanes appended), so the
+unpacked encoding never exists; ``--packed-gather false``, another
+encoder or a non-bf16 ``--encode-dtype`` take the ``encode_dataset`` path.
+The stratified trainer (``--iid-stratified``), the vmapped search
+(``--search-lr``, ``--search-seeds``) and ``--data-sharding nodes`` are not
+ported yet (ROADMAP A7, A10).
+
+Usage::
+
+    python -m sgp_tpu_torch.exp.run_largescale_sgp \\
+        --config largescale_100nn/sgp_pv.yaml --dataset-name synthetic \\
+        --synthetic-nodes 5016 --synthetic-steps 640 --epochs 4
+    # on the CPU: add --device cpu
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from sgp_tpu_torch.data import (RobustScaler, SpatioTemporalDataset,
+                                Windowing)
+from sgp_tpu_torch.encode import (encode_dataset, encoder_input_array,
+                                  get_encoder_class, rewire_exog_keys,
+                                  streaming_encode)
+from sgp_tpu_torch.encode.encode_dataset import torch_dtype
+from sgp_tpu_torch.exp.common import (Experiment, dataset_kwargs,
+                                      filter_kwargs, get_dataset,
+                                      get_splitter, str2bool)
+from sgp_tpu_torch.exp.run_traffic_sgp import configure_parser, derive_order
+from sgp_tpu_torch.models import SGPModel
+from sgp_tpu_torch.train import MaskedMetrics
+from sgp_tpu_torch.train.checkpoint import (AsyncCheckpointer,
+                                            restore_run_state)
+from sgp_tpu_torch.train.fused_window import make_fused_eval
+from sgp_tpu_torch.train.iid import (fused_iid_inputs,
+                                     make_fused_iid_multi_step,
+                                     pack_iid_data)
+from sgp_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+def _unported(args):
+    if getattr(args, "iid_stratified", False):
+        raise NotImplementedError(
+            "--iid-stratified (the stratified trainer) is not ported yet "
+            "(ROADMAP A7)")
+    if getattr(args, "search_lr", None) or getattr(args, "search_seeds",
+                                                   None):
+        raise NotImplementedError(
+            "--search-lr/--search-seeds (the vmapped trial search) is not "
+            "ported yet (ROADMAP A7)")
+    if getattr(args, "data_sharding", "none") != "none":
+        raise NotImplementedError(
+            "--data-sharding (multi-device training) is not ported yet "
+            "(ROADMAP A10)")
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _state_copy(model) -> dict:
+    """The weights as they are now: the optimizer updates the parameters
+    in place, so a reference would follow them."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def run_experiment(args):
+    _unported(args)
+    device = resolve_device(getattr(args, "device", None))
+    dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
+    exog = dataset.datetime_encoded("day")
+    graph = dataset.get_connectivity(
+        knn=args.adj_knn, threshold=None, include_self=False)
+    logger.info(f"graph: {graph.num_nodes} nodes, {graph.num_edges} edges")
+    ds = SpatioTemporalDataset(
+        dataset.target, index=dataset.index, mask=dataset.mask,
+        graph=graph, covariates={"u": exog},
+        windowing=Windowing(window=args.window, horizon=args.horizon,
+                            horizon_lag=args.horizon_lag))
+    split = get_splitter(args.dataset_name, args.val_len,
+                         args.test_len).split(ds)
+    ds.fit_scaler(RobustScaler(axis=(0, 1), quantile_range=(10., 90.)),
+                  step_index=ds.indices()[split.train])
+    order = derive_order(args)
+    est_gb = (ds.n_steps * ds.n_nodes * order * args.reservoir_size
+              * 4 / 2 ** 30)
+    logger.info(f"encoding memory estimate: {est_gb:.2f} GB (f32)")
+
+    input_size = ds.n_channels + (exog.shape[-1]
+                                  if args.preprocess_exogenous else 0)
+    encoder_cls = get_encoder_class(args.encoder_name)
+    encoder = encoder_cls(**filter_kwargs(encoder_cls.__init__, {
+        **vars(args), "input_size": input_size, "seed": args.seed,
+        "device": device}))
+
+    # The streaming-packed path: the encoder writes the packed IID rows
+    # ([enc | y_hi | y_lo | mask] bf16) directly, so the unpacked encoding
+    # never exists and a step gathers one row a sample.
+    streaming_packed = (
+        getattr(args, "packed_gather", True)
+        and args.encoder_name == "sgp"
+        and (args.encode_dtype or "bfloat16") == "bfloat16")
+    if streaming_packed:
+        x_series = torch.as_tensor(
+            encoder_input_array(ds, args.preprocess_exogenous),
+            device=device)
+        tgt = torch.as_tensor(ds.target, device=device)
+        mask = torch.as_tensor(ds.mask, device=device)
+        h_off = ds.windowing.horizon_offsets()
+        lanes = pack_iid_data(
+            torch.zeros(tgt.shape[:2] + (0,), dtype=torch.bfloat16,
+                        device=device), tgt, mask, h_off)
+        t_enc = time.time()
+        packed = streaming_encode(
+            encoder, x_series, ds.graph,
+            time_chunk=args.encode_time_chunk or 64, extra_lanes=lanes,
+            precision=getattr(args, "encode_precision", "highest"))
+        _sync(device)
+        logger.info(f"Streaming packed encode in "
+                    f"{time.time() - t_enc:.1f}s -> {tuple(packed.shape)} "
+                    f"{packed.dtype}")
+        del x_series, lanes
+        rewire_exog_keys(ds, args.preprocess_exogenous, args.keep_raw)
+        u_arr = ds.exog_array()
+        u = None if u_arr is None else torch.as_tensor(
+            np.ascontiguousarray(u_arr), dtype=torch.float32, device=device)
+        enc = None
+        x_size = encoder.output_size
+    else:
+        store_dtype = args.encode_dtype or "bfloat16"
+        encode_dataset(ds, encoder,
+                       encode_exogenous=args.preprocess_exogenous,
+                       keep_raw=args.keep_raw, store_dtype=store_dtype,
+                       time_chunk=args.encode_time_chunk or 128,
+                       device=device)
+        enc, tgt, mask, _valid_all, h_off, u = fused_iid_inputs(
+            ds, device=device)
+        # the dtype the encode stored, as the JAX package keeps it on
+        # the device (the host copy holds its values in f32)
+        enc = enc.to(torch_dtype(store_dtype))
+        x_size = enc.shape[-1]
+        packed = getattr(args, "packed_gather", True)
+    u_size = 0 if u is None else int(u.shape[-1])
+
+    # train on the train slice only
+    train_steps = ds.indices()[split.train]
+    model = SGPModel(
+        input_size=x_size, order=order, n_nodes=ds.n_nodes,
+        hidden_size=args.hidden_size, mlp_size=args.mlp_size,
+        output_size=ds.n_channels, n_layers=args.n_layers,
+        horizon=ds.windowing.horizon_steps,
+        positional_encoding=args.positional_encoding,
+        emb_size=args.emb_size, exog_size=u_size, resnet=args.resnet,
+        fully_connected=args.fully_connected, dropout=args.dropout,
+        generator=torch.Generator().manual_seed(args.seed)).to(device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    batches_epoch = args.batches_epoch if args.batches_epoch > 0 else 32
+    scaler = ds.scaler_params(device=device)
+    step = make_fused_iid_multi_step(
+        model, optimizer, enc, tgt, mask, train_steps, h_off, scaler, u=u,
+        batch_size=args.batch_size, scale_target=args.scale_target,
+        steps_per_call=batches_epoch, packed=packed,
+        gather_block=getattr(args, "gather_block", 1),
+        grad_clip=args.grad_clip_val)
+    # full-graph evaluation on the test split; the packed rows carry the
+    # features first, so eval slices them out of the one packed array
+    test_eval_fn = make_fused_eval(
+        model, packed if streaming_packed else enc, tgt, mask,
+        ds.indices()[split.test], ds.windowing.window_offsets(), h_off,
+        scaler, MaskedMetrics.forecasting(), u=u,
+        batch_size=args.batch_inference or 16,
+        x_slice=x_size if streaming_packed else None)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    best_state, fit_state = _run_restartable_fit(
+        args, model, optimizer, step, generator, batches_epoch)
+    model.load_state_dict(best_state)
+    results = {f"test_{k}": v for k, v in test_eval_fn().items()}
+    results["train_time_s"] = fit_state["train_time_s"]
+    logger.info(f"test: {results}")
+    return results
+
+
+def _train_config(args, batches_epoch):
+    """Training hyperparameters recorded in checkpoints and asserted on
+    resume: a resume under other settings is not the run it continues."""
+    return {"lr": args.lr, "batch_size": args.batch_size,
+            "batches_epoch": batches_epoch,
+            "grad_clip_val": args.grad_clip_val, "seed": args.seed,
+            "scale_target": bool(args.scale_target)}
+
+
+def _run_restartable_fit(args, model, optimizer, step, generator,
+                         batches_epoch):
+    """The fit loop with restartable checkpoints: every
+    ``--checkpoint-every`` epochs the current weights, optimizer state,
+    generator state, torch's default generators' states (dropout's),
+    best-so-far weights and progress go into one atomic file; ``--resume``
+    continues the exact run (the same generator streams as an
+    uninterrupted run; model and train configs asserted). Returns
+    ``(best_state, {"train_time_s": ..., "best_loss": ...})``, the time
+    including the epochs before a resume."""
+    ckpt_every = getattr(args, "checkpoint_every", 0)
+    ckpt_path = getattr(args, "checkpoint_path", "") \
+        or f"{args.logdir}/train_state.ckpt"
+    tc = _train_config(args, batches_epoch)
+    start_epoch, best_loss, elapsed = 0, np.inf, 0.0
+    best_state = _state_copy(model)
+    if getattr(args, "resume", False) and os.path.exists(ckpt_path):
+        start_epoch, best_loss, best_state, elapsed = restore_run_state(
+            ckpt_path, model, optimizer, generator, train_config=tc)
+        logger.info(f"resumed from {ckpt_path} at epoch {start_epoch} "
+                    f"(best_loss={best_loss:.4f})")
+
+    # fault injection for restart testing: SGP_TPU_FAULT="epoch:N,
+    # marker:PATH" kills the process at the start of epoch N unless PATH
+    # exists (created on the way out, so it fires once across restarts)
+    ckpt = AsyncCheckpointer()
+    fault = os.environ.get("SGP_TPU_FAULT", "")
+    fault_epoch, fault_marker = -1, ""
+    if fault:
+        parts = dict(p.split(":", 1) for p in fault.split(","))
+        fault_epoch, fault_marker = int(parts["epoch"]), parts["marker"]
+
+    t0 = time.time()
+    for epoch in range(start_epoch, args.epochs):
+        if epoch == fault_epoch and not os.path.exists(fault_marker):
+            with open(fault_marker, "w") as fp:
+                fp.write(str(epoch))
+            logger.info(f"FAULT INJECTION: dying at epoch {epoch}")
+            os._exit(13)
+        t_ep = time.time()
+        loss = float(step(generator))   # sync: the epoch really finished
+        dt_ep = time.time() - t_ep
+        if loss < best_loss:
+            best_loss, best_state = loss, _state_copy(model)
+        if epoch % max(1, args.epochs // 20) == 0:
+            bps = (batches_epoch * (epoch + 1 - start_epoch)
+                   / max(time.time() - t0, 1e-9))
+            logger.info(f"epoch {epoch}: train_mae={loss:.4f} "
+                        f"({bps:.1f} batch/s) ({dt_ep:.2f}s)")
+        if ckpt_every and (epoch + 1) % ckpt_every == 0:
+            ckpt.save(ckpt_path, model, optimizer, generator, epoch,
+                      best_loss, best_state,
+                      elapsed_s=elapsed + time.time() - t0,
+                      train_config=tc)
+    ckpt.wait()   # the last checkpoint is durable before we report
+    return best_state, {"train_time_s": elapsed + time.time() - t0,
+                        "best_loss": best_loss}
+
+
+def configure_parser_largescale():
+    parser = configure_parser(data_sharding_choices=None)
+    parser.add_argument("--iid-stratified", type=str2bool, default=False)
+    parser.add_argument("--times-per-batch", type=int, default=32)
+    parser.add_argument("--data-sharding", type=str, default="none",
+                        choices=("none", "nodes"),
+                        help="'nodes': multi-device training, not ported "
+                             "yet (ROADMAP A10)")
+    parser.add_argument("--checkpoint-every", type=int, default=0,
+                        help="save weights, optimizer, generator and best "
+                             "every N epochs (atomic; 0 disables)")
+    parser.add_argument("--checkpoint-path", type=str, default="",
+                        help="train-state path (default: "
+                             "<logdir>/train_state.ckpt; pass an explicit "
+                             "path to resume across runs)")
+    parser.add_argument("--resume", type=str2bool, default=False,
+                        help="continue from --checkpoint-path with the "
+                             "exact generator stream of the uninterrupted "
+                             "run")
+    parser.add_argument("--search-lr", type=str, default="",
+                        help="vmapped trial search: not ported yet "
+                             "(ROADMAP A7)")
+    parser.add_argument("--search-seeds", type=str, default="",
+                        help="vmapped trial search: not ported yet "
+                             "(ROADMAP A7)")
+    parser.add_argument("--encode-precision", type=str, default="highest",
+                        choices=("highest", "default"),
+                        help="precision of the streaming K-hop "
+                             "propagation; 'default' stores BSR tiles in "
+                             "bf16")
+    parser.add_argument("--gather-block", type=int, default=1,
+                        help="G>1: sample batch/G (time, node-block) "
+                             "pairs and gather G consecutive packed rows "
+                             "a draw; requires G | batch and G | n_nodes "
+                             "and the packed layout")
+    parser.add_argument("--packed-gather", type=str2bool, default=True,
+                        help="pack features, targets and masks into one "
+                             "bf16 row per (t, n): one gather a sample")
+    return parser
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    Experiment(run_experiment, configure_parser_largescale()).run()

@@ -4,7 +4,8 @@ Counterpart of ``sgp_tpu/ops/spmm.py``, with the same three representations
 and the same ``build_operator`` thresholds:
 
 - :class:`DenseOperator` — ``[N, N]`` on the device; ``A @ x`` is one
-  ``torch.matmul`` in full f32 (the package turns TF32 off).
+  ``torch.matmul`` in f32 (the package turns TF32 off), on operands
+  rounded to bf16 at ``precision="default"``.
 - :class:`BSROperator` — 128x128 block-sparse rows; ``A @ x`` is the CUDA
   kernel of ``ops/bsr_kernel.py`` on the card and its plain version on the
   CPU, differentiable on both. The device decides; there is no
@@ -27,20 +28,29 @@ from sgp_tpu_torch.utils.device import resolve_device
 
 
 class DenseOperator:
-    """Dense ``A[dst, src]``; propagation is one f32 matmul."""
+    """Dense ``A[dst, src]``; propagation is one f32 matmul. ``precision``
+    is the JAX operator's: ``"highest"`` multiplies in full f32;
+    ``"default"`` as one bf16 pass does, both operands rounded to bf16 and
+    their products summed in f32 (the BSR operator's bf16 tiles)."""
 
-    def __init__(self, mat: torch.Tensor):
-        self.mat = mat
+    def __init__(self, mat: torch.Tensor, precision: str = "highest"):
+        if precision not in ("highest", "default"):
+            raise ValueError(f"precision must be 'highest' or 'default', "
+                             f"got {precision!r}")
+        self.mat = (mat.to(torch.bfloat16).to(mat.dtype)
+                    if precision == "default" else mat)
+        self.precision = precision
 
     @property
     def num_nodes(self) -> int:
         return self.mat.shape[0]
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(self.mat, x.to(self.mat.dtype)).to(x.dtype)
+        xm = x.to(torch.bfloat16) if self.precision == "default" else x
+        return torch.matmul(self.mat, xm.to(self.mat.dtype)).to(x.dtype)
 
     def transpose(self) -> "DenseOperator":
-        return DenseOperator(self.mat.T.contiguous())
+        return DenseOperator(self.mat.T.contiguous(), self.precision)
 
 
 class COOOperator:
@@ -97,6 +107,12 @@ class BSROperator:
     def num_nodes(self) -> int:
         return self._num_nodes
 
+    @property
+    def precision(self) -> str:
+        """bf16 tiles are the JAX operator's ``precision="default"``."""
+        return "default" if self.blocks.dtype == torch.bfloat16 \
+            else "highest"
+
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         args = (self.blocks, self.block_cols, self.row_ptr, self.block_rows)
         if x.ndim == 2:
@@ -134,8 +150,9 @@ def build_operator(g: Graph, mode: str = "auto", dtype=torch.float32,
 
     ``auto``: dense up to a 512 MB ``[N, N]`` f32 operator, then BSR when
     under half the block positions are stored, COO otherwise.
-    ``precision='default'`` stores BSR tiles in bf16 (accumulation stays
-    f32), as in the JAX package; the dense operator always runs in f32.
+    ``precision='default'`` stores BSR tiles in bf16 and rounds the
+    dense operator's operands to bf16 (accumulation stays f32), as in the
+    JAX package.
     """
     if mode == "auto":
         dense_bytes = g.num_nodes * g.num_nodes * np.dtype(np.float32).itemsize
@@ -155,7 +172,7 @@ def build_operator(g: Graph, mode: str = "auto", dtype=torch.float32,
         mat = torch.zeros((g.num_nodes, g.num_nodes), dtype=dtype,
                           device=device)
         mat.index_put_((dst, src), w, accumulate=True)
-        return DenseOperator(mat)
+        return DenseOperator(mat, precision)
     if mode == "bsr":
         blocks, cols, ptr = g.to_bsr(BSROperator.BLOCK)
         bsr_dtype = (torch.bfloat16 if precision == "default"

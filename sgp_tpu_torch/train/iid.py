@@ -1,0 +1,317 @@
+"""Fused IID decoder training.
+
+Counterpart of ``sgp_tpu/train/iid.py``: a training step draws uniform
+(time, node) pairs, gathers their encoder features, horizon targets and
+masks from arrays that live on the device, and runs the forward, the
+masked loss, the backward, a clip by global norm and Adam, with nothing
+read back to the host. PyTorch runs eagerly, so the multi-step call is a
+Python loop over steps (the JAX package's ``lax.scan``) whose losses stay
+on the device until the caller reads their mean.
+
+Sampling draws from an explicit ``torch.Generator`` on the data's device;
+its stream is not JAX's, so the parity tests feed the gather-and-loss core
+(``sample_and_loss.loss``) the JAX package's draws. The JAX package's
+``take_time_rows`` (a TPU gather trick) is plain indexing here; its
+``pipeline`` option (a TPU scheduling experiment), the stratified trainer
+and ``compute_dtype`` are not ported.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from sgp_tpu_torch.data.scalers import ScalerParams
+from sgp_tpu_torch.data.spatiotemporal import SpatioTemporalDataset
+from sgp_tpu_torch.train.metrics import _METRIC_FNS, _masked_reduce
+from sgp_tpu_torch.train.predictor import clip_by_global_norm_
+from sgp_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+def _host(a) -> np.ndarray:
+    """A numpy copy of an index vector given as a tensor or array-like."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _f32_to_bf16_pair(y: torch.Tensor):
+    """Bit-exact split of f32 into two bf16 lanes (high and low 16 bits):
+    the int16 view of a little-endian f32 holds its low half first."""
+    halves = y.float().contiguous().view(torch.int16).reshape(
+        y.shape + (2,))
+    lo = halves[..., 0].contiguous().view(torch.bfloat16)
+    hi = halves[..., 1].contiguous().view(torch.bfloat16)
+    return hi, lo
+
+
+def _bf16_pair_to_f32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    halves = torch.stack([lo.contiguous().view(torch.int16),
+                          hi.contiguous().view(torch.int16)], dim=-1)
+    return halves.view(torch.float32)[..., 0]
+
+
+def pack_iid_data(encoded: torch.Tensor,    # [T, N, D] (any float dtype)
+                  target: torch.Tensor,     # [T, N, C] f32
+                  mask: torch.Tensor,       # [T, N, C] bool
+                  horizon_offsets) -> torch.Tensor:
+    """Pack features, horizon-shifted targets and masks into ONE bf16 row
+    per (t, n), so that a training step gathers one row per sample.
+
+    Layout per row: ``[enc(D) | y_hi(H*C) | y_lo(H*C) | mask(H*C)]``, the
+    f32 targets split bit-exactly into two bf16 lanes. Rows whose horizon
+    would wrap past T hold rolled values that ``valid_starts`` never
+    samples. Returns ``[T, N, D + 3*H*C]`` in bf16."""
+    h_np = _host(horizon_offsets).astype(np.int64)
+    t_steps, n_nodes = target.shape[:2]
+    ys = torch.stack([torch.roll(target, -int(h), 0) for h in h_np],
+                     dim=2)                          # [T, N, H, C]
+    ms = torch.stack([torch.roll(mask, -int(h), 0) for h in h_np], dim=2)
+    hi, lo = _f32_to_bf16_pair(ys)
+    parts = [encoded.to(torch.bfloat16),
+             hi.reshape(t_steps, n_nodes, -1),
+             lo.reshape(t_steps, n_nodes, -1),
+             ms.reshape(t_steps, n_nodes, -1).to(torch.bfloat16)]
+    return torch.cat(parts, dim=-1)
+
+
+def unpack_iid_rows(rows: torch.Tensor, feat: int, n_horizon: int,
+                    n_channels: int):
+    """Split gathered packed rows ``[B, D+3HC]`` back into ``x [B, D]``
+    bf16, ``y [B, H, C]`` f32 (bit-exact) and ``m [B, H, C]`` bool."""
+    b = rows.shape[0]
+    hc = n_horizon * n_channels
+    x = rows[:, :feat]
+    hi = rows[:, feat:feat + hc]
+    lo = rows[:, feat + hc:feat + 2 * hc]
+    m = rows[:, feat + 2 * hc:feat + 3 * hc]
+    y = _bf16_pair_to_f32(hi, lo).reshape(b, n_horizon, n_channels)
+    return x, y, (m > 0.5).reshape(b, n_horizon, n_channels)
+
+
+def _packed_dtype_ok(encoded) -> bool:
+    """Only bf16 encodings may be packed: the packed row stores features
+    as bf16 lanes, so any other dtype would change precision."""
+    if encoded is None or encoded.dtype == torch.bfloat16:
+        return True
+    logger.info("packed=True ignored: encoding is %s (packing would change "
+                "its precision to bf16); using the unpacked gather path",
+                encoded.dtype)
+    return False
+
+
+def _build_iid_sample_and_loss(model, encoded, target, mask,
+                               valid_starts, horizon_offsets,
+                               scaler: ScalerParams, u=None,
+                               batch_size: int = 4096, loss: str = "mae",
+                               scale_target: bool = False,
+                               packed=False, compute_dtype=None,
+                               gather_block: int = 1, node_perm=None):
+    """The sampling and loss core of the fused steps: returns ``(data,
+    sample_and_loss)``, where ``sample_and_loss(generator)`` is the masked
+    loss of one freshly sampled batch (with autograd), in two phases:
+
+    - ``sample_and_loss.sample(generator) -> (t, n)``: the draws, time
+      steps ``t`` from ``valid_starts`` and nodes ``n`` (with
+      ``gather_block=G > 1``: ``batch/G`` draws of (time, node block));
+    - ``sample_and_loss.loss(t, n)``: the gather, forward and masked loss
+      on given draws, which the parity tests take from the JAX package.
+
+    ``packed`` True packs the (bf16) encoding with :func:`pack_iid_data`; a
+    tensor is taken as the prebuilt packed layout (``encoded`` may then be
+    None). ``gather_block=G`` gathers G consecutive packed rows a draw
+    (cluster sampling over a fixed node partition; ``G`` must divide the
+    batch and the node count); ``node_perm [N]`` declares that the packed
+    node axis is ordered by that permutation, and maps the sampled
+    positions back to node ids. Packed rows reach the model as f32, as
+    flax promotes bf16 inputs against f32 parameters."""
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype (bf16 decoder steps) is not ported yet "
+            "(ROADMAP A5)")
+    loss_pt = _METRIC_FNS[loss]
+    h_np = _host(horizon_offsets)
+    n_h = int(h_np.shape[0])
+    n_c = target.shape[-1]
+    if isinstance(packed, torch.Tensor):
+        big, packed = packed, True           # prebuilt packed layout
+    elif packed and not _packed_dtype_ok(encoded):
+        packed, big = False, None
+    elif packed:
+        big = pack_iid_data(encoded, target, mask, h_np)
+    else:
+        big = None
+    device = (encoded if encoded is not None else big).device
+    n_nodes = (encoded if encoded is not None else big).shape[1]
+    feat = encoded.shape[-1] if encoded is not None \
+        else big.shape[-1] - 3 * n_h * n_c
+    if gather_block > 1:
+        if not packed:
+            raise ValueError("gather_block > 1 requires the packed "
+                             "layout (packed=True or a prebuilt array)")
+        if batch_size % gather_block or n_nodes % gather_block:
+            raise ValueError(
+                f"gather_block={gather_block} must divide both "
+                f"batch_size={batch_size} and n_nodes={n_nodes}")
+    elif node_perm is not None:
+        raise ValueError("node_perm only applies to the blocked gather "
+                         "(gather_block > 1); the per-pair IID path "
+                         "samples nodes uniformly already")
+    valid = torch.as_tensor(valid_starts, device=device)
+    h_off = torch.as_tensor(h_np, device=device)
+    perm = None if node_perm is None else torch.as_tensor(
+        node_perm, device=device)
+    data = ((big, valid) if packed else
+            (encoded, target, mask, valid, h_off)) + \
+        ((u,) if u is not None else ())
+    g = gather_block
+    draws = batch_size // g
+
+    def sample(generator: torch.Generator):
+        """Uniform draws: ``t`` from the valid starts, ``n`` a node (a
+        node block when ``gather_block > 1``)."""
+        t = valid[torch.randint(len(valid), (draws,), generator=generator,
+                                device=device)]
+        n = torch.randint(n_nodes // g, (draws,), generator=generator,
+                          device=device)
+        return t, n
+
+    def gather(t, n):
+        """``(x, y, m, node ids, u rows)`` of the draws."""
+        if g > 1:
+            width = big.shape[-1]
+            blocks = big.reshape(-1, g, width)        # [T*N/g, g, W]
+            rows = blocks[t * (n_nodes // g) + n].reshape(batch_size, width)
+            n = (n[:, None] * g + torch.arange(g, device=device)).reshape(-1)
+            if perm is not None:
+                # sampled positions in the shuffled layout -> node ids
+                n = perm[n]
+            t = t.repeat_interleave(g)
+            x, y, m = unpack_iid_rows(rows, feat, n_h, n_c)
+        elif packed:
+            x, y, m = unpack_iid_rows(big[t, n], feat, n_h, n_c)
+        else:
+            steps = t[:, None] + h_off[None, :]
+            x = encoded[t, n]                          # [B, D]
+            y = target[steps, n[:, None]]              # [B, H, C]
+            m = mask[steps, n[:, None]]
+        u_rows = None
+        if u is not None:
+            # node-level [T, N, F] (e.g. keep_raw) or global [T, F]
+            u_rows = u[t, n] if u.ndim == 3 else u[t]
+        return x, y, m, n, u_rows
+
+    def loss_on(t, n):
+        x, y, m, n, u_rows = gather(t, n)
+        kwargs = {} if u_rows is None else {"u": u_rows}
+        model.train(True)
+        y_hat = model(x.float(), node_index=n, training=True, iid=True,
+                      **kwargs).float()
+        sc = scaler.index_nodes_iid(n)
+        if scale_target:
+            y_ref = sc.transform(y)
+        else:
+            y_hat, y_ref = sc.inverse_transform(y_hat), y
+        v, cnt = _masked_reduce(loss_pt, y_hat, y_ref, m)
+        return v / torch.clamp(cnt, min=1.0)
+
+    def sample_and_loss(generator):
+        return loss_on(*sample(generator))
+
+    sample_and_loss.sample = sample
+    sample_and_loss.loss = loss_on
+    sample_and_loss.packed = packed
+    return data, sample_and_loss
+
+
+def make_fused_iid_step(model, optimizer, encoded, target, mask,
+                        valid_starts, horizon_offsets, scaler: ScalerParams,
+                        u: Optional[torch.Tensor] = None,
+                        batch_size: int = 4096, loss: str = "mae",
+                        scale_target: bool = False, packed=False,
+                        compute_dtype=None, gather_block: int = 1,
+                        node_perm=None,
+                        grad_clip: Optional[float] = None) -> Callable:
+    """Build ``step(generator) -> loss``: sample, gather, forward, masked
+    loss, backward, clip by global norm (``grad_clip``, as
+    ``optax.clip_by_global_norm``) and ``optimizer.step()`` on ``model``'s
+    parameters in place. The loss stays a device tensor.
+    ``step.train_on(t, n)`` takes one step on given draws; ``packed`` and
+    the rest as in :func:`_build_iid_sample_and_loss`."""
+    data, sample_and_loss = _build_iid_sample_and_loss(
+        model, encoded, target, mask, valid_starts, horizon_offsets,
+        scaler, u=u, batch_size=batch_size, loss=loss,
+        scale_target=scale_target, packed=packed,
+        compute_dtype=compute_dtype, gather_block=gather_block,
+        node_perm=node_perm)
+    params = list(model.parameters())
+
+    def train_on(t, n):
+        optimizer.zero_grad(set_to_none=True)
+        loss_val = sample_and_loss.loss(t, n)
+        loss_val.backward()
+        if grad_clip is not None:
+            clip_by_global_norm_([p.grad for p in params
+                                  if p.grad is not None], grad_clip)
+        optimizer.step()
+        return loss_val.detach()
+
+    def step(generator):
+        return train_on(*sample_and_loss.sample(generator))
+
+    step.train_on = train_on
+    step.data = data
+    step.sample_and_loss = sample_and_loss
+    step.packed = sample_and_loss.packed
+    return step
+
+
+def make_fused_iid_multi_step(model, optimizer, encoded, target, mask,
+                              valid_starts, horizon_offsets,
+                              scaler: ScalerParams, u=None,
+                              batch_size: int = 4096, loss: str = "mae",
+                              scale_target: bool = False,
+                              steps_per_call: int = 32, packed=False,
+                              compute_dtype=None, gather_block: int = 1,
+                              node_perm=None,
+                              grad_clip: Optional[float] = None
+                              ) -> Callable:
+    """Like :func:`make_fused_iid_step`, but ``multi_step(generator)`` runs
+    ``steps_per_call`` steps and returns their mean loss as a device
+    tensor: no host sync inside the call."""
+    single = make_fused_iid_step(
+        model, optimizer, encoded, target, mask, valid_starts,
+        horizon_offsets, scaler, u=u, batch_size=batch_size, loss=loss,
+        scale_target=scale_target, packed=packed,
+        compute_dtype=compute_dtype, gather_block=gather_block,
+        node_perm=node_perm, grad_clip=grad_clip)
+
+    def multi_step(generator):
+        return torch.stack([single(generator)
+                            for _ in range(steps_per_call)]).mean()
+
+    multi_step.single = single
+    multi_step.data = single.data
+    multi_step.packed = single.packed
+    return multi_step
+
+
+def fused_iid_inputs(dataset: SpatioTemporalDataset, dtype=torch.float32,
+                     device=None):
+    """Move the dataset arrays the fused step reads to ``device`` (default
+    ``cuda:0``) once: ``(encoded, target, mask, valid, h_off, u)``, the
+    float ones in ``dtype``."""
+    device = resolve_device(device)
+    encoded = torch.as_tensor(dataset.input_array(), device=device).to(dtype)
+    if encoded.ndim != 3:
+        raise ValueError("input_array must be [T, N, C]")
+    target = torch.as_tensor(dataset.target, device=device).to(dtype)
+    mask = torch.as_tensor(dataset.mask, device=device)
+    u = dataset.exog_array()
+    u = None if u is None else torch.as_tensor(u, device=device).to(dtype)
+    valid = torch.as_tensor(dataset.indices(), device=device)
+    h_off = torch.as_tensor(dataset.windowing.horizon_offsets(),
+                            device=device)
+    return encoded, target, mask, valid, h_off, u

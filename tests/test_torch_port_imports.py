@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither JAX, flax nor the JAX package: every
+"""The PyTorch port imports neither JAX, flax, PyYAML nor the JAX package
+(the card's machine has no PyYAML): every
 module of ``sgp_tpu_torch`` and ``chip_smoke.py`` is imported in a fresh
 interpreter, which must end with none of them in ``sys.modules``."""
 import os
@@ -19,7 +20,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sgp_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sgp_tpu",
+                                    "yaml"))
 print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
@@ -33,6 +35,15 @@ TRAINING_SLICE = (
     "sgp_tpu_torch.ops.gn_allpairs", "sgp_tpu_torch.graph.sparse",
     "sgp_tpu_torch.ops.spmm", "sgp_tpu_torch.utils.device",
     "sgp_tpu_torch.train.metrics", "sgp_tpu_torch.train.predictor")
+
+# the SGP main path's modules (encode, packed IID training, the fused
+# evaluation, checkpoints and the runner)
+MAIN_PATH = (
+    "sgp_tpu_torch.encode.encoders", "sgp_tpu_torch.encode.encode_dataset",
+    "sgp_tpu_torch.train.iid", "sgp_tpu_torch.train.fused_window",
+    "sgp_tpu_torch.train.checkpoint", "sgp_tpu_torch.utils.config",
+    "sgp_tpu_torch.exp.common", "sgp_tpu_torch.exp.run_traffic_sgp",
+    "sgp_tpu_torch.exp.run_largescale_sgp")
 
 # the attention slice's modules
 ATTENTION_SLICE = (
@@ -51,15 +62,17 @@ def test_port_never_imports_jax():
     assert int(words[0]) >= 30
     assert set(TRAINING_SLICE) <= set(words[2:])
     assert set(ATTENTION_SLICE) <= set(words[2:])
+    assert set(MAIN_PATH) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "sgp_tpu_torch").rglob("*.py")))
 def test_port_source_names_no_jax_import(path):
-    """No import line of the port names jax, flax or sgp_tpu (a lazy
+    """No import line of the port names jax, flax, yaml or sgp_tpu (a lazy
     import inside a function would escape the subprocess check)."""
     for line in (ROOT / path).read_text().splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]) and len(words) > 1:
             top = words[1].split(".")[0].rstrip(",")
-            assert top not in ("jax", "jaxlib", "flax", "sgp_tpu"), line
+            assert top not in ("jax", "jaxlib", "flax", "sgp_tpu",
+                               "yaml"), line

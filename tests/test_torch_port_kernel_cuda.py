@@ -32,6 +32,21 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    """Every test starts with the package's matmul settings (no TF32 in
+    matmuls or cuDNN) and must leave them so: a test that turned TF32 on
+    fails here, and the next one starts with it off again."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    for f in flags:
+        f.allow_tf32 = False
+    yield
+    left = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    assert not any(left), f"the test left TF32 on: {left}"
+
+
 def _graph(rng, n, e, active=None):
     m = active or n
     return normalize_adj(coalesce(Graph(
@@ -174,6 +189,175 @@ def test_bsr_spmm_gradients_match_plain(cuda, precision, tol, lead):
         grads[dev.type] = (xt.grad.cpu(), tiles.grad.cpu())
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert _rel(got, want) <= tol
+
+
+# K1 at the streaming encode's width: a hop of a 64-step chunk of 8 x 16
+# reservoir states folds to F = 8,192 columns. f32: the mean signed error
+# within TOL_K1_BIAS of the largest output (a coherent bias of the tensor
+# cores' truncation would hide under the max error).
+TOL_K1_BIAS = 1e-7
+
+
+@pytest.mark.parametrize("precision,tol", [("highest", 1e-5),
+                                           ("default", 1e-2)])
+@pytest.mark.parametrize("f", [8192, 8200])
+def test_kernel_at_the_encode_width(cuda, precision, tol, f):
+    """N 5,016 with every one of the 40 x 40 block positions stored, as the
+    100-nn graph in random node order gives; F 8,192 and a ragged 8,200."""
+    rng = np.random.default_rng(5)
+    n = 5016
+    op = build_operator(_graph(rng, n, 100 * n), "bsr", precision=precision,
+                        device=cuda)
+    assert op.blocks.shape[0] == 40 * 40
+    x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32),
+                        device=cuda)
+    args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+    got = bsr_spmm(*args, x)
+    again = bsr_spmm(*args, x)
+    ref = bsr_spmm_plain(op.blocks, op.block_cols, op.block_rows, 40, x)
+    torch.cuda.synchronize()
+    assert got.shape == (n, f) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel(got, ref) <= tol
+    if precision == "highest":
+        bias = ((got - ref).mean() / ref.abs().max()).item()
+        assert abs(bias) <= TOL_K1_BIAS, bias
+
+
+ENCODE_PARTS = ("states", "hop1", "hop2", "mean")
+
+
+def _encode_case():
+    """The streaming encode's inputs: N 1,000 (8 block rows), T 40 in
+    chunks of 16 (a shorter tail), 3 input channels, one target lane."""
+    rng = np.random.default_rng(8)
+    n, t = 1000, 40
+    g = _graph(rng, n, 20 * n)
+    return (g, rng.standard_normal((t, n, 3)).astype(np.float32),
+            rng.standard_normal((t, n, 1)).astype(np.float32),
+            rng.random((t, n, 1)) > 0.1)
+
+
+def _encode_run(dev, case, chunk=16):
+    """The SGP streaming encode (reservoir, 2 hops through K1, global
+    mean) on ``dev``, once with an f32 output and once packed with the
+    target and mask lanes: both on the CPU. On the card it also checks K1's
+    launches (twice a chunk)."""
+    from sgp_tpu_torch.encode import SGPEncoder, streaming_encode
+    from sgp_tpu_torch.train.iid import pack_iid_data
+    g, x, y, m = case
+    t, n = x.shape[:2]
+    enc = SGPEncoder(input_size=3, reservoir_size=16, reservoir_layers=3,
+                     receptive_field=2, global_attr=True, alpha_decay=True,
+                     seed=1, operator_mode="bsr", device=dev)
+    lanes = pack_iid_data(
+        torch.zeros((t, n, 0), dtype=torch.bfloat16, device=dev),
+        torch.as_tensor(y, device=dev), torch.as_tensor(m, device=dev),
+        [1, 3])
+    xt = torch.as_tensor(x, device=dev)
+    before = bsr_spmm.launches
+    f32 = streaming_encode(enc, xt, g, time_chunk=chunk,
+                           out_dtype=torch.float32)
+    packed = streaming_encode(enc, xt, g, time_chunk=chunk,
+                              extra_lanes=lanes)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        assert bsr_spmm.launches - before == 2 * 2 * -(-t // chunk)
+    return f32.cpu(), packed.cpu()
+
+
+def _encode_errors(got, want) -> dict:
+    """Each f32 part's error relative to its largest value (``ENCODE_PARTS``,
+    and ``f32`` over all of them), and whether the packed output holds:
+    features within one bf16 ulp of the larger value, or 1e-5 of the
+    largest (values near 0, whose ulp lies below the f32 sums' own
+    difference), and the lanes bit for bit."""
+    (f32, packed), (f32_cpu, packed_cpu) = got, want
+    width = f32.shape[-1] // len(ENCODE_PARTS)
+    errs = {name: _rel(f32[..., i * width:(i + 1) * width],
+                       f32_cpu[..., i * width:(i + 1) * width])
+            for i, name in enumerate(ENCODE_PARTS)}
+    errs["f32"] = _rel(f32, f32_cpu)
+    d = f32.shape[-1]
+    a, b = packed[..., :d].float(), packed_cpu[..., :d].float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    errs["packed_ok"] = bool(
+        ((a - b).abs() <= ulp.clamp_min(1e-5 * b.abs().max())).all()
+        and torch.equal(packed[..., d:].view(torch.int16),
+                        packed_cpu[..., d:].view(torch.int16)))
+    return errs
+
+
+@pytest.mark.parametrize("poisoned", [False, True],
+                         ids=["plain", "poisoned"])
+def test_streaming_encode_on_the_card_matches_cpu(cuda, monkeypatch,
+                                                  poisoned):
+    """The SGP streaming encode on the card against the port on the CPU
+    (``_encode_run``): f32 output at 1e-5 of the largest value, the bf16
+    packed output as ``_encode_errors`` holds it. ``poisoned``: every
+    ``torch.empty`` of the card's run handed out filled (``_poison``), so
+    that an element no thread writes, K1's workspace included, shows."""
+    case = _encode_case()
+    if poisoned:
+        empty = torch.empty
+        monkeypatch.setattr(torch, "empty",
+                            lambda *a, **k: _poison(empty(*a, **k)))
+    got = _encode_run(cuda, case)
+    monkeypatch.undo()
+    want = _encode_run(torch.device("cpu"), case)
+    errs = _encode_errors(got, want)
+    steps = [_rel(got[0][s], want[0][s]) for s in range(got[0].shape[0])]
+    assert errs["f32"] <= 1e-5, (errs, steps)
+    assert errs["packed_ok"], errs
+
+
+ENCODE_REPEATS = 200
+
+
+def test_streaming_encode_repeated_on_the_card(cuda, monkeypatch):
+    """The case above ``ENCODE_REPEATS`` times in one process, each part's
+    error against the CPU port printed at every repeat (``-s``); every
+    other repeat with ``torch.empty`` poisoned, as in
+    :func:`test_attention_repeated_on_the_card`. The parts whose card bits
+    move from the first repeat's are printed too."""
+    case = _encode_case()
+    want = _encode_run(torch.device("cpu"), case)
+    empty = torch.empty
+
+    def poisoned(*shape, **kw):
+        return _poison(empty(*shape, **kw))
+
+    failures, first, moved = [], None, set()
+    worst = dict.fromkeys(ENCODE_PARTS + ("f32",), 0.0)
+    for rep in range(ENCODE_REPEATS):
+        if rep % 2:
+            monkeypatch.setattr(torch, "empty", poisoned)
+        got = _encode_run(cuda, case)
+        monkeypatch.setattr(torch, "empty", empty)
+        errs = _encode_errors(got, want)
+        print(f"repeat {rep} {'poisoned' if rep % 2 else 'plain'}: "
+              + " ".join(f"{k} {v:.3e}" for k, v in errs.items()
+                         if k in worst)
+              + f" packed_ok {errs['packed_ok']}")
+        if not (errs["f32"] <= 1e-5 and errs["packed_ok"]):
+            failures.append((rep, errs))
+        worst = {k: max(worst[k], errs[k]) if errs[k] == errs[k]
+                 else errs[k] for k in worst}
+        first = first or got
+        width = got[0].shape[-1] // len(ENCODE_PARTS)
+        moved |= {name for i, name in enumerate(ENCODE_PARTS)
+                  if not torch.equal(got[0][..., i * width:(i + 1) * width],
+                                     first[0][..., i * width:
+                                              (i + 1) * width])}
+        if not torch.equal(got[1].view(torch.int16),   # lanes hold NaN
+                           first[1].view(torch.int16)):  # bit patterns
+            moved.add("packed")
+    print(f"largest error over {ENCODE_REPEATS} repeats: "
+          + " ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; bits moved between repeats: {sorted(moved)}; failures: "
+          f"{len(failures)}")
+    assert not failures, failures
 
 
 # -- K4: the GatedGN ELL kernel, forward and backward ----------------------
@@ -657,6 +841,15 @@ def test_sddmm_kernel_nnzb_zero(cuda):
     assert att.shape == (200, 1, 8) and not att.any()
 
 
+def _poison(t: torch.Tensor) -> torch.Tensor:
+    """Fill a fresh buffer so that an element no thread writes shows as a
+    NaN: floats with NaN, bytes (K1's workspace of f32 partial sums) with
+    0xFF."""
+    if t.is_floating_point():
+        return t.fill_(float("nan"))
+    return t.fill_(255) if t.dtype == torch.uint8 else t
+
+
 ATTENTION_TENSORS = ("out", "dq", "dk", "dv", "scores", "scores_dq",
                      "scores_dk")
 
@@ -718,9 +911,9 @@ def test_attention_repeated_on_the_card(cuda, monkeypatch):
     """The case above ``ATTENTION_REPEATS`` times in one process, each
     tensor's error against the CPU port printed at every repeat (``-s``).
     Every other repeat runs with the port's ``torch.empty`` poisoned (the
-    buffers it hands the kernels filled with NaN), so that an element no
-    thread writes shows as NaN; the other repeats see whatever the caching
-    allocator left there. Card results are also held to the first repeat's
+    buffers it hands the kernels filled with NaN, K1's byte workspace with
+    0xFF, a NaN's bits), so that an element no thread writes shows as NaN;
+    the other repeats see whatever the caching allocator left there. Card results are also held to the first repeat's
     bits: the SDDMM and its backward (K2, and K1 over the structure and its
     transpose) sum in a fixed order, so ``scores``, ``scores_dq`` and
     ``scores_dk`` never move; only what lies downstream of the softmax's
@@ -730,8 +923,7 @@ def test_attention_repeated_on_the_card(cuda, monkeypatch):
     empty = torch.empty
 
     def poisoned(*shape, **kw):
-        t = empty(*shape, **kw)
-        return t.fill_(float("nan")) if t.is_floating_point() else t
+        return _poison(empty(*shape, **kw))
 
     failures, first, moved = [], None, set()
     worst = dict.fromkeys(ATTENTION_TENSORS, 0.0)
