@@ -17,8 +17,10 @@ dense all-pairs aggregation, at the widths of
 (``bsr_multi_head_attention``) on both graphs, beside the dense
 ``TransformerModel`` trained through ``Predictor``; and the SGP main path,
 the large-scale runner's streaming encode, packed IID training and fused
-evaluation at the ``sgp_pv.yaml`` widths, and the runner itself. In
-phases; any failure raises and the exit code is not 0:
+evaluation at the ``sgp_pv.yaml`` widths, and the runner itself; and the
+baseline runners (``exp/run_traffic_baselines.py``,
+``exp/run_largescale_baselines.py``) from their command lines, reaching K4
+and K3. In phases; any failure raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
 1. build the four kernels, one ``nvcc`` each, in parallel
@@ -93,7 +95,22 @@ phases; any failure raises and the exit code is not 0:
    (``--epochs 0``) and with 1e-5 of the dense encoding's bf16 features one
    ulp off, at seeds 0, 1 and 2: finite metrics below the untrained
    model's, K1's launches on the BSR route only, and the routes' test-MAE
-   gap printed beside the one-ulp witness's.
+   gap printed beside the one-ulp witness's;
+12. the baseline runners through ``Experiment(...).run(argv)`` at the
+   configs' widths, only epochs and batches cut (``RUNNER_CASES``): (a) the
+   traffic runner on ``largescale_100nn/gatedgn_pv.yaml`` with the ELL
+   table (K4 forward and backward), f32 and ``--compute-dtype bfloat16``;
+   (b) the large-scale runner on that config (subgraph batches of 627
+   roots, k 2, padded to 2,508 nodes and 501,600 edges, trained on their
+   edge lists; K4's forward in evaluation); (c) the large-scale runner on
+   ``largescale/gatedgn_pv.yaml`` with the whole similarity graph
+   (25,155,240 edges; subgraphs capped at 2,500,000 edges; K3's forward in
+   evaluation). Each run: its kernels' launches (counters set to 0 just
+   before it), finite test metrics below the same run's untrained ones
+   (``--epochs 0``), the first step held against the port on the CPU, the
+   train loader's host ms a batch, step times, peak memory and a
+   profile's idle share; then K3's forward at run (c)'s evaluation shape
+   (25.2 M pairs) against its plain version, with its bound.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -101,9 +118,10 @@ the H100's 3.35 TB/s; its f32-accurate products by the cheaper route, FFMA
 at 67 TFLOP/s or 3xTF32 at 495 / 3 TFLOP/s; its transcendentals over 16 a
 clock per SM at the SM clock ``nvidia-smi`` reports.
 
-The line before the last is a JSON object of the kernels; the last is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+The line before the last is a JSON object of the kernels (K4's launches
+from run (a), K3 forward's from run (c), each slice's own count beside
+them); the last is ``{"ok": true, "device": {...}}``. Without a CUDA
+device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -216,6 +234,35 @@ SGP_RUNNER_SEEDS = (0, 1, 2)
 # limit holds it (the encode checks hold the BSR route)
 SGP_FLIP_SHARE = 1e-5
 TOL_EVAL = 1e-4         # fused eval, card vs CPU port, relative
+# phase 12, the baseline runners through their entry points at the configs'
+# widths; only epochs and batches cut
+RUNNER_ARGS = ["--model-name", "gatedgn", "--dataset-name", "synthetic",
+               "--synthetic-nodes", str(N_NODES), "--synthetic-steps",
+               str(N_STEPS), "--seed", str(SEED)]
+ELL_RUN = ["--gn-aggregation", "ell", "--epochs", "2", "--batches-epoch",
+           "8"]
+# (tag, runner, config, flags, the kernels its run must launch)
+RUNNER_CASES = (
+    ("a", "traffic", GN_CONFIG, ["--adj-knn", "100"] + ELL_RUN,
+     ("gn_ell_fwd", "gn_ell_bwd")),
+    ("a bf16", "traffic", GN_CONFIG,
+     ["--adj-knn", "100", "--compute-dtype", "bfloat16"] + ELL_RUN,
+     ("gn_ell_fwd", "gn_ell_bwd")),
+    ("b", "largescale", GN_CONFIG, ELL_RUN, ("gn_ell_fwd",)),
+    ("c", "largescale", FULL_CONFIG,
+     ["--gn-aggregation", "dense", "--epochs", "2", "--batches-epoch", "4"],
+     ("gn_allpairs_fwd",)))
+RUNNER_TIME_DROP = 2    # first steps of a run left out of its step times
+# a run's first step, card vs CPU port: the loss within TOL_LOSS (bf16:
+# 2e-2, one bf16 ulp is 2^-8), each clipped gradient within TOL_GRAD (bf16:
+# 2e-2) of its largest value, or else no further from a reference step
+# than RUNNER_SLACK times the CPU port's distance from it, plus TOL_GRAD.
+# The reference: for a bf16 run the f32 run's first step on the card (the
+# same weights and batch; bf16 moves the gradients 1-7% of a tensor's
+# largest from it on either device: 600 nodes on the CPU), for a run that
+# trains on edge lists the same step in float64 on the CPU
+TOL_RUNNER_BF16 = 2e-2
+RUNNER_SLACK = 2.0
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -2009,6 +2056,259 @@ def sgp_runner_runs(seed: int, device) -> dict:
     return out
 
 
+class RunRecorder:
+    """Instruments one runner run from outside: each ``train_step``'s
+    synchronized host time and loss; the first step's trainer, host batch,
+    weights before it and clipped gradients after it; the first
+    ``PROFILE_STEPS + 1`` host batches; each loader's host ms a batch
+    (``next`` of its iterator: sampling and gather); and the subgraph
+    sampler's ms a call."""
+
+    def __init__(self, device):
+        self.device = device
+        self.steps, self.batches, self.first = [], [], None
+        self.loader_ms, self.sample_ms = {}, []
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def patch(self):
+        from sgp_tpu_torch.data import SubgraphLoader, WindowedLoader
+        from sgp_tpu_torch.train import Predictor
+        rec = self
+        step, sample = Predictor.train_step, SubgraphLoader._sample_subgraph
+
+        def train_step(pred, batch):
+            init = None if rec.first else {
+                k: v.detach().cpu().clone()
+                for k, v in pred.model.state_dict().items()}
+            rec._sync()
+            t0 = time.perf_counter()
+            loss = float(step(pred, batch))        # synchronizes
+            rec.steps.append(((time.perf_counter() - t0) * 1e3, loss))
+            if init is not None:
+                rec.first = dict(pred=pred, batch=batch, init=init,
+                                 loss=loss, grads={
+                                     k: p.grad.detach().cpu().clone()
+                                     for k, p in
+                                     pred.model.named_parameters()})
+            if len(rec.batches) <= PROFILE_STEPS:
+                rec.batches.append(batch)
+            return torch.tensor(loss)
+
+        def timed_iter(orig):
+            def it(loader):
+                times = rec.loader_ms.setdefault(loader, [])
+                gen = orig(loader)
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(gen)
+                    except StopIteration:
+                        return
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    yield batch
+            return it
+
+        def sample_subgraph(loader):
+            t0 = time.perf_counter()
+            out = sample(loader)
+            rec.sample_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        saved = [(Predictor, "train_step", step),
+                 (SubgraphLoader, "_sample_subgraph", sample),
+                 (SubgraphLoader, "__iter__", SubgraphLoader.__iter__),
+                 (WindowedLoader, "__iter__", WindowedLoader.__iter__)]
+        Predictor.train_step = train_step
+        SubgraphLoader._sample_subgraph = sample_subgraph
+        SubgraphLoader.__iter__ = timed_iter(SubgraphLoader.__iter__)
+        WindowedLoader.__iter__ = timed_iter(WindowedLoader.__iter__)
+        try:
+            yield self
+        finally:
+            for cls, name, fn in saved:
+                setattr(cls, name, fn)
+
+    def train_loader_ms(self) -> list:
+        """Host ms a batch of the train loader (the shuffled one)."""
+        return [t for ld, ts in self.loader_ms.items()
+                if getattr(ld, "shuffle", False) for t in ts]
+
+
+def _cpu_trainer(pred, init: dict, dtype=torch.float32):
+    """A CPU copy of the card's trainer ``pred``: its settings, call and
+    graph state, the weights ``init``, its model and scaler in ``dtype``."""
+    import copy
+    from sgp_tpu_torch.data.scalers import ScalerParams
+    from sgp_tpu_torch.train import Predictor
+    cpu = Predictor(copy.deepcopy(pred.model).to("cpu", dtype),
+                    loss=pred.loss_kind, lr=pred.lr,
+                    weight_decay=pred.weight_decay, grad_clip=pred.grad_clip,
+                    scale_target=pred.scale_target, metrics=pred.metrics,
+                    batch_to_call=pred.batch_to_call, seed=pred.seed,
+                    static_batch=pred.static_batch, device="cpu")
+    cpu.init(None, ScalerParams(pred.scaler.bias.to(dtype),
+                                pred.scaler.scale.to(dtype)))
+    cpu.model.load_state_dict(init)
+    return cpu
+
+
+def runner_cpu_step(first: dict, tol: float, reference=None) -> dict:
+    """The run's first train step again by the port on the CPU (the card's
+    trainer settings, call, graph state, weights and host batch): the loss
+    held to the card's within ``tol`` relative, and each clipped gradient
+    within ``tol`` of its largest value or, failing that, no further from
+    the ``reference`` gradients than ``RUNNER_SLACK`` times the CPU port's
+    distance from them, plus ``TOL_GRAD``. Without a given reference, a
+    run that trains on edge lists takes the step in float64 on the CPU."""
+    cpu = _cpu_trainer(first["pred"], first["init"])
+    t0 = time.perf_counter()
+    loss = float(cpu.train_step(first["batch"]))
+    cpu_s = time.perf_counter() - t0
+    grads = {k: p.grad for k, p in cpu.model.named_parameters()}
+    loss_err = abs(loss - first["loss"]) / abs(loss)
+    errs = {k: rel_err(first["grads"][k], g)[1] for k, g in grads.items()}
+    out = {"cpu_s": cpu_s, "loss_rel_err": loss_err, "tol": tol,
+           "grad_max_rel_err": max(errs.values()),
+           "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3]}
+    if reference is None and "sub_src" in first["batch"]:
+        f64 = _cpu_trainer(first["pred"], first["init"], torch.float64)
+        f64.train_step({k: v.astype(np.float64) if isinstance(
+            v, np.ndarray) and v.dtype == np.float32 else v
+            for k, v in first["batch"].items()})
+        reference = {k: p.grad for k, p in f64.model.named_parameters()}
+        out["reference"] = "float64 on the CPU"
+    bad = [k for k, e in errs.items() if not e <= tol]
+    if reference is not None:
+        dist = {k: (rel_err(first["grads"][k].double(),
+                            reference[k].double())[1],
+                    rel_err(grads[k].double(), reference[k].double())[1])
+                for k in bad}
+        out["beyond_tol_from_reference_card_cpu"] = dist
+        bad = [k for k, (d_card, d_cpu) in dist.items()
+               if not d_card <= RUNNER_SLACK * d_cpu + TOL_GRAD]
+    print(f"[phase 12] first step, card vs CPU port: {json.dumps(out)}")
+    assert loss_err <= tol and not bad, (loss_err, bad)
+    return out
+
+
+def runner_run(tag, runner, config, flags, kernels, device,
+               f32_grads=None) -> dict:
+    """One runner through ``Experiment(...).run(argv)``, its kernels'
+    launch counters set to 0 just before and read just after; then the same
+    run untrained (``--epochs 0``), the first step on the CPU (a bf16 run's
+    held by its f32 twin's first-step gradients ``f32_grads``), and a
+    profile of ``PROFILE_STEPS`` steps on its trainer."""
+    bf16 = "bfloat16" in flags
+    assert not bf16 or f32_grads is not None, "a bf16 run needs its f32 twin"
+    from sgp_tpu_torch.exp import (run_largescale_baselines,
+                                   run_traffic_baselines)
+    from sgp_tpu_torch.exp.common import Experiment
+    from sgp_tpu_torch.ops import gn_allpairs, gn_ell
+    mod = run_traffic_baselines if runner == "traffic" \
+        else run_largescale_baselines
+    counters = {f.__name__: f for f in (
+        gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd, gn_allpairs.gn_allpairs_fwd,
+        gn_allpairs.gn_allpairs_bwd)}
+    argv = ["--config", str(config)] + RUNNER_ARGS + flags + [
+        "--device", str(device)]
+    rec = RunRecorder(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with rec.patch():
+        res = Experiment(mod.run_experiment,
+                         run_traffic_baselines.configure_parser()).run(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 20 \
+        if device.type == "cuda" else "not measured"
+    untrained = Experiment(mod.run_experiment,
+                           run_traffic_baselines.configure_parser()).run(
+        argv + ["--epochs", "0"])
+    cpu = runner_cpu_step(rec.first, TOL_RUNNER_BF16 if bf16 else TOL_LOSS,
+                          f32_grads if bf16 else None)
+    step_ms = [ms for ms, _ in rec.steps[RUNNER_TIME_DROP:]]
+    stats = quartiles(step_ms)
+    prof = idle_share(rec.first["pred"], rec.batches, stats["median"]) \
+        if device.type == "cuda" else {"idle_share": "not measured"}
+    pred = rec.first["pred"]
+    row = dict(
+        run=tag, argv=" ".join(argv), launches=launches,
+        steps=len(rec.steps), losses=[loss for _, loss in rec.steps],
+        test={k: v for k, v in res.items()},
+        untrained_test_mae=untrained["test_mae"], wall_s=wall,
+        step_ms=stats, loader_host_ms=quartiles(rec.train_loader_ms()),
+        sample_subgraph_ms=quartiles(rec.sample_ms) if rec.sample_ms
+        else None, peak_mib=peak,
+        first_step_vs_cpu=cpu,
+        batch_nodes=int(rec.first["batch"]["x"].shape[2]),
+        batch_edges=int((rec.first["batch"]["sub_weight"] != 0).sum())
+        if "sub_weight" in rec.first["batch"] else None, **prof)
+    print(f"[phase 12] run {tag}: {json.dumps(row, default=str)}")
+    missing = [k for k in kernels if not launches[k] > 0]
+    assert not missing, f"run {tag} launched no {missing}: {launches}"
+    assert all(np.isfinite(v) for v in res.values()), res
+    assert all(np.isfinite(v) for v in untrained.values()), untrained
+    assert res["test_mae"] < untrained["test_mae"], \
+        (res["test_mae"], untrained["test_mae"])
+    row["pred"], row["first_grads"] = pred, rec.first["grads"]
+    return row
+
+
+def k3_at_runner_shape(mask, device, hidden: int) -> dict:
+    """K3's forward at run (c)'s evaluation shape (B 1, N 5,016, the full
+    similarity graph's mask, a full sweep) against its plain version:
+    error, CUDA-event medians and the bound."""
+    from sgp_tpu_torch.ops import gn_allpairs
+    rng = np.random.default_rng(SEED)
+    h, h2 = hidden, hidden // 2
+    args, ghat = allpairs_inputs(rng, 1, mask.shape[0], h2, h,
+                                 torch.float32, mask, device)
+    out = gn_allpairs.gn_allpairs_fwd(*args)
+    grads = gn_allpairs.gn_allpairs_bwd(*args, ghat)
+    ref = gn_allpairs.gn_allpairs_fwd_plain(*args)
+    abs_err, err = rel_err(out, ref)
+    bias = ((out - ref).mean() / ref.abs().max()).item()
+    k, p = interleaved_ms(lambda: gn_allpairs.gn_allpairs_fwd(*args),
+                          lambda: gn_allpairs.gn_allpairs_fwd_plain(*args),
+                          2, 10, 1)
+    row = dict(case="runner evaluation", b=1, n=mask.shape[0], h2=h2, h=h,
+               max_abs_err={"out": abs_err}, rel_err={"out": err},
+               out_mean_err=bias, fwd_ms=k["median"],
+               fwd_q1_q3=[k["q1"], k["q3"]], fwd_plain_ms=p["median"],
+               **allpairs_bounds(args, ghat, out, grads, None))
+    print(f"[phase 12] K3 forward at the runner's shape: {json.dumps(row)}")
+    assert err <= TOL_AP_F32, f"K3 disagrees with plain at 25 M pairs: {err}"
+    return row
+
+
+def phase12_runners(device) -> dict:
+    """The baseline runners through their entry points (``RUNNER_CASES``):
+    launches, metrics against the untrained run, the first step against
+    the CPU port, host and step times, idle share, peak memory; then K3's
+    forward at run (c)'s evaluation shape."""
+    runs = {}
+    for tag, runner, config, flags, kernels in RUNNER_CASES:
+        t0 = time.perf_counter()
+        # a bf16 run starts from its f32 twin's weights and batch
+        twin = runs.get(tag.replace(" bf16", ""), {})
+        runs[tag] = runner_run(tag, runner, config, flags, kernels, device,
+                               twin.get("first_grads"))
+        print(f"[time] phase 12 run {tag}: {time.perf_counter() - t0:.1f} s")
+    pred = runs["c"]["pred"]
+    k3 = k3_at_runner_shape(pred.static_batch["gn_adj"], device,
+                            read_flat_yaml(FULL_CONFIG)["hidden_size"])
+    for row in runs.values():
+        del row["pred"], row["first_grads"]
+    return dict(runs=runs, k3=k3)
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -2060,6 +2360,7 @@ def main():
         device)
     timed("phase 10", phase10_transformer, ds, graph, device)
     sgp = timed("phase 11", phase11_sgp, ds, graph, device)
+    runners = timed("phase 12", phase12_runners, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -2067,18 +2368,32 @@ def main():
     kernels[0]["encode"] = kernel_entry(
         "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
         "sgp_tpu/ops/bsr_kernel.py:39", sgp["launches"], sgp)
+    # K4's launches from the traffic runner's run (a), K3 forward's from
+    # the large-scale runner's run (c); the slices' own counts beside them
+    run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]
     for name, line, half in (("gn_ell_fwd", 104, "fwd"),
                              ("gn_ell_bwd", 114, "bwd")):
         kernels.append(kernel_entry(
             name, "sgp_tpu_torch/csrc/gn_ell.cu",
-            f"sgp_tpu/ops/gn_ell.py:{line}", train["launches"][name], k4,
+            f"sgp_tpu/ops/gn_ell.py:{line}", run_a["launches"][name], k4,
             half))
-    for name, line, half in (("gn_allpairs_fwd", 130, "fwd"),
-                             ("gn_allpairs_bwd", 162, "bwd")):
+        kernels[-1]["slice_launches"] = train["launches"][name]
+    # (run (c) trains on its subgraphs' edge lists: K3's backward runs on
+    # phase 7's path only)
+    for name, line, half, launches in (
+            ("gn_allpairs_fwd", 130, "fwd",
+             run_c["launches"]["gn_allpairs_fwd"]),
+            ("gn_allpairs_bwd", 162, "bwd",
+             full_train["launches"]["gn_allpairs_bwd"])):
         kernels.append(kernel_entry(
             name, "sgp_tpu_torch/csrc/gn_allpairs.cu",
-            f"sgp_tpu/ops/gn_allpairs.py:{line}",
-            full_train["launches"][name], k3, half))
+            f"sgp_tpu/ops/gn_allpairs.py:{line}", launches, k3, half))
+        kernels[-1]["slice_launches"] = full_train["launches"][name]
+    # K3's forward at run (c)'s evaluation shape, 25.2 M pairs
+    kernels[-2]["runner"] = kernel_entry(
+        "gn_allpairs_fwd", "sgp_tpu_torch/csrc/gn_allpairs.cu",
+        "sgp_tpu/ops/gn_allpairs.py:130", run_c["launches"]["gn_allpairs_fwd"],
+        runners["k3"], "fwd")
     kernels.append(kernel_entry("bsr_sddmm", "sgp_tpu_torch/csrc/sddmm.cu",
                                 "sgp_tpu/ops/sddmm.py:103",
                                 attention["bsr_sddmm"], k2))

@@ -4,9 +4,11 @@ from sgp_tpu_torch.data.scalers import (RobustScaler, Scaler, ScalerParams,
 from sgp_tpu_torch.data.spatiotemporal import Batch, SpatioTemporalDataset
 from sgp_tpu_torch.data.splitters import (Split, Splitter, TemporalSplitter,
                                           datetime_encoded)
+from sgp_tpu_torch.data.subgraph import (SubgraphLoader, SubsetLoader,
+                                        cap_edges)
 from sgp_tpu_torch.data.windowing import Windowing
 
 __all__ = ["Batch", "RobustScaler", "Scaler", "ScalerParams", "Split",
            "Splitter", "SpatioTemporalDataset", "StandardScaler",
-           "TemporalSplitter", "WindowedLoader", "Windowing",
-           "datetime_encoded"]
+           "SubgraphLoader", "SubsetLoader", "TemporalSplitter",
+           "WindowedLoader", "Windowing", "cap_edges", "datetime_encoded"]

@@ -1,8 +1,8 @@
 """Host-side sparse graph representation and graph algorithms.
 
-A numpy copy of the part of ``sgp_tpu/graph/sparse.py`` that the serving
-and GatedGN training paths reach, held bit-exact against it by the parity
-tests. Graphs are prepared once on the host; device compute consumes a
+A numpy copy of the part of ``sgp_tpu/graph/sparse.py`` that the serving,
+GatedGN training and subgraph-sampling paths reach, held bit-exact against
+it by the parity tests. Graphs are prepared once on the host; device compute consumes a
 dense operator, the packed block-sparse tiles of :meth:`Graph.to_bsr`, the
 ELL table of :func:`padded_incoming` or a dense mask with the band windows
 of :func:`band_windows` / :func:`auto_band` (``sgp_tpu_torch.ops``).
@@ -204,6 +204,60 @@ def permute_nodes(g: Graph, perm: np.ndarray) -> Graph:
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm))
     return Graph(inv[g.src], inv[g.dst], g.weight, g.num_nodes)
+
+
+def adjacency_rows(g: Graph, flow: str = "target_to_source"
+                   ) -> sp.csr_matrix:
+    """The CSR that :func:`k_hop_subgraph` expands through: with
+    ``flow="target_to_source"`` row ``t`` holds the sources of ``t``'s
+    incoming edges, with ``"source_to_target"`` the targets of its outgoing
+    ones. Build it once per graph and pass it to every call."""
+    if flow not in ("target_to_source", "source_to_target"):
+        raise ValueError(f"unknown flow {flow!r}")
+    rows, cols = (g.dst, g.src) if flow == "target_to_source" \
+        else (g.src, g.dst)
+    return sp.csr_matrix((np.ones(g.num_edges, np.int8), (rows, cols)),
+                         shape=(g.num_nodes, g.num_nodes))
+
+
+def k_hop_subgraph(g: Graph, roots: np.ndarray, k: int,
+                   flow: str = "target_to_source",
+                   rows: Optional[sp.csr_matrix] = None):
+    """K-hop neighbourhood of ``roots`` and the subgraph it induces.
+
+    With ``flow="target_to_source"`` the frontier expands from targets to
+    their sources (the nodes whose features flow into the roots). ``rows``
+    is :func:`adjacency_rows` of ``g`` for ``flow``, built here when not
+    given.
+
+    Returns ``(nodes, sub, root_positions)``: the sorted node set, the
+    induced subgraph relabelled to positions in ``nodes`` (edges in ``g``'s
+    order) and the position of each root in ``nodes``.
+    """
+    n = g.num_nodes
+    roots = np.asarray(roots, np.int64)
+    if rows is None:
+        rows = adjacency_rows(g, flow)
+    elif rows.shape != (n, n):
+        raise ValueError(f"rows is {rows.shape}, the graph has {n} nodes")
+    mask = np.zeros(n, bool)
+    mask[roots] = True
+    frontier = roots
+    for _ in range(k):
+        reach = np.zeros(n, bool)
+        reach[rows[frontier].indices] = True
+        reach &= ~mask
+        frontier = np.flatnonzero(reach)
+        if len(frontier) == 0:
+            break
+        mask |= reach
+    nodes = np.flatnonzero(mask)
+    relabel = np.full(n, -1, np.int64)
+    relabel[nodes] = np.arange(len(nodes))
+    e_keep = mask[g.src] & mask[g.dst]
+    sub = Graph(relabel[g.src[e_keep]], relabel[g.dst[e_keep]],
+                g.weight[e_keep], len(nodes))
+    return nodes, sub, relabel[roots]
 
 
 def _block_bounds(dst: np.ndarray, src: np.ndarray, n: int, block: int):

@@ -1,8 +1,8 @@
 """Load a flax parameter tree into a model of the port: :class:`SGPModel`,
-:class:`GatedGraphNetworkMLPModel`, :class:`TransformerModel`, or one of
-the attention layers on its own (``MultiHeadAttention``,
-``AttentionEncoder``, ``CausalLinearAttention``, ``TransformerLayer``,
-``SpatioTemporalTransformerLayer``, ``GATConv``,
+:class:`GatedGraphNetworkMLPModel`, :class:`GatedGraphNetworkConvModel`,
+:class:`TransformerModel`, or one of the attention layers on its own
+(``MultiHeadAttention``, ``AttentionEncoder``, ``CausalLinearAttention``,
+``TransformerLayer``, ``SpatioTemporalTransformerLayer``, ``GATConv``,
 ``SpatioTemporalAttention``).
 
 The tree comes as nested dicts of numpy arrays (for example
@@ -15,8 +15,9 @@ names of ``sgp_tpu/models/attention.py`` (``q``, ``k``, ``v``, ``out``,
 ``LayerNorm_i``, ``MultiHeadAttention_i``, ``MLP_0``, ``DenseGeneral_i``).
 ``Dense`` kernels are transposed from flax's ``[in, out]`` to
 ``nn.Linear``'s ``[out, in]``; ``DenseGeneral`` kernels ``[in, h, dh]`` and
-``[h, dh, out]`` are flattened over ``h * dh`` first. Any key missing from
-the tree or left over in it raises.
+``[h, dh, out]`` are flattened over ``h * dh`` first; ``Conv`` kernels
+``[k, in, out]`` become ``Conv1d.weight``'s ``[out, in, k]``. Any key
+missing from the tree or left over in it raises.
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ from sgp_tpu_torch.models.attention import (AttentionEncoder,
                                             TransformerLayer,
                                             TransformerModel)
 from sgp_tpu_torch.models.blocks import MLP
-from sgp_tpu_torch.models.gated_gn import GatedGraphNetworkMLPModel
+from sgp_tpu_torch.models.gated_gn import (CNNResidual,
+                                           GatedGraphNetworkConvModel,
+                                           GatedGraphNetworkMLPModel)
 from sgp_tpu_torch.models.graph_layers import (GATConv, GatedGraphNetwork,
                                                SpatioTemporalAttention)
 from sgp_tpu_torch.models.sgp import SGPModel
@@ -143,6 +146,43 @@ def _gated_gn_targets(model: GatedGraphNetworkMLPModel
     return out
 
 
+def _conv_kernel(a: np.ndarray) -> np.ndarray:
+    """A flax ``nn.Conv`` kernel ``[k, in, out]`` as ``Conv1d.weight``'s
+    ``[out, in, k]``."""
+    return a.transpose(2, 1, 0)
+
+
+def _conv(out: dict, prefix: Path, conv: nn.Conv1d):
+    out[prefix + ("kernel",)] = (conv.weight, _conv_kernel)
+    out[prefix + ("bias",)] = (conv.bias, False)
+
+
+def _cnn_residual(out: dict, scope: Path, cnn: CNNResidual):
+    """Layer i's strided ``Conv_i`` and ``Conv1dResidual_i`` (its inner
+    ``Conv_0`` and outer ``Conv_1``), then ``Dense_0`` when there is one."""
+    for i, (conv, res) in enumerate(zip(cnn.convs, cnn.res)):
+        _conv(out, scope + (f"Conv_{i}",), conv)
+        _conv(out, scope + (f"Conv1dResidual_{i}", "Conv_0"), res.inner)
+        _conv(out, scope + (f"Conv1dResidual_{i}", "Conv_1"), res.outer)
+    if cnn.out is not None:
+        _linear(out, scope + ("Dense_0",), cnn.out)
+
+
+def _gated_gn_conv_targets(model: GatedGraphNetworkConvModel
+                           ) -> Dict[Path, Tuple[torch.Tensor, object]]:
+    """``CNNResidual_0``, then the embedding, the ``GatedGraphNetwork_i``
+    layers, the decoder ``Dense_0`` and the readout ``Dense_1``."""
+    out: Dict[Path, Tuple[torch.Tensor, object]] = {}
+    _cnn_residual(out, ("CNNResidual_0",), model.cnn)
+    if model.emb is not None:
+        out[("StaticGraphEmbedding_0", "emb")] = (model.emb.emb, False)
+    for i, layer in enumerate(model.gnn):
+        _gn_layer(out, (f"GatedGraphNetwork_{i}",), layer)
+    _linear(out, ("Dense_0",), model.dec)
+    _linear(out, ("Dense_1",), model.readout)
+    return out
+
+
 def _dense_general(out: dict, prefix: Path, lin: nn.Linear, heads_in: bool):
     out[prefix + ("kernel",)] = (lin.weight,
                                  _heads_in if heads_in else _heads_out)
@@ -231,6 +271,8 @@ def targets(model: nn.Module) -> Dict[Path, Tuple[torch.Tensor, object]]:
     for every parameter of ``model``."""
     if isinstance(model, GatedGraphNetworkMLPModel):
         return _gated_gn_targets(model)
+    if isinstance(model, GatedGraphNetworkConvModel):
+        return _gated_gn_conv_targets(model)
     if isinstance(model, SGPModel):
         return _targets(model)
     if type(model) in _ATTENTION:

@@ -45,6 +45,15 @@ from sgp_tpu_torch.ops.gn_ell import gn_ell_aggregate
 from sgp_tpu_torch.ops.scatter import segment_softmax
 
 
+def linear_as(lin: nn.Linear, x, dtype: Optional[torch.dtype] = None):
+    """``lin(x)`` computed in ``dtype``, the float32 parameters cast at use
+    (flax's ``Dense(dtype=)``); ``lin(x)`` when ``dtype`` is None."""
+    if dtype is None:
+        return lin(x)
+    return F.linear(x.to(dtype), lin.weight.to(dtype),
+                    None if lin.bias is None else lin.bias.to(dtype))
+
+
 class GATConv(nn.Module):
     """Graph attention convolution (``graph_convs/gat_conv.py:19-287``,
     PyG-style): per-edge logits ``leaky_relu(<x_src, a_src> + <x_dst,
@@ -129,15 +138,25 @@ class GatedGraphNetwork(nn.Module):
 
     ``resid_budget_gb``: the all-pairs plain math checkpoints its blocks
     when this layer's saved residuals would exceed it (the JAX layer's
-    heuristic; the model splits a 12 GB total across its layers)."""
+    heuristic; the model splits a 12 GB total across its layers).
+
+    ``dtype`` (``torch.bfloat16``) runs every Linear of the layer and the
+    messages in that dtype, with the float32 parameters cast at use as
+    flax's ``Dense(dtype=)`` does; the neighbour sum accumulates in float32
+    and the output comes back in the input's dtype. The kernels get the
+    bf16 projections: K4 with float32 weights that it rounds to bf16 and
+    float32 biases, K3 with all four rounded to bf16 (as the JAX layer
+    passes them)."""
 
     def __init__(self, input_size: int, output_size: int,
-                 activation: str = "silu", resid_budget_gb: float = 6.0):
+                 activation: str = "silu", resid_budget_gb: float = 6.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         h2 = output_size // 2
         self.output_size = output_size
         self.activation = activation
         self.resid_budget_gb = resid_budget_gb
+        self.dtype = dtype
         self.p_i = nn.Linear(input_size, h2)
         self.p_j = nn.Linear(input_size, h2, bias=False)
         self.msg = nn.Linear(h2, output_size)
@@ -155,13 +174,17 @@ class GatedGraphNetwork(nn.Module):
             if lin is not None:
                 reset_linear(lin, generator)
 
+    def _lin(self, lin: nn.Linear, x):
+        return linear_as(lin, x, self.dtype)
+
     def forward(self, x, src=None, dst=None, edge_mask=None, neigh=None,
                 adj=None, adj_band=None):
         act = get_activation(self.activation)
         n = x.shape[-2]
-        p_i, p_j = self.p_i(x), self.p_j(x)
+        acc = x.dtype if self.dtype is None else torch.float32
+        p_i, p_j = self._lin(self.p_i, x), self._lin(self.p_j, x)
         if adj is not None:
-            agg = self._all_pairs(p_i, p_j, adj, adj_band).to(x.dtype)
+            agg = self._all_pairs(p_i, p_j, adj, adj_band).to(acc)
         elif neigh is not None:
             src_idx, nmask = neigh
             d = src_idx.shape[1]
@@ -174,37 +197,43 @@ class GatedGraphNetwork(nn.Module):
                     p_i.reshape(-1, n, h2), pj_n.reshape(-1, n, d, h2),
                     nmask, self.msg.weight.T, self.msg.bias,
                     self.gate.weight.T, self.gate.bias, self.activation
-                ).reshape(lead + (n, self.output_size)).to(x.dtype)
+                ).reshape(lead + (n, self.output_size)).to(acc)
             else:
                 m = self._message(act(p_i.unsqueeze(-2) + pj_n))
-                agg = (m * nmask.unsqueeze(-1)).sum(-2)          # over D
+                agg = (m * nmask.unsqueeze(-1)).to(acc).sum(-2)  # over D
         else:
             src, dst = src.long(), dst.long()
             m = self._message(act(p_i[..., dst, :] + p_j[..., src, :]))
             if edge_mask is not None:     # zero padding edges
                 m = m * edge_mask.unsqueeze(-1)
+            m = m.to(acc)
             agg = torch.zeros(m.shape[:-2] + (n, m.shape[-1]),
-                              dtype=m.dtype, device=m.device)
+                              dtype=acc, device=m.device)
             agg.index_add_(m.ndim - 2, dst, m)
-        out = self.update1(torch.cat([agg, x.to(agg.dtype)], -1))
-        out = self.update2(act(out))
-        skip = x if self.skip is None else self.skip(x)
+        out = self._lin(self.update1, torch.cat([agg, x.to(agg.dtype)], -1))
+        out = self._lin(self.update2, act(out))
+        skip = x if self.skip is None else self._lin(self.skip, x)
         return (out + skip).to(x.dtype)
 
     def _all_pairs(self, p_i, p_j, adj, band):
         lead, (n, h2) = p_i.shape[:-2], p_i.shape[-2:]
         if self.activation in ACTIVATIONS:
+            cd = p_i.dtype     # the JAX layer casts all four to it
             return gn_allpairs_aggregate(
                 p_i.reshape(-1, n, h2), p_j.reshape(-1, n, h2), adj,
-                self.msg.weight.T, self.msg.bias, self.gate.weight.T,
-                self.gate.bias, self.activation, band
+                self.msg.weight.T.to(cd), self.msg.bias.to(cd),
+                self.gate.weight.T.to(cd), self.gate.bias.to(cd),
+                self.activation, band
             ).reshape(lead + (n, self.output_size))
         act = get_activation(self.activation)
-        mask = (adj != 0).to(p_i.dtype)
+        # the masked sum's products and sums in f32 (the JAX layer's
+        # preferred_element_type) when the messages are bf16
+        acc = p_i.dtype if self.dtype is None else torch.float32
+        mask = (adj != 0).to(acc)
 
         def block(pi_b, pj_b, mask_b):
             m = self._message(act(pi_b.unsqueeze(-2) + pj_b.unsqueeze(-3)))
-            return torch.einsum("ij,...ijh->...ih", mask_b, m)
+            return torch.einsum("ij,...ijh->...ih", mask_b, m.to(acc))
 
         if band is None:
             w_mean = n
@@ -223,5 +252,5 @@ class GatedGraphNetwork(nn.Module):
                          dim=-2)
 
     def _message(self, m):
-        m = get_activation(self.activation)(self.msg(m))
-        return torch.sigmoid(self.gate(m)) * m
+        m = get_activation(self.activation)(self._lin(self.msg, m))
+        return torch.sigmoid(self._lin(self.gate, m)) * m

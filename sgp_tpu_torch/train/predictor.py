@@ -16,13 +16,18 @@ jitted step; the optimizer updates the model's parameters in place, so
 ``fit`` keeps a copy of the best ``state_dict``; weights are drawn at
 :meth:`init` from a ``torch.Generator`` seeded with ``seed`` (flax's
 distributions, not its bits — the tests carry flax weights across with
-``models/bridge.py``). Data-parallel meshes, ``compute_dtype`` and
-checkpoint files are not ported yet.
+``models/bridge.py``); :meth:`save` writes the weights as a ``state_dict``
+(``torch.save``), not msgpack. Data-parallel meshes, ``compute_dtype`` and
+the restartable ``save_state`` are not ported yet.
+
+Subgraph batches (``data/subgraph.py``) carry ``target_nodes``, the roots'
+positions: the training loss and :meth:`evaluate` read those nodes only.
 """
 from __future__ import annotations
 
 import inspect
 import logging
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from sgp_tpu_torch.data.scalers import Scaler, ScalerParams
+from sgp_tpu_torch.obs.run_logger import RunLogger
 from sgp_tpu_torch.train.metrics import (_METRIC_FNS, MaskedMetrics,
                                          _masked_reduce)
 from sgp_tpu_torch.utils.device import resolve_device
@@ -154,10 +160,21 @@ class Predictor:
         self.model.train(training)
         return self.model(*args, **kwargs)
 
+    @staticmethod
+    def _slice_targets(batch, y_hat):
+        """``(y_hat, y, mask)`` at the batch's ``target_nodes`` (the roots of
+        a subgraph batch) when it has them, else whole."""
+        y, mask = batch["y"], batch.get("mask")
+        if "target_nodes" in batch:
+            tn = batch["target_nodes"].long()
+            y_hat, y = y_hat.index_select(-2, tn), y.index_select(-2, tn)
+            mask = None if mask is None else mask.index_select(-2, tn)
+        return y_hat, y, mask
+
     def compute_loss(self, batch) -> torch.Tensor:
         """The masked training loss of a placed batch (with autograd)."""
-        y_hat = self._forward(batch, True)
-        y, mask = batch["y"], batch.get("mask")
+        y_hat, y, mask = self._slice_targets(batch,
+                                             self._forward(batch, True))
         sc = batch.get("scaler", self.scaler)
         if self.scale_target:
             y_ref = sc.transform(y)
@@ -192,8 +209,9 @@ class Predictor:
         for batch in loader:
             b = self._place(batch)
             sc = b.get("scaler", self.scaler)
-            y_hat = sc.inverse_transform(self._forward(b, False))
-            state = self.metrics.update(state, y_hat, b["y"], b.get("mask"))
+            y_hat, y, mask = self._slice_targets(b, self._forward(b, False))
+            state = self.metrics.update(state, sc.inverse_transform(y_hat),
+                                        y, mask)
         out = self.metrics.compute(state)
         return {f"{prefix}{k}": v for k, v in out.items()}
 
@@ -207,13 +225,32 @@ class Predictor:
                 self._forward(b, False)).cpu().numpy())
         return np.concatenate(outs, axis=0)
 
+    @torch.no_grad()
+    def predict_loader(self, loader):
+        """``(y, y_hat, mask)`` over ``loader``, numpy, concatenated over
+        batches (``mask`` None when the batches have none); ``y_hat`` in raw
+        space and over all nodes of each batch."""
+        ys, yhs, ms = [], [], []
+        for batch in loader:
+            b = self._place(batch)
+            sc = b.get("scaler", self.scaler)
+            yhs.append(sc.inverse_transform(
+                self._forward(b, False)).cpu().numpy())
+            ys.append(np.asarray(batch["y"]))
+            ms.append(None if batch.get("mask") is None
+                      else np.asarray(batch["mask"]))
+        mask = None if ms[0] is None else np.concatenate(ms, 0)
+        return np.concatenate(ys, 0), np.concatenate(yhs, 0), mask
+
     def fit(self, train_loader, val_loader=None, epochs: int = 1,
             patience: Optional[int] = None, monitor: str = "mae",
-            log_every: int = 1, scaler: Optional[ScalerParams] = None):
+            log_every: int = 1, scaler: Optional[ScalerParams] = None,
+            logdir: Optional[str] = None):
         """Train for ``epochs``, keep the weights of the best epoch (by
         ``val_<monitor>``, or the train loss without a val loader) and
         restore them at the end; stop after ``patience`` epochs without a
-        better one. Returns the best value."""
+        better one. With ``logdir`` each epoch's logs are appended to
+        ``<logdir>/metrics.jsonl``. Returns the best value."""
         if self.optimizer is None:
             self.init(next(iter(train_loader)),
                       scaler if scaler is not None else Scaler().params())
@@ -221,6 +258,7 @@ class Predictor:
             raise ValueError(
                 f"monitor={monitor!r} is not a tracked metric; "
                 f"available: {sorted(self.metrics.names)}")
+        run_logger = RunLogger(logdir) if logdir is not None else None
         best_metric, bad_epochs = np.inf, 0
         best_state = self._state_copy()
         for epoch in range(epochs):
@@ -231,6 +269,8 @@ class Predictor:
                 current = logs[f"val_{monitor}"]
             else:
                 current = logs["train_loss"]
+            if run_logger is not None:
+                run_logger.log_metrics(logs, step=epoch)
             if current < best_metric:
                 best_metric, best_state, bad_epochs = \
                     current, self._state_copy(), 0
@@ -243,9 +283,23 @@ class Predictor:
             if patience is not None and bad_epochs > patience:
                 logger.info(f"early stop at epoch {epoch}")
                 break
+        if run_logger is not None:
+            run_logger.close()
         self.model.load_state_dict(best_state)   # restore the best epoch
         return best_metric
 
     def _state_copy(self) -> dict:
         return {k: v.detach().clone()
                 for k, v in self.model.state_dict().items()}
+
+    # -- weights -----------------------------------------------------------
+    def save(self, path: str):
+        """The model's weights as a ``state_dict`` (``torch.save``)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(self.model.state_dict(), path)
+
+    def load(self, path: str):
+        """Weights written by :meth:`save`, onto the model's device."""
+        self.model.load_state_dict(torch.load(path, map_location=self.device,
+                                              weights_only=True))
+        return self

@@ -10,6 +10,12 @@ its blocked XLA math and its Pallas kernel (``ALLPAIRS_PALLAS = True``); the
 port runs ``gn_allpairs_aggregate``'s plain version, the CPU side of kernel
 K3. Tolerance 1e-4 (f32; the same products summed in other orders through
 two layers).
+
+Also ``GatedGraphNetworkConvModel`` (the CNN window encoder) on carried
+weights at 1e-5, and with ``neigh``/``adj`` passed, which both packages'
+conv models ignore; and ``compute_dtype="bfloat16"`` on the edge, ELL and
+all-pairs layouts at 2e-2 of the largest output (see
+``test_model_bf16_matches_flax``).
 """
 import jax
 import jax.numpy as jnp
@@ -19,14 +25,17 @@ import torch
 
 from sgp_tpu.graph.sparse import padded_incoming as j_padded_incoming
 from sgp_tpu.models import graph_layers as j_graph_layers
+from sgp_tpu.models.gated_gn import GatedGraphNetworkConvModel as JConvModel
 from sgp_tpu.models.gated_gn import GatedGraphNetworkMLPModel as JModel
 from sgp_tpu.models.graph_layers import GatedGraphNetwork as JLayer
 
 from sgp_tpu_torch.graph import Graph, band_windows, coalesce, padded_incoming
-from sgp_tpu_torch.models import (GatedGraphNetwork, GatedGraphNetworkMLPModel,
-                                  flax_to_torch)
+from sgp_tpu_torch.models import (GatedGraphNetwork,
+                                  GatedGraphNetworkConvModel,
+                                  GatedGraphNetworkMLPModel, flax_to_torch)
 from sgp_tpu_torch.models import graph_layers
-from sgp_tpu_torch.models.bridge import _gated_gn_targets, _gn_layer, _load
+from sgp_tpu_torch.models.bridge import (_gated_gn_targets, _gn_layer, _load,
+                                         targets, to_torch_layout)
 from sgp_tpu_torch.ops import gn_ell
 
 torch.set_num_threads(1)
@@ -375,6 +384,144 @@ def test_bridge_rejects_missing_extra_and_misshapen_keys():
         flax_to_torch(params, torch.nn.Linear(2, 2))
 
 
+TOL_BF16 = 2e-2        # of the largest output: a bf16 ulp is 2^-8
+TOL_BF16_GRAD = 6e-2   # of each gradient's largest value
+
+
+def _bf16_case(layout):
+    """A graph, inputs and the graph keywords of ``layout`` for both
+    packages."""
+    g, n = (_local_graph(11), 2 * N) if layout.startswith("dense") \
+        else (_graph(5), N)
+    x, u = _model_inputs(5, n)
+    if layout == "edges":
+        s, d = g.src.astype(np.int32), g.dst.astype(np.int32)
+        return n, x, u, dict(src=s, dst=d), dict(src=torch.as_tensor(s),
+                                                 dst=torch.as_tensor(d))
+    if layout == "ell":
+        (si, nm), tneigh = _neigh(g)
+        return n, x, u, dict(neigh=(si, nm)), dict(neigh=tneigh)
+    adj = g.to_dense()
+    return n, x, u, dict(adj=adj), dict(adj=torch.as_tensor(adj))
+
+
+@pytest.mark.parametrize("layout", ["edges", "ell", "dense-xla",
+                                    "dense-pallas"])
+def test_model_bf16_matches_flax(monkeypatch, layout):
+    """``compute_dtype="bfloat16"`` against flax's on the same weights:
+    the output within TOL_BF16 of its largest value (measured 4.0e-3 to
+    5.4e-3: bf16 roundings at other places, the ELL layout against the
+    Pallas kernel, the dense one against both JAX paths), the gradients
+    within TOL_BF16_GRAD of each tensor's largest (measured 1.3e-2 to
+    3.5e-2). The kernels' entries get bf16 projections, and the output
+    differs from the float32 model's."""
+    n, x, u, kw_j, kw_t = _bf16_case(layout)
+    jm, tm = _models(n_nodes=n, compute_dtype="bfloat16")
+    _, tm32 = _models(n_nodes=n)
+    params = jm.init(jax.random.PRNGKey(2), x, u=u, **kw_j)
+    flax_to_torch(jax.tree.map(np.asarray, params), tm)
+    flax_to_torch(jax.tree.map(np.asarray, params), tm32)
+    run = {"ell": _ell_pallas, "dense-pallas": _allpairs_pallas}.get(
+        layout, lambda fn: fn())
+
+    def loss_j(p):
+        return jnp.sum(jnp.abs(jm.apply(p, x, u=u, **kw_j) - 0.3))
+
+    want = run(lambda: jm.apply(params, x, u=u, **kw_j))
+    jgrads = run(lambda: jax.jit(jax.grad(loss_j))(params))
+    seen = []
+    for name in ("gn_ell_aggregate", "gn_allpairs_aggregate"):
+        fn = getattr(graph_layers, name)
+        monkeypatch.setattr(graph_layers, name,
+                            lambda *a, fn=fn: seen.append(a[1].dtype)
+                            or fn(*a))
+    tx, tu = torch.as_tensor(x), torch.as_tensor(u)
+    got = tm(tx, u=tu, **kw_t)
+    assert got.dtype == torch.float32
+    assert seen == ([] if layout == "edges" else [torch.bfloat16] * 2)
+    top = float(np.abs(np.asarray(want)).max())
+    _close(got, want, TOL_BF16 * top)
+    f32 = tm32(tx, u=tu, **kw_t).detach().numpy()
+    assert np.abs(got.detach().numpy() - f32).max() > 1e-3 * top
+    (got - 0.3).abs().sum().backward()
+    flat = _flat(jax.tree.map(np.asarray, jgrads)["params"])
+    for path, (param, transpose) in _gated_gn_targets(tm).items():
+        w = flat[path].T if transpose else flat[path]
+        _close(param.grad, w, TOL_BF16_GRAD * float(np.abs(w).max()),
+               "/".join(path))
+
+
 def test_model_options_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        _models(compute_dtype="bfloat16")
+    """bf16 is ported (``test_model_bf16_matches_flax``); a compute dtype
+    neither float32 nor bf16 raises."""
+    _, tm = _models(compute_dtype="bfloat16")
+    assert all(layer.dtype == torch.bfloat16 for layer in tm.gnn)
+    assert _models(compute_dtype="float32")[1].gnn[0].dtype is None
+    with pytest.raises(ValueError):
+        _models(compute_dtype="float16")
+
+
+def _conv_models(**kw):
+    common = dict(input_window_size=12, hidden_size=16, output_size=1,
+                  horizon=3, n_nodes=N, enc_layers=2, gnn_layers=2,
+                  positional_encoding=True, activation="silu")
+    common.update(kw)
+    return JConvModel(**common), GatedGraphNetworkConvModel(input_size=3,
+                                                            **common)
+
+
+@pytest.mark.parametrize("window", [12, 36, 1])
+def test_conv_model_matches_flax(window):
+    """``GatedGraphNetworkConvModel`` (the strided residual CNN encoder,
+    flax ``nn.Conv`` kernels carried into ``Conv1d``) against flax on the
+    edge list, values and gradients at 1e-5 relative to the largest
+    (f32). Window 36 runs the config's three layers, 36 -> 8 -> 2 -> 1."""
+    g = _graph(13)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, max(window, 6), N, 1)).astype(np.float32)
+    u = rng.standard_normal((2, max(window, 6), 2)).astype(np.float32)
+    s, d = g.src.astype(np.int32), g.dst.astype(np.int32)
+    jm, tm = _conv_models(input_window_size=window)
+    params = jm.init(jax.random.PRNGKey(9), x, s, d, u=u)
+    flax_to_torch(jax.tree.map(np.asarray, params), tm)
+    if window == 36:
+        assert [c.weight.shape[0] for c in tm.cnn.convs] == [16, 32, 64]
+        assert tm.cnn.pads == [4, 2, 3]
+
+    def loss_j(p):
+        return jnp.sum(jnp.abs(jm.apply(p, x, s, d, u=u) - 0.3))
+
+    want = jm.apply(params, x, s, d, u=u)
+    jgrads = jax.jit(jax.grad(loss_j))(params)
+    got = tm(torch.as_tensor(x), torch.as_tensor(s), torch.as_tensor(d),
+             u=torch.as_tensor(u))
+    top = float(np.abs(np.asarray(want)).max())
+    _close(got, want, 1e-5 * top)
+    (got - 0.3).abs().sum().backward()
+    flat = _flat(jax.tree.map(np.asarray, jgrads)["params"])
+    for path, (param, how) in targets(tm).items():
+        w = to_torch_layout(flat[path], how)
+        _close(param.grad, w, 1e-5 * float(np.abs(w).max()), "/".join(path))
+
+
+def test_conv_model_ignores_neigh_and_adj():
+    """The JAX conv model takes ``neigh``/``adj`` in ``**kwargs`` and drops
+    them, so without ``src`` it runs the all-pairs edge list: the port
+    computes the same (1e-5), whatever graph is passed that way."""
+    (si, nm), tneigh = _neigh(_graph(14))
+    adj = _graph(15).to_dense()
+    x, u = _model_inputs(14)
+    x = np.concatenate([x, x], 1)                       # window 12
+    u = np.concatenate([u, u], 1)
+    jm, tm = _conv_models()
+    params = jm.init(jax.random.PRNGKey(10), x, u=u)
+    flax_to_torch(jax.tree.map(np.asarray, params), tm)
+    want = np.asarray(jm.apply(params, x, u=u))
+    top = float(np.abs(want).max())
+    tx, tu = torch.as_tensor(x), torch.as_tensor(u)
+    for j_kw, t_kw in ((dict(neigh=(si, nm)), dict(neigh=tneigh)),
+                       (dict(adj=adj), dict(adj=torch.as_tensor(adj))),
+                       ({}, {})):
+        np.testing.assert_allclose(np.asarray(jm.apply(params, x, u=u,
+                                                       **j_kw)), want)
+        _close(tm(tx, u=tu, **t_kw), want, 1e-5 * top)

@@ -45,6 +45,12 @@ MAIN_PATH = (
     "sgp_tpu_torch.exp.common", "sgp_tpu_torch.exp.run_traffic_sgp",
     "sgp_tpu_torch.exp.run_largescale_sgp")
 
+# the baseline runners' modules
+BASELINES = (
+    "sgp_tpu_torch.data.subgraph", "sgp_tpu_torch.obs.run_logger",
+    "sgp_tpu_torch.exp.run_traffic_baselines",
+    "sgp_tpu_torch.exp.run_largescale_baselines")
+
 # the attention slice's modules
 ATTENTION_SLICE = (
     "sgp_tpu_torch.ops.sddmm", "sgp_tpu_torch.ops.scatter",
@@ -63,6 +69,7 @@ def test_port_never_imports_jax():
     assert set(TRAINING_SLICE) <= set(words[2:])
     assert set(ATTENTION_SLICE) <= set(words[2:])
     assert set(MAIN_PATH) <= set(words[2:])
+    assert set(BASELINES) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -5,7 +5,9 @@ modules bit-exact (numpy on both sides), the masked metrics, one
 The train step runs on the ELL table (the 100-nn slice) and on the dense
 all-pairs mask of the dataset's similarity thresholded at the PV-US
 full-graph density, 14.75% (the full-graph slice), with and without band
-windows.
+windows; and on subgraph batches (``SubgraphLoader``), where the loss and
+``evaluate`` read the roots (``target_nodes``) only. Then
+``predict_loader``, ``save``/``load`` and ``fit``'s metric stream.
 
 Tolerances: metrics 1e-6 relative (the same f32 sums); the train step's
 loss and gradients 1e-5 relative to each tensor's largest value (f32, other
@@ -423,3 +425,127 @@ def test_fit_restores_a_copy_of_the_best_epoch(pipelines, monkeypatch):
     final = tpred.model.state_dict()
     assert all(torch.equal(final[k], after_epoch[0][k]) for k in final)
     assert not all(torch.equal(final[k], after_epoch[2][k]) for k in final)
+
+
+def _edge_call(batch, training):
+    """The large-scale runner's call on a subgraph batch."""
+    return (batch["x"],), {"u": batch.get("u"), "training": training,
+                           "node_index": batch.get("node_index"),
+                           "src": batch["sub_src"], "dst": batch["sub_dst"],
+                           "edge_mask": batch["sub_weight"] != 0}
+
+
+def _subgraph_predictors(pipelines, grad_clip):
+    """The JAX and port trainers on subgraph batches (6 roots of the 24
+    nodes, k 1, padded to 12 nodes and 80 edges), weights carried across;
+    and the two loaders."""
+    from sgp_tpu.data.subgraph import SubgraphLoader as JSubgraphLoader
+    from sgp_tpu_torch.data import SubgraphLoader
+    (jds, _, jsplit), (tds, _, tsplit) = pipelines
+    kw = dict(batch_size=5, num_roots=6, k=1, max_edges=80, pad_nodes=12,
+              limit_batches=2, seed=4)
+    jl, tl = JSubgraphLoader(jds, jsplit.train, **kw), \
+        SubgraphLoader(tds, tsplit.train, **kw)
+    jm, tm = _slice_models(N_NODES)
+    jpred = JPredictor(jm, lr=1e-3, grad_clip=grad_clip,
+                       batch_to_call=_edge_call, seed=0)
+    jpred.init(next(iter(JSubgraphLoader(jds, jsplit.train, **kw))),
+               jds.scaler_params())
+    tpred = Predictor(tm, lr=1e-3, grad_clip=grad_clip,
+                      batch_to_call=_edge_call, seed=0, device="cpu")
+    tpred.init(None, tds.scaler_params())
+    flax_to_torch(jax.tree.map(np.asarray, jpred.params), tm)
+    return jpred, tpred, jl, tl
+
+
+@pytest.mark.parametrize("grad_clip", [5.0, 0.05])
+def test_root_only_loss_matches_jax(pipelines, grad_clip):
+    """One train step on a subgraph batch: the loss reads the roots
+    (``target_nodes``) only, as the JAX trainer's ``slice_targets`` does.
+    The loss and gradients at 1e-5 relative to each tensor's largest, the
+    parameters after clip and Adam at atol 1e-6 where the gradient exceeds
+    1e-6; and the loss over every node differs."""
+    jpred, tpred, jl, tl = _subgraph_predictors(pipelines, grad_clip)
+    jb, tb = next(iter(jl)), next(iter(tl))
+    assert np.array_equal(jb["target_nodes"], tb["target_nodes"])
+    assert len(tb["target_nodes"]) == 6 < tb["x"].shape[2]
+    jdev = {k: jnp.asarray(v) for k, v in jb.items()}
+    sc = pipelines[0][0].scaler_params()
+
+    def loss_j(params):
+        args, kwargs = _edge_call(jdev, True)
+        out = jpred.model.apply(params, *args, **kwargs)
+        tn = jdev["target_nodes"]
+        v, n = jmetrics._masked_reduce(
+            jmetrics._abs_err, sc.inverse_transform(out)[..., tn, :],
+            jdev["y"][..., tn, :], jdev["mask"][..., tn, :])
+        return v / jnp.maximum(n, 1.0)
+
+    loss_j, grad_j = jax.jit(loss_j), jax.jit(jax.grad(loss_j))
+    clipped, _ = optax.clip_by_global_norm(grad_clip).update(
+        grad_j(jpred.params), optax.EmptyState())
+    new_params, _, jloss = jpred._train_step(
+        jpred.params, jpred.opt_state, jdev, jax.random.PRNGKey(0))
+    np.testing.assert_allclose(float(loss_j(jpred.params)), float(jloss),
+                               rtol=1e-6)
+    every_node = tpred.compute_loss(tpred._place(
+        {k: v for k, v in tb.items() if k != "target_nodes"})).detach()
+    assert abs(float(every_node) - float(jloss)) > 1e-3 * float(jloss)
+    tloss = tpred.train_step(tb)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    flat_g = jax.tree.map(np.asarray, clipped)["params"]
+    flat_p = jax.tree.map(np.asarray, new_params)["params"]
+    for path, (param, transpose) in _gated_gn_targets(tpred.model).items():
+        want_g, want_p = flat_g, flat_p
+        for k in path:
+            want_g, want_p = want_g[k], want_p[k]
+        if transpose:
+            want_g, want_p = want_g.T, want_p.T
+        _rel_close(param.grad.numpy(), want_g, 1e-5, "/".join(path))
+        keep = np.abs(want_g) > 1e-6
+        np.testing.assert_allclose(param.detach().numpy()[keep],
+                                   want_p[keep], rtol=0, atol=1e-6,
+                                   err_msg="/".join(path))
+
+
+def test_evaluate_on_roots_matches_jax(pipelines):
+    """``evaluate`` on subgraph batches reads the roots only (1e-5
+    relative); ``predict_loader`` gives JAX's ``(y, y_hat, mask)`` over
+    every node of each batch."""
+    jpred, tpred, jl, tl = _subgraph_predictors(pipelines, 5.0)
+    want = jpred.evaluate(jl, prefix="test_")
+    got = tpred.evaluate(tl, prefix="test_")
+    assert set(got) == set(want) == {"test_mae", "test_mse", "test_mape"}
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    (jy, jyh, jmask), (ty, tyh, tmask) = jpred.predict_loader(jl), \
+        tpred.predict_loader(tl)
+    assert np.array_equal(jy, ty) and np.array_equal(jmask, tmask)
+    np.testing.assert_allclose(tyh, jyh, rtol=1e-5, atol=1e-4)
+    assert tyh.shape == (10, 3, 12, 1)
+    all_nodes = tpred.evaluate(
+        [{k: v for k, v in b.items() if k != "target_nodes"} for b in tl],
+        prefix="test_")
+    assert abs(all_nodes["test_mae"] - got["test_mae"]) > \
+        1e-3 * got["test_mae"]
+
+
+def test_save_load_and_metric_stream(pipelines, tmp_path):
+    """``save`` writes the weights as a state_dict that ``load`` brings
+    back; ``fit(logdir=)`` appends one ``metrics.jsonl`` record an epoch,
+    as the JAX trainer's run logger does."""
+    import json
+    _, tpred, _, tl = _subgraph_predictors(pipelines, 5.0)
+    tpred.fit(tl, None, epochs=2, logdir=str(tmp_path))
+    path = str(tmp_path / "w" / "best.pt")
+    tpred.save(path)
+    saved = tpred._state_copy()
+    for p in tpred.model.parameters():
+        p.data.add_(1.0)
+    tpred.load(path)
+    assert all(torch.equal(v, saved[k])
+               for k, v in tpred.model.state_dict().items())
+    with open(tmp_path / "metrics.jsonl") as fp:
+        recs = [json.loads(line) for line in fp]
+    assert [r["_step"] for r in recs] == [0, 1]
+    assert all(set(r) == {"train_loss", "_time", "_step"} for r in recs)
