@@ -20,7 +20,9 @@ the large-scale runner's streaming encode, packed IID training and fused
 evaluation at the ``sgp_pv.yaml`` widths, and the runner itself; and the
 baseline runners (``exp/run_traffic_baselines.py``,
 ``exp/run_largescale_baselines.py``) from their command lines, reaching K4
-and K3. In phases; any failure raises and the exit code is not 0:
+and K3; and the diffusion baselines, DCRNN and GraphWaveNet trained through
+K1 under DiffConv's hops, and the runners on them and on the LSTM. In
+phases; any failure raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
 1. build the four kernels, one ``nvcc`` each, in parallel
@@ -110,7 +112,26 @@ and K3. In phases; any failure raises and the exit code is not 0:
    (``--epochs 0``), the first step held against the port on the CPU, the
    train loader's host ms a batch, step times, peak memory and a
    profile's idle share; then K3's forward at run (c)'s evaluation shape
-   (25.2 M pairs) against its plain version, with its bound.
+   (25.2 M pairs) against its plain version, with its bound;
+13. the diffusion baselines on phase 5's data: ``DCRNNModel`` at
+   ``largescale_100nn/dcrnn_pv.yaml``'s widths and ``GraphWaveNetModel`` at
+   ``gwnet_pv.yaml``'s, trained through ``Predictor`` with the runner's
+   call, once on BSR supports (``diff_conv_support(operator_mode="bsr")``:
+   K1 forward and backward) and once on dense ones from the same weights,
+   batches and dropout draws: K1's launches a train step and an evaluate
+   batch held to the count from the code (0 on the dense route), the
+   routes held to each other (forward with its mean signed error, first
+   gradients, losses, evaluation, final weights), the first step against
+   the port on the CPU (a ragged 1,001-node set at k 100, dropout 0; a
+   gradient beyond its tolerance only where at most 4 of the decoder's
+   relu units, each within rounding of 0, turn the other way), step
+   times, peak memory and idle share of both routes; K1 at F 256 and 2,304
+   against its plain version with the bound, cuSPARSE and the dense
+   matmul; then the runners from their command lines
+   (``DIFF_RUNNER_CASES``: DCRNN on full-graph windows, DCRNN and
+   GraphWaveNet on subgraph batches, the LSTM of ``traffic/rnn.yaml``),
+   each below its untrained run, its first step against the CPU port on a
+   1,001-node set.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -120,7 +141,8 @@ clock per SM at the SM clock ``nvidia-smi`` reports.
 
 The line before the last is a JSON object of the kernels (K4's launches
 from run (a), K3 forward's from run (c), each slice's own count beside
-them); the last is ``{"ok": true, "device": {...}}``. Without a CUDA
+them; K1's ``diffconv`` sub-entry from phase 13); the last is ``{"ok":
+true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -263,6 +285,45 @@ RUNNER_TIME_DROP = 2    # first steps of a run left out of its step times
 # trains on edge lists the same step in float64 on the CPU
 TOL_RUNNER_BF16 = 2e-2
 RUNNER_SLACK = 2.0
+# phase 13, the diffusion baselines at the configs' widths; only epochs and
+# batches cut
+DCRNN_CONFIG = ROOT / "configs" / "largescale_100nn" / "dcrnn_pv.yaml"
+GWNET_CONFIG = ROOT / "configs" / "largescale_100nn" / "gwnet_pv.yaml"
+RNN_CONFIG = ROOT / "configs" / "traffic" / "rnn.yaml"
+DIFF_STEPS = 4          # train steps of each support route's run
+DIFF_TIME_ORDER = ("dense", "bsr", "bsr", "dense")   # step timing rounds
+DIFF_TIME_STEPS = 5     # steps a round (the first TIME_DROP left out)
+DIFF_CPU_NODES = 1001   # the CPU first step's ragged set, at k = KNN
+DIFF_WIDTHS = (256, 2304)   # K1's F under DCRNN's and GraphWaveNet's hops
+# BSR route (K1, 3xTF32 products) vs dense route (an f32 matmul) from the
+# same weights, batches and dropout draws, relative to the largest value:
+# the forward, the first step's gradients, the losses and the evaluation.
+# f32 sums in another order through 36 recurrent steps (DCRNN) or 8 layers
+# and a batch norm (GraphWaveNet), then 4 Adam steps: 1e-4, and the
+# forward's mean signed error within 1e-6 (a bias the max would hide). A
+# gradient under ZERO_GRAD of the model's largest is 0 in exact arithmetic
+# and is held relative to the model's largest gradient instead.
+TOL_ROUTE = 1e-4
+TOL_ROUTE_BIAS = 1e-6
+ZERO_GRAD = 1e-6
+# the decoder's relu units, each within the runs' rounding of 0, that a
+# first step on the card may turn the other way from the CPU's (phase 13:
+# GraphWaveNet's first step at 1,001 nodes had one at 2.2e-7, which moved
+# emb_src's gradient 1.5e-2 of its largest value, on an NVIDIA H100)
+KINK_UNITS = 4
+DIFF_RUN = ["--epochs", "2", "--batches-epoch", "4"]
+# (tag, runner, config, flags): the diffusion runners on phase 5's
+# synthetic set; the RNN's traffic config has no graph of its own, so the
+# run builds the 100-nn one (the model reads none)
+DIFF_RUNNER_CASES = (
+    ("dcrnn traffic", "traffic", DCRNN_CONFIG,
+     ["--model-name", "dcrnn", "--adj-knn", str(KNN)] + DIFF_RUN),
+    ("dcrnn large", "largescale", DCRNN_CONFIG,
+     ["--model-name", "dcrnn"] + DIFF_RUN),
+    ("gwnet large", "largescale", GWNET_CONFIG,
+     ["--model-name", "gwnet"] + DIFF_RUN),
+    ("rnn", "traffic", RNN_CONFIG,
+     ["--model-name", "rnn", "--adj-knn", str(KNN)] + DIFF_RUN))
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -1104,15 +1165,18 @@ def cpu_step(tag, make, loader, init_state, losses, grads0, what: str,
     c_losses, _, c_grads = train_steps(on_cpu, loader, cpu)
     cpu_s = time.perf_counter() - t0
     c_err = abs(c_losses[0] - losses[0]) / abs(c_losses[0])
-    g_err = max(rel_err(grads0[k], c_grads[k])[1] for k in grads0
-                if k not in exact_zero)
+    errs = {k: rel_err(grads0[k], c_grads[k])[1] for k in grads0
+            if k not in exact_zero}
+    g_err = max(errs.values())
+    worst = sorted(errs, key=errs.get)[-3:]
     top = max(g.abs().max().item() for g in grads0.values())
     zero = max((max(grads0[k].abs().max().item(),
                     c_grads[k].abs().max().item()) / top
                 for k in exact_zero), default=0.0)
     print(f"[{tag}] card vs CPU port, first step {what} ({cpu_s:.1f} s on "
           f"the CPU): loss rel err {c_err:.3e} (tol {TOL_LOSS}), clipped "
-          f"gradients max rel err {g_err:.3e} (tol {TOL_GRAD})" + (
+          f"gradients max rel err {g_err:.3e} (tol {TOL_GRAD}; the worst "
+          f"{[(k, f'{errs[k]:.3e}') for k in worst]})" + (
               f"; {list(exact_zero)} (0 in exact arithmetic) at most "
               f"{zero:.3e} of the largest gradient (tol {TOL_ZERO_GRAD})"
               if exact_zero else ""))
@@ -2138,81 +2202,161 @@ class RunRecorder:
                 if getattr(ld, "shuffle", False) for t in ts]
 
 
-def _cpu_trainer(pred, init: dict, dtype=torch.float32):
-    """A CPU copy of the card's trainer ``pred``: its settings, call and
-    graph state, the weights ``init``, its model and scaler in ``dtype``."""
+def operator_on_cpu(op):
+    """A diffusion support as the same matrix, dense on the CPU: the COO
+    supports of a subgraph batch gather and scatter every edge row by row
+    there, slower than one matrix product at the CPU steps' node counts."""
+    from sgp_tpu_torch.ops import COOOperator, DenseOperator
+    if isinstance(op, DenseOperator):
+        return DenseOperator(op.mat.cpu(), op.precision)
+    assert isinstance(op, COOOperator), type(op)
+    n = op.num_nodes
+    mat = torch.zeros((n, n), dtype=op.weight.dtype)
+    mat.index_put_((op.dst.long().cpu(), op.src.long().cpu()),
+                   op.weight.cpu(), accumulate=True)
+    return DenseOperator(mat)
+
+
+def supports_on_cpu(call):
+    """``call`` with the supports it hands the model (a list after x) made
+    dense on the CPU by :func:`operator_on_cpu`."""
+    def on_cpu(batch, training):
+        args, kwargs = call(batch, training)
+        if len(args) > 1 and isinstance(args[1], list):
+            args = (args[0], [operator_on_cpu(op) for op in args[1]])
+        return args, kwargs
+    return on_cpu
+
+
+def no_dropout(model):
+    """``model`` with every dropout off (the card's and the CPU's dropout
+    draws differ); returns it."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def has_dropout(model) -> bool:
+    return any(isinstance(m, torch.nn.Dropout) and m.p > 0
+               for m in model.modules())
+
+
+def _cpu_trainer(pred, init: dict, dtype=torch.float32, device="cpu",
+                 dropout: bool = True):
+    """A copy of the card's trainer ``pred`` on ``device`` (default the
+    CPU): its settings, call and graph state (diffusion supports by
+    :func:`operator_on_cpu`), the weights ``init``, its model and scaler in
+    ``dtype``; without dropout unless ``dropout``."""
     import copy
     from sgp_tpu_torch.data.scalers import ScalerParams
     from sgp_tpu_torch.train import Predictor
-    cpu = Predictor(copy.deepcopy(pred.model).to("cpu", dtype),
+    static, call = dict(pred.static_batch), pred.batch_to_call
+    if "supports" in static and torch.device(device).type == "cpu":
+        static["supports"] = [operator_on_cpu(op)
+                              for op in static["supports"]]
+        call = supports_on_cpu(call)
+    model = copy.deepcopy(pred.model).to(device, dtype)
+    cpu = Predictor(model if dropout else no_dropout(model),
                     loss=pred.loss_kind, lr=pred.lr,
                     weight_decay=pred.weight_decay, grad_clip=pred.grad_clip,
                     scale_target=pred.scale_target, metrics=pred.metrics,
-                    batch_to_call=pred.batch_to_call, seed=pred.seed,
-                    static_batch=pred.static_batch, device="cpu")
+                    batch_to_call=call, seed=pred.seed,
+                    static_batch=static, device=device)
     cpu.init(None, ScalerParams(pred.scaler.bias.to(dtype),
                                 pred.scaler.scale.to(dtype)))
     cpu.model.load_state_dict(init)
     return cpu
 
 
-def runner_cpu_step(first: dict, tol: float, reference=None) -> dict:
+def runner_cpu_step(first: dict, tol: float, reference=None,
+                    phase: str = "phase 12") -> dict:
     """The run's first train step again by the port on the CPU (the card's
     trainer settings, call, graph state, weights and host batch): the loss
     held to the card's within ``tol`` relative, and each clipped gradient
     within ``tol`` of its largest value or, failing that, no further from
     the ``reference`` gradients than ``RUNNER_SLACK`` times the CPU port's
-    distance from them, plus ``TOL_GRAD``. Without a given reference, a
-    run that trains on edge lists takes the step in float64 on the CPU."""
-    cpu = _cpu_trainer(first["pred"], first["init"])
+    distance from them, plus ``TOL_GRAD``. Without a given reference, the
+    step is taken in float64 on the CPU when a gradient is beyond ``tol``
+    (sums over millions of edges or recurrent steps in another order; an
+    edge-list GatedGN's and the LSTM's cuDNN bias sums showed such
+    gaps). A model with dropout takes the step
+    without it on both devices (their draws differ), the card's again from
+    the same weights and batch. Gradients are held by :func:`grad_errors`;
+    for a model with an MLPDecoder (the diffusion and recurrent baselines)
+    both steps record the decoder's pre-activations, and a gap that
+    :func:`kink_flips` explains passes."""
+    card_loss, card_grads = first["loss"], first["grads"]
+    dropout = has_dropout(first["pred"].model)
+    pre = {"card": [], "cpu": []}
+    if dropout or hasattr(first["pred"].model, "decoder"):
+        card = _cpu_trainer(first["pred"], first["init"],
+                            device=first["pred"].device, dropout=False)
+        decoder_hook(card.model, pre["card"])
+        card_loss = float(card.train_step(first["batch"]))
+        card_grads = {k: p.grad.detach().cpu() for k, p in
+                      card.model.named_parameters()}
+    cpu = _cpu_trainer(first["pred"], first["init"], dropout=False)
+    decoder_hook(cpu.model, pre["cpu"])
     t0 = time.perf_counter()
     loss = float(cpu.train_step(first["batch"]))
     cpu_s = time.perf_counter() - t0
     grads = {k: p.grad for k, p in cpu.model.named_parameters()}
-    loss_err = abs(loss - first["loss"]) / abs(loss)
-    errs = {k: rel_err(first["grads"][k], g)[1] for k, g in grads.items()}
+    loss_err = abs(loss - card_loss) / abs(loss)
+    errs = grad_errors(card_grads, grads)
     out = {"cpu_s": cpu_s, "loss_rel_err": loss_err, "tol": tol,
            "grad_max_rel_err": max(errs.values()),
-           "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3]}
-    if reference is None and "sub_src" in first["batch"]:
-        f64 = _cpu_trainer(first["pred"], first["init"], torch.float64)
+           "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+           "dropout": "off on both devices" if dropout else "none"}
+    bad = [k for k, e in errs.items() if not e <= tol]
+    if pre["card"]:
+        out["kinks"] = kink_flips(pre["card"][0], pre["cpu"][0])
+        assert out["kinks"]["pre_activation_rel_err"] <= tol, out
+        if bad and out["kinks"]["explained"]:
+            bad = []
+    if bad and reference is None:
+        f64 = _cpu_trainer(first["pred"], first["init"], torch.float64,
+                           dropout=False)
         f64.train_step({k: v.astype(np.float64) if isinstance(
             v, np.ndarray) and v.dtype == np.float32 else v
             for k, v in first["batch"].items()})
         reference = {k: p.grad for k, p in f64.model.named_parameters()}
         out["reference"] = "float64 on the CPU"
-    bad = [k for k, e in errs.items() if not e <= tol]
     if reference is not None:
-        dist = {k: (rel_err(first["grads"][k].double(),
+        dist = {k: (rel_err(card_grads[k].double(),
                             reference[k].double())[1],
                     rel_err(grads[k].double(), reference[k].double())[1])
                 for k in bad}
         out["beyond_tol_from_reference_card_cpu"] = dist
         bad = [k for k, (d_card, d_cpu) in dist.items()
                if not d_card <= RUNNER_SLACK * d_cpu + TOL_GRAD]
-    print(f"[phase 12] first step, card vs CPU port: {json.dumps(out)}")
+    print(f"[{phase}] first step, card vs CPU port: {json.dumps(out)}")
     assert loss_err <= tol and not bad, (loss_err, bad)
     return out
 
 
 def runner_run(tag, runner, config, flags, kernels, device,
-               f32_grads=None) -> dict:
+               f32_grads=None, phase: str = "phase 12",
+               cpu_nodes: int = None) -> dict:
     """One runner through ``Experiment(...).run(argv)``, its kernels'
     launch counters set to 0 just before and read just after; then the same
     run untrained (``--epochs 0``), the first step on the CPU (a bf16 run's
     held by its f32 twin's first-step gradients ``f32_grads``), and a
-    profile of ``PROFILE_STEPS`` steps on its trainer."""
+    profile of ``PROFILE_STEPS`` steps on its trainer. With ``cpu_nodes``
+    the CPU step is that of the same command on a ``cpu_nodes``-node set
+    (one batch on the card, then on the CPU): the full set's step is too
+    slow there."""
     bf16 = "bfloat16" in flags
     assert not bf16 or f32_grads is not None, "a bf16 run needs its f32 twin"
     from sgp_tpu_torch.exp import (run_largescale_baselines,
                                    run_traffic_baselines)
     from sgp_tpu_torch.exp.common import Experiment
-    from sgp_tpu_torch.ops import gn_allpairs, gn_ell
+    from sgp_tpu_torch.ops import bsr_spmm, gn_allpairs, gn_ell
     mod = run_traffic_baselines if runner == "traffic" \
         else run_largescale_baselines
     counters = {f.__name__: f for f in (
         gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd, gn_allpairs.gn_allpairs_fwd,
-        gn_allpairs.gn_allpairs_bwd)}
+        gn_allpairs.gn_allpairs_bwd, bsr_spmm)}
     argv = ["--config", str(config)] + RUNNER_ARGS + flags + [
         "--device", str(device)]
     rec = RunRecorder(device)
@@ -2231,8 +2375,20 @@ def runner_run(tag, runner, config, flags, kernels, device,
     untrained = Experiment(mod.run_experiment,
                            run_traffic_baselines.configure_parser()).run(
         argv + ["--epochs", "0"])
-    cpu = runner_cpu_step(rec.first, TOL_RUNNER_BF16 if bf16 else TOL_LOSS,
-                          f32_grads if bf16 else None)
+    first = rec.first
+    if cpu_nodes:
+        small_argv = list(argv)
+        small_argv[small_argv.index("--synthetic-nodes") + 1] = str(cpu_nodes)
+        small = RunRecorder(device)
+        with small.patch():
+            Experiment(mod.run_experiment,
+                       run_traffic_baselines.configure_parser()).run(
+                small_argv + ["--epochs", "1", "--batches-epoch", "1"])
+        first = small.first
+    cpu = runner_cpu_step(first, TOL_RUNNER_BF16 if bf16 else TOL_LOSS,
+                          f32_grads if bf16 else None, phase)
+    if cpu_nodes:
+        cpu["nodes"] = cpu_nodes
     step_ms = [ms for ms, _ in rec.steps[RUNNER_TIME_DROP:]]
     stats = quartiles(step_ms)
     prof = idle_share(rec.first["pred"], rec.batches, stats["median"]) \
@@ -2250,7 +2406,7 @@ def runner_run(tag, runner, config, flags, kernels, device,
         batch_nodes=int(rec.first["batch"]["x"].shape[2]),
         batch_edges=int((rec.first["batch"]["sub_weight"] != 0).sum())
         if "sub_weight" in rec.first["batch"] else None, **prof)
-    print(f"[phase 12] run {tag}: {json.dumps(row, default=str)}")
+    print(f"[{phase}] run {tag}: {json.dumps(row, default=str)}")
     missing = [k for k in kernels if not launches[k] > 0]
     assert not missing, f"run {tag} launched no {missing}: {launches}"
     assert all(np.isfinite(v) for v in res.values()), res
@@ -2309,6 +2465,341 @@ def phase12_runners(device) -> dict:
     return dict(runs=runs, k3=k3)
 
 
+def diffusion_args(name: str, config: Path):
+    """The traffic runner's namespace for ``--model-name name`` with the
+    config's values, as ``Experiment`` merges them."""
+    from sgp_tpu_torch.exp.run_traffic_baselines import configure_parser
+    args = configure_parser().parse_args(["--model-name", name])
+    for key, value in read_flat_yaml(config).items():
+        setattr(args, key, value)
+    return args
+
+
+def diffusion_predictor(args, ds, supports, device, init_state=None):
+    """The runner's model and call (``build_model_and_forward``) for
+    ``args``, trained through ``Predictor`` on ``supports``; weights from
+    ``SEED`` (or ``init_state``)."""
+    from sgp_tpu_torch.exp.run_traffic_baselines import \
+        build_model_and_forward
+    from sgp_tpu_torch.train import Predictor
+    u_size = ds.covariates["u"].value.shape[-1]
+    model, to_call, _ = build_model_and_forward(args, ds, u_size, device)
+    pred = Predictor(model, loss="mae", lr=args.lr, grad_clip=GRAD_CLIP,
+                     scale_target=args.scale_target, batch_to_call=to_call,
+                     seed=SEED, static_batch={"supports": supports},
+                     device=device)
+    pred.init(None, ds.scaler_params())
+    if init_state is not None:
+        pred.model.load_state_dict(init_state)
+    return pred
+
+
+def k1_launches(name: str, args) -> tuple:
+    """K1 launches of one forward and of its backward on BSR supports,
+    counted from the code. DCRNN's cell runs ``2 * k`` products a support
+    (the ``[x, h]`` hops and the ``r * h`` hops) at every step of the window
+    in every layer, each once more backward. GraphWaveNet's DiffConv runs
+    ``k`` a support in every layer; the last layer's diffusion output is
+    not read (only the skip sum goes on), so the backward skips it."""
+    n_sup = 2
+    if name == "dcrnn":
+        fwd = args.window * args.n_layers * 2 * n_sup * args.kernel_size
+        return fwd, fwd
+    per_layer = n_sup * args.spatial_kernel_size
+    return args.n_layers * per_layer, (args.n_layers - 1) * per_layer
+
+
+def route_run(tag, name, args, cfg, ds, split, supports, device,
+              init_state=None) -> dict:
+    """One route's main path: ``Predictor.init``, the model's forward on
+    the first test batch (weights as initialized), ``DIFF_STEPS`` train
+    steps and ``evaluate``, with K1's launches counted over the steps and
+    over the evaluation (set to 0 just before each, read just after)."""
+    from sgp_tpu_torch.ops import bsr_spmm
+    torch.manual_seed(SEED)     # both routes draw the same dropout masks
+    pred = diffusion_predictor(args, ds, supports, device, init_state)
+    init = {k: v.detach().clone() for k, v in pred.model.state_dict().items()}
+    train_loader, test_loader = loaders(cfg, ds, split, DIFF_STEPS)
+    with torch.no_grad():
+        first = pred._place(next(iter(test_loader)))
+        out0 = pred._forward(first, False).float()
+    bsr_spmm.launches = 0
+    losses, times, grads0 = train_steps(pred, train_loader, device)
+    step_launches = bsr_spmm.launches
+    bsr_spmm.launches = 0
+    metrics = pred.evaluate(test_loader, prefix="test_")
+    eval_launches = bsr_spmm.launches
+    print(f"[{tag}] {name} route {supports[0].__class__.__name__}: losses "
+          f"{losses}; {json.dumps(metrics)}; K1 launches {step_launches} in "
+          f"{DIFF_STEPS} train steps, {eval_launches} in {EVAL_BATCHES} "
+          f"evaluate batches")
+    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    return dict(pred=pred, init=init, losses=losses, grads0=grads0,
+                metrics=metrics, out0=out0, launches=step_launches +
+                eval_launches,
+                launches_per_step=step_launches / DIFF_STEPS,
+                launches_per_eval_batch=eval_launches / EVAL_BATCHES)
+
+
+def hold_routes(tag, name, bsr: dict, dense: dict) -> dict:
+    """The BSR route against the dense one from the same weights, batches
+    and dropout draws: the forward on a test batch, the first step's
+    gradients, the losses, the evaluation and the final weights."""
+    fwd_abs, fwd_rel = rel_err(bsr["out0"], dense["out0"])
+    fwd_mean = ((bsr["out0"] - dense["out0"]).mean()
+                / dense["out0"].abs().max()).item()
+    top = max(g.abs().max().item() for g in dense["grads0"].values())
+    grads = {}
+    for k, g in dense["grads0"].items():
+        scale = g.abs().max().item()
+        scale = scale if scale >= ZERO_GRAD * top else top
+        d = (bsr["grads0"][k] - g).double()
+        grads[k] = (d.abs().max().item() / scale, d.mean().item() / scale)
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(bsr["losses"], dense["losses"]))
+    met_err = max(abs(bsr["metrics"][k] - v) / abs(v)
+                  for k, v in dense["metrics"].items())
+    params = dict(dense["pred"].model.named_parameters())
+    held = torch.cat([
+        (v - params[k]).detach().abs().cpu()[
+            dense["grads0"][k].abs() > GRAD_FLOOR]
+        for k, v in bsr["pred"].model.named_parameters()])
+    worst = max(grads, key=lambda k: grads[k][0])
+    row = dict(forward_max_abs_err=fwd_abs, forward_rel_err=fwd_rel,
+               forward_mean_err=fwd_mean, grad_max_rel_err=grads[worst][0],
+               grad_worst=worst, grad_mean_err_worst=max(
+                   (v[1] for v in grads.values()), key=abs),
+               losses_max_rel_err=loss_err, evaluate_max_rel_err=met_err,
+               param_max_abs_diff=held.max().item(), tol=TOL_ROUTE,
+               tol_param=TOL_PARAM)
+    print(f"[{tag}] {name} BSR route vs dense route: {json.dumps(row)}")
+    assert fwd_rel <= TOL_ROUTE and grads[worst][0] <= TOL_ROUTE, row
+    assert abs(fwd_mean) <= TOL_ROUTE_BIAS, row
+    assert loss_err <= TOL_ROUTE and met_err <= TOL_ROUTE, row
+    assert row["param_max_abs_diff"] <= TOL_PARAM, row
+    return row
+
+
+def decoder_hook(model, store: list):
+    """Record the hidden pre-activations (the input of the relu) of
+    ``model.decoder``, an MLPDecoder, into ``store``; the hook's handle, or
+    None for a model without one."""
+    from sgp_tpu_torch.models import MLPDecoder
+    dec = getattr(model, "decoder", None)
+    if not isinstance(dec, MLPDecoder):
+        return None
+
+    def keep(module, args, out):
+        store.append(out.detach().cpu())
+    return dec.mlp.layers[0].linear.register_forward_hook(keep)
+
+
+def kink_flips(pre: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The decoder pre-activations of two runs of one step: their largest
+    difference, the units whose sign differs, and whether those explain a
+    gradient gap (``explained``): the pre-activations agree within
+    TOL_LOSS of their largest value and at most KINK_UNITS units turn the
+    other way, each within the runs' largest difference of 0."""
+    flips = (pre > 0) != (ref > 0)
+    spread = (pre - ref).abs().max().item()
+    out = {"pre_activation_rel_err": spread / ref.abs().max().item(),
+           "pre_activation_sign_flips": int(flips.sum()),
+           "flipped_pre_activations": pre[flips].tolist()[:KINK_UNITS + 1],
+           "pre_activation_max_diff": spread}
+    out["explained"] = bool(
+        out["pre_activation_rel_err"] <= TOL_LOSS
+        and 0 < out["pre_activation_sign_flips"] <= KINK_UNITS
+        and all(abs(z) <= spread for z in out["flipped_pre_activations"]))
+    return out
+
+
+def first_step(make, dev, init, loader):
+    """One train step of ``make(dev, init)`` on ``loader``'s batch: its loss,
+    clipped gradients (on the host) and the decoder's hidden
+    pre-activations (the input of its relu)."""
+    pred = make(dev, init)
+    pre = []
+    hook = decoder_hook(pred.model, pre)
+    try:
+        losses, _, grads = train_steps(pred, loader, dev)
+    finally:
+        hook.remove()
+    return losses[0], grads, pre[0], pred
+
+
+def grad_errors(got: dict, ref: dict) -> dict:
+    """Each gradient's max error relative to its largest value, or, for one
+    under ZERO_GRAD of the model's largest (0 in exact arithmetic), to the
+    model's largest."""
+    top = max(g.abs().max().item() for g in ref.values())
+    out = {}
+    for k, g in ref.items():
+        scale = g.abs().max().item()
+        scale = scale if scale >= ZERO_GRAD * top else top
+        out[k] = (got[k].double() - g.double()).abs().max().item() / \
+            max(scale, 1e-30)
+    return out
+
+
+def diffusion_cpu_step(tag, make, loader, device, what: str):
+    """The first step on the card (K1) against the port on the CPU from the
+    same weights and batch: the loss within TOL_LOSS, each gradient within
+    TOL_GRAD (:func:`grad_errors`). A relu turns at a kink: where the
+    decoder's hidden pre-activation lies within the two runs' rounding of
+    0, a unit passes on one device and not on the other, and the gradients
+    then differ by that unit's share; so a gradient beyond TOL_GRAD passes
+    only when :func:`kink_flips` explains it."""
+    cpu = torch.device("cpu")
+    init = {k: v.detach().clone() for k, v in make(
+        device).model.state_dict().items()}
+    loss, grads, pre, _ = first_step(make, device, init, loader())
+    t0 = time.perf_counter()
+    c_loss, c_grads, c_pre, _ = first_step(
+        make, cpu, {k: v.cpu() for k, v in init.items()}, loader())
+    cpu_s = time.perf_counter() - t0
+    errs = grad_errors(grads, c_grads)
+    worst = sorted(errs, key=errs.get)[-3:]
+    row = {"what": what, "cpu_s": cpu_s,
+           "loss_rel_err": abs(loss - c_loss) / abs(c_loss),
+           "grad_max_rel_err": max(errs.values()),
+           "worst": [(k, errs[k]) for k in worst], "tol_loss": TOL_LOSS,
+           "tol_grad": TOL_GRAD, **kink_flips(pre, c_pre)}
+    print(f"[{tag}] first step, card (K1) vs CPU port: {json.dumps(row)}")
+    assert row["loss_rel_err"] <= TOL_LOSS, row
+    assert row["pre_activation_rel_err"] <= TOL_LOSS, row
+    assert row["grad_max_rel_err"] <= TOL_GRAD or row["explained"], row
+    return row
+
+
+def diffusion_main_path(tag, name, config, raw, graph, device) -> dict:
+    """``name`` at ``config``'s widths on phase 5's data through
+    ``Predictor`` and the runner's call, on BSR supports (K1) and on dense
+    ones from the same weights, held to each other; K1's launches held to
+    the count from the code; the first step against the port on the CPU
+    (a ragged ``DIFF_CPU_NODES``-node set at the same k, dropout off);
+    step times, peak memory and idle share of both routes."""
+    from sgp_tpu_torch.data.datasets import SyntheticDiffusion
+    from sgp_tpu_torch.models import diff_conv_support
+    cfg, ds, split = gn_data(raw, graph, config)
+    args = diffusion_args(name, config)
+    routes = {mode: diff_conv_support(graph, operator_mode=mode,
+                                      device=device)
+              for mode in ("bsr", "dense")}
+    print(f"[{tag}] {name}: {ds.n_nodes} nodes, {routes['bsr'][0].blocks.shape[0]}"
+          f" tiles a support, window {args.window}, batch "
+          f"{args.batch_size} (evaluate {args.batch_inference}), hidden "
+          f"{args.hidden_size}, ff {args.ff_size}, {args.n_layers} layers, "
+          f"dropout {args.dropout} (the same draws on both routes)")
+    bsr = route_run(tag, name, args, cfg, ds, split, routes["bsr"], device)
+    dense = route_run(tag, name, args, cfg, ds, split, routes["dense"],
+                      device, bsr["init"])
+    fwd, bwd = k1_launches(name, args)
+    want = {"launches_per_step": fwd + bwd, "launches_per_eval_batch": fwd}
+    for key, n in want.items():
+        print(f"[{tag}] {name} K1 {key}: {bsr[key]} (counted from the code: "
+              f"{n}); dense route {dense[key]}")
+        assert bsr[key] == n and dense[key] == 0, (key, bsr[key], dense[key])
+    held = hold_routes(tag, name, bsr, dense)
+
+    small = SyntheticDiffusion(num_nodes=DIFF_CPU_NODES, num_steps=N_STEPS,
+                               seed=SEED)
+    s_graph = small.get_connectivity(knn=KNN, threshold=None,
+                                     include_self=False)
+    s_cfg, s_ds, s_split = gn_data(small, s_graph, config)
+    s_args = diffusion_args(name, config)
+    s_args.dropout = 0.0
+
+    def make(dev, init=None):
+        return diffusion_predictor(s_args, s_ds, diff_conv_support(
+            s_graph, operator_mode="bsr", device=dev), dev, init)
+    diffusion_cpu_step(tag, make, lambda: loaders(s_cfg, s_ds, s_split,
+                                                  1)[0], device,
+                       f"{name} on {DIFF_CPU_NODES} nodes, "
+                       f"{s_graph.num_edges} edges, BSR supports, dropout 0")
+    time_steps(tag, {"bsr": (bsr["pred"], contextlib.nullcontext),
+                     "dense": (dense["pred"], contextlib.nullcontext)},
+               cfg, ds, split, DIFF_TIME_ORDER, DIFF_TIME_STEPS, device)
+    return dict(launches=bsr["launches"], per_step=bsr["launches_per_step"],
+                per_eval_batch=bsr["launches_per_eval_batch"], held=held)
+
+
+def k1_at_diffconv_widths(graph, device) -> dict:
+    """K1 at DiffConv's hop widths (``DIFF_WIDTHS``) on the 100-nn graph's
+    forward support against its plain version: the max and mean signed
+    error, interleaved CUDA-event times, the bound, and the two library
+    yardsticks on the same inputs (cuSPARSE's BSR product, the dense
+    operator's matmul)."""
+    from sgp_tpu_torch.models import diff_conv_support
+    from sgp_tpu_torch.ops import bsr_spmm, bsr_spmm_plain
+    op = diff_conv_support(graph, False, "bsr", device=device)[0]
+    dense = diff_conv_support(graph, False, "dense", device=device)[0]
+    args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+    n, n_br = graph.num_nodes, op.row_ptr.numel() - 1
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = {}
+    for f in DIFF_WIDTHS:
+        x = torch.randn((n, f), generator=gen, device=device)
+
+        def plain():
+            return bsr_spmm_plain(op.blocks, op.block_cols, op.block_rows,
+                                  n_br, x)
+        got, again, ref = bsr_spmm(*args, x), bsr_spmm(*args, x), plain()
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, ref)
+        bias = ((got - ref).mean() / ref.abs().max()).item()
+        k_ms, p_ms = interleaved_ms(lambda: bsr_spmm(*args, x), plain, 3,
+                                    10, plain_iters=3)
+        row = dict(case=f"diffconv hop F {f}", n=n, f=f,
+                   nnzb=op.blocks.shape[0], dtype="float32",
+                   max_abs_err=abs_err, rel_err=rel, tol=TOL_F32,
+                   out_mean_err=bias, bitwise_repeat=torch.equal(got, again),
+                   ms=k_ms["median"], q1_q3=[k_ms["q1"], k_ms["q3"]],
+                   plain_ms=p_ms["median"],
+                   plain_q1_q3=[p_ms["q1"], p_ms["q3"]])
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, x)) \
+            + x.numel() * 4
+        row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+        row["library_ms"], lib_out = library_bsr(op, x)
+        if row["library_ms"] is None:
+            row["library_note"] = lib_out
+        else:
+            row["library_max_abs_err"] = rel_err(lib_out, ref)[0]
+        row["dense_operator_ms"] = cuda_ms(lambda: dense.mat @ x, 10)
+        print(f"[phase 13] K1: {json.dumps(row)}")
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert rel <= TOL_F32, f"K1 disagrees with plain at F {f}: {row}"
+        assert row["bitwise_repeat"], f"two calls differ: {row}"
+        assert abs(bias) <= TOL_K1_BIAS, f"K1 output is biased: {row}"
+        rows[f] = row
+    return rows
+
+
+def phase13_diffusion(raw, graph, device) -> dict:
+    """The diffusion baselines: DCRNN and GraphWaveNet at their configs'
+    widths on both support routes (K1 on BSR), K1 at their hop widths,
+    then the runners from their command lines (``DIFF_RUNNER_CASES``)."""
+    out = {}
+    for name, config in (("dcrnn", DCRNN_CONFIG), ("gwnet", GWNET_CONFIG)):
+        t0 = time.perf_counter()
+        out[name] = diffusion_main_path(f"phase 13 {name}", name, config,
+                                        raw, graph, device)
+        print(f"[time] phase 13 {name}: {time.perf_counter() - t0:.1f} s")
+    out["k1"] = k1_at_diffconv_widths(graph, device)
+    out["runs"] = {}
+    for tag, runner, config, flags in DIFF_RUNNER_CASES:
+        t0 = time.perf_counter()
+        # the LSTM's cuDNN backward at batch 64 x 5,016 series asks for one
+        # 40 GiB workspace: hand the cache's free blocks back first
+        torch.cuda.empty_cache()
+        row = runner_run(tag, runner, config, flags, (), device,
+                         phase="phase 13", cpu_nodes=DIFF_CPU_NODES)
+        del row["pred"], row["first_grads"]
+        out["runs"][tag] = row
+        print(f"[time] phase 13 run {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -2361,6 +2852,7 @@ def main():
     timed("phase 10", phase10_transformer, ds, graph, device)
     sgp = timed("phase 11", phase11_sgp, ds, graph, device)
     runners = timed("phase 12", phase12_runners, device)
+    diffusion = timed("phase 13", phase13_diffusion, ds, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -2368,6 +2860,12 @@ def main():
     kernels[0]["encode"] = kernel_entry(
         "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
         "sgp_tpu/ops/bsr_kernel.py:39", sgp["launches"], sgp)
+    # DiffConv's hops in GraphWaveNet's main path, F 2,304 (phase 13)
+    kernels[0]["diffconv"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", diffusion["gwnet"]["launches"],
+        diffusion["k1"][DIFF_WIDTHS[-1]])
+    kernels[0]["diffconv"]["dcrnn_launches"] = diffusion["dcrnn"]["launches"]
     # K4's launches from the traffic runner's run (a), K3 forward's from
     # the large-scale runner's run (c); the slices' own counts beside them
     run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]

@@ -14,9 +14,12 @@ windows. It takes the traffic runner's flags
 
 GatedGN trains on each batch's edge list (``index_add_``) and evaluates
 through ``--gn-aggregation``: ``ell`` runs kernel K4's forward, ``dense``
-kernel K3's, ``edges`` the edge list. ``--subgraph-k 0`` with a graph
-model raises: a node-subset batch with the full graph's edges indexes out
-of range (the JAX runner silently computes on clamped indices).
+kernel K3's, ``edges`` the edge list. DCRNN and GraphWaveNet train on COO
+diffusion supports built on the device from each batch's edge arrays
+(``diff_conv_support_from_arrays``) and evaluate on the full graph's
+``diff_conv_support``. ``--subgraph-k 0`` with a graph model raises: a
+node-subset batch with the full graph's edges indexes out of range (the
+JAX runner silently computes on clamped indices).
 
 Usage::
 
@@ -38,8 +41,9 @@ from sgp_tpu_torch.data import (RobustScaler, SpatioTemporalDataset,
 from sgp_tpu_torch.exp.common import (Experiment, dataset_kwargs,
                                       get_dataset, get_splitter)
 from sgp_tpu_torch.exp.run_traffic_baselines import (
-    build_model_and_forward, check_ported, configure_parser, gn_kwargs,
-    gn_static)
+    build_model_and_forward, check_ported, configure_parser,
+    diffusion_kwargs, gn_kwargs, gn_static)
+from sgp_tpu_torch.models import diff_conv_support_from_arrays
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.utils.device import resolve_device
 
@@ -61,18 +65,36 @@ def check_loader(args):
 
 
 def build_subgraph_forward(args, ds, u_size, device=None):
-    """``(model, to_call, static_batch)``: for GatedGN a call that takes a
-    subgraph batch's own edge list (``sub_src``/``sub_dst``) and a
-    full-graph batch's ``--gn-aggregation`` state from ``static_batch``;
-    other models as the traffic runner builds them.
+    """``(model, to_call, static_batch)``: for the graph models a call that
+    takes a subgraph batch's own edges (``sub_src``/``sub_dst``, for DCRNN
+    and GraphWaveNet with ``sub_weight`` as COO supports) and a full-graph
+    batch's state from ``static_batch`` (GatedGN's ``--gn-aggregation``
+    state, the diffusion supports); other models as the traffic runner
+    builds them.
 
     The padding edges (``sub_weight == 0``) are left out of the call. The
-    JAX runner passes them with ``edge_mask`` and adds their zeroed
-    messages into node 0: the same sums, but on the card the gather's
-    backward then accumulates every padding slot into node 0 one after
-    another (on an NVIDIA H100, 376,696 of the 501,600 slots of a batch
-    at the 100-nn config's widths: 365 ms of a 396 ms step)."""
-    if args.model_name not in ("gatedgn", "gatedgn_conv"):
+    JAX runner passes them with ``edge_mask`` (or, to the supports, with
+    weight 0) and adds their zeroed messages into node 0: the same sums,
+    but on the card the gather's backward then accumulates every padding
+    slot into node 0 one after another (on an NVIDIA H100, 376,696 of the
+    501,600 slots of a batch at the 100-nn config's widths: 365 ms of a
+    396 ms GatedGN step)."""
+    name = args.model_name
+    if name in ("dcrnn", "gwnet"):
+        model, _, static = build_model_and_forward(args, ds, u_size, device)
+
+        def diffusion_call(batch, training):
+            if "sub_src" in batch:
+                real = batch["sub_weight"] != 0
+                supports = diff_conv_support_from_arrays(
+                    batch["sub_src"][real], batch["sub_dst"][real],
+                    batch["sub_weight"][real], batch["x"].shape[-2])
+            else:
+                supports = batch["supports"]
+            return (batch["x"], supports), diffusion_kwargs(name, batch,
+                                                            training)
+        return model, diffusion_call, static
+    if name not in ("gatedgn", "gatedgn_conv"):
         return build_model_and_forward(args, ds, u_size, device)
     model, _, _ = build_model_and_forward(args, ds, u_size, device)
     static, band = gn_static(args, ds.graph, device)

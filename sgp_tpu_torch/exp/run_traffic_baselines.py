@@ -9,9 +9,13 @@ horizon steps 3, 6 and 12 when the horizon is 12.
 
 Ported models: ``gatedgn`` and ``gatedgn_conv`` with
 ``--gn-aggregation edges|ell|dense`` and ``--full-graph`` (the ELL table
-runs kernel K4 on the card, the dense mask kernel K3), and
-``transformer``. The other models of the JAX registry raise naming their
-ROADMAP item, as does ``--data-sharding batch`` (A10).
+runs kernel K4 on the card, the dense mask kernel K3), ``transformer``,
+``rnn`` and ``fc_rnn`` (``--cell-type gru|lstm``), ``tcn``, and ``dcrnn``
+and ``gwnet`` on the diffusion supports of ``diff_conv_support``, built on
+the run's device (``auto``: dense up to 512 MB, so on the runners' graphs
+the hops are matrix products; BSR supports would run kernel K1). The other
+models of the JAX registry raise naming their ROADMAP item, as does
+``--data-sharding batch`` (A10).
 
 Usage::
 
@@ -36,14 +40,17 @@ from sgp_tpu_torch.exp.common import (Experiment, add_common_args,
                                       dataset_kwargs, get_dataset,
                                       get_splitter, str2bool)
 from sgp_tpu_torch.graph import auto_band, padded_incoming
-from sgp_tpu_torch.models import get_model_class
+from sgp_tpu_torch.models import (DCRNNModel, FCRNNModel, GraphWaveNetModel,
+                                  RNNModel, TCNModel, diff_conv_support,
+                                  get_model_class)
 from sgp_tpu_torch.ops import dense_adj_mask
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-_PORTED = ("gatedgn", "gatedgn_conv", "transformer")
+_PORTED = ("gatedgn", "gatedgn_conv", "transformer", "rnn", "fc_rnn",
+           "dcrnn", "gwnet", "tcn")
 
 
 def configure_parser() -> argparse.ArgumentParser:
@@ -140,6 +147,15 @@ def gn_kwargs(batch, band) -> dict:
     return {}
 
 
+def diffusion_kwargs(name: str, batch, training: bool) -> dict:
+    """DCRNN's and GraphWaveNet's keywords from a placed batch: ``u``, and
+    ``node_index`` for GraphWaveNet's learned adjacency."""
+    kwargs = {"u": batch.get("u"), "training": training}
+    if name == "gwnet":
+        kwargs["node_index"] = batch.get("node_index")
+    return kwargs
+
+
 def build_model_and_forward(args, ds, u_size, device=None):
     """``(model, to_call, static_batch)``: the model, its call from a batch
     (None: the Predictor's default) and the graph state merged into every
@@ -152,13 +168,46 @@ def build_model_and_forward(args, ds, u_size, device=None):
             pass
         raise ValueError(f"Model {name} not available.")
     cls = get_model_class(name)
-    if name == "transformer":
+    horizon = ds.windowing.horizon_steps
+    if name in ("transformer", "tcn"):
         model = cls(input_size=input_size(ds, u_size),
                     hidden_size=args.hidden_size, ff_size=args.ff_size,
-                    output_size=ds.n_channels,
-                    horizon=ds.windowing.horizon_steps,
+                    output_size=ds.n_channels, horizon=horizon,
                     n_layers=args.n_layers, dropout=args.dropout)
         return model, None, None
+    if name in ("rnn", "fc_rnn"):
+        rnn = dict(output_size=ds.n_channels, horizon=horizon,
+                   hidden_size=args.hidden_size, ff_size=args.ff_size,
+                   rec_layers=args.rec_layers, ff_layers=args.ff_layers,
+                   cell_type=args.cell_type, dropout=args.ff_dropout)
+        model = RNNModel(input_size(ds, u_size), **rnn) if name == "rnn" \
+            else FCRNNModel(ds.n_nodes * input_size(ds, u_size),
+                            ds.n_nodes, **rnn)
+        return model, None, None
+    if name in ("dcrnn", "gwnet"):
+        if name == "dcrnn":
+            # the encoder conditions x on u: input_size counts x alone
+            model = DCRNNModel(input_size(ds, 0), args.hidden_size,
+                               args.ff_size, ds.n_channels, horizon,
+                               n_layers=args.n_layers, exog_size=u_size,
+                               kernel_size=args.kernel_size,
+                               dropout=args.dropout)
+        else:
+            model = GraphWaveNetModel(
+                input_size(ds, u_size), args.hidden_size, args.ff_size,
+                ds.n_channels, horizon, n_layers=args.n_layers,
+                temporal_kernel_size=args.temporal_kernel_size,
+                spatial_kernel_size=args.spatial_kernel_size,
+                learned_adjacency=args.learned_adjacency,
+                n_nodes=ds.n_nodes, emb_size=args.emb_size,
+                dilation=args.dilation, dilation_mod=args.dilation_mod,
+                norm=args.norm, dropout=args.dropout)
+
+        def diffusion_call(batch, training):
+            return (batch["x"], batch["supports"]), diffusion_kwargs(
+                name, batch, training)
+        return model, diffusion_call, {
+            "supports": diff_conv_support(ds.graph, device=device)}
     model = cls(input_size=input_size(ds, u_size),
                 input_window_size=args.window,
                 hidden_size=args.hidden_size, output_size=ds.n_channels,

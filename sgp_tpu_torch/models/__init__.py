@@ -6,22 +6,31 @@ from sgp_tpu_torch.models.attention import (AttentionEncoder,
                                             TransformerLayer,
                                             TransformerModel)
 from sgp_tpu_torch.models.blocks import (MLP, Dense, GroupedLinear,
-                                         LinearReadout, ResidualMLP,
-                                         StaticGraphEmbedding, get_activation,
-                                         maybe_cat_exog)
+                                         LinearReadout, MLPDecoder,
+                                         ResidualMLP, StaticGraphEmbedding,
+                                         get_activation, maybe_cat_exog)
 from sgp_tpu_torch.models.bridge import flax_to_torch
+from sgp_tpu_torch.models.dcrnn import DCRNN, DCRNNCell, DCRNNModel
 from sgp_tpu_torch.models.gated_gn import (CNNResidual, Conv1dResidual,
                                            GatedGraphNetworkConvModel,
                                            GatedGraphNetworkMLPModel,
                                            full_graph_edges)
-from sgp_tpu_torch.models.graph_layers import (GATConv, GatedGraphNetwork,
-                                               SpatioTemporalAttention)
+from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
+                                               GATConv, GatedGraphNetwork,
+                                               GraphConv,
+                                               SpatioTemporalAttention,
+                                               diff_conv_support,
+                                               diff_conv_support_from_arrays)
+from sgp_tpu_torch.models.gwnet import (DenseSpatialConvOrderK,
+                                        GraphWaveNetModel)
+from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel
 from sgp_tpu_torch.models.sgp import SGPModel
+from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
+                                      TemporalConvNet)
 
 # the JAX registry's models not ported yet, by the ROADMAP item that ports
 # them
-_NOT_PORTED = {"rnn": "A6", "fc_rnn": "A6", "dcrnn": "A6", "gwnet": "A6",
-               "tcn": "A6", "stcn": "A9", "rnn2gcn": "A9", "esn": "A7",
+_NOT_PORTED = {"stcn": "A9", "rnn2gcn": "A9", "esn": "A7",
                "online_sgp": "A7"}
 
 
@@ -32,7 +41,9 @@ def get_model_class(name: str):
     ``KeyError``."""
     ported = {"sgp": SGPModel, "gatedgn": GatedGraphNetworkMLPModel,
               "gatedgn_conv": GatedGraphNetworkConvModel,
-              "transformer": TransformerModel}
+              "transformer": TransformerModel, "rnn": RNNModel,
+              "fc_rnn": FCRNNModel, "dcrnn": DCRNNModel,
+              "gwnet": GraphWaveNetModel, "tcn": TCNModel}
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
@@ -47,4 +58,8 @@ __all__ = ["MLP", "Dense", "GroupedLinear", "LinearReadout", "ResidualMLP",
            "SpatioTemporalAttention", "AttentionEncoder",
            "CausalLinearAttention", "MultiHeadAttention", "PositionalEncoding",
            "SpatioTemporalTransformerLayer", "TransformerLayer",
-           "TransformerModel", "get_model_class"]
+           "TransformerModel", "get_model_class", "MLPDecoder", "DCRNN",
+           "DCRNNCell", "DCRNNModel", "ConditionalBlock", "DiffConv",
+           "GraphConv", "diff_conv_support", "diff_conv_support_from_arrays",
+           "DenseSpatialConvOrderK", "GraphWaveNetModel", "FCRNNModel",
+           "RNNModel", "Norm", "TCNModel", "TemporalConv", "TemporalConvNet"]

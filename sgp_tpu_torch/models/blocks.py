@@ -216,6 +216,35 @@ class LinearReadout(nn.Module):
                            ).permute(0, 2, 1, 3)
 
 
+class MLPDecoder(nn.Module):
+    """The last ``receptive_field`` steps flattened per node -> MLP ->
+    horizon (``blocks/decoders/mlp_decoder.py:9-55``): ``[b (s) n f]`` ->
+    ``[b h n c]``; ``input_size`` is ``f``."""
+
+    def __init__(self, input_size: int, hidden_size: int, output_size: int,
+                 horizon: int = 1, receptive_field: int = 1,
+                 n_layers: int = 1, activation: str = "relu",
+                 dropout: float = 0.0):
+        super().__init__()
+        self.output_size, self.horizon = output_size, horizon
+        self.receptive_field = receptive_field
+        self.mlp = MLP(receptive_field * input_size, hidden_size,
+                       output_size * horizon, n_layers=n_layers,
+                       activation=activation, dropout=dropout)
+
+    def reset_parameters(self, generator=None):
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, h):
+        if h.ndim == 4:   # [b s n f] -> [b n (r f)]
+            h = h[:, -self.receptive_field:].permute(0, 2, 1, 3)
+            h = h.reshape(h.shape[0], h.shape[1], -1)
+        out = self.mlp(h)
+        b, n = out.shape[0], out.shape[1]
+        return out.reshape(b, n, self.horizon, self.output_size
+                           ).permute(0, 2, 1, 3)
+
+
 class StaticGraphEmbedding(nn.Module):
     """Learned per-node embedding table with optional ``token_index``
     gather; initialized U(-1/sqrt(emb), +1/sqrt(emb))."""

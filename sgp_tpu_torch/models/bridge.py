@@ -18,6 +18,15 @@ names of ``sgp_tpu/models/attention.py`` (``q``, ``k``, ``v``, ``out``,
 ``[h, dh, out]`` are flattened over ``h * dh`` first; ``Conv`` kernels
 ``[k, in, out]`` become ``Conv1d.weight``'s ``[out, in, k]``. Any key
 missing from the tree or left over in it raises.
+
+The diffusion baselines (``DCRNNModel``, ``GraphWaveNetModel``,
+``RNNModel``, ``FCRNNModel``, ``TCNModel`` and their layers): flax's
+``GRUCell`` and ``OptimizedLSTMCell`` keep one Dense a gate (``ir``,
+``iz``, ``in``, ``hr``, ``hz``, ``hn``; ``ii`` .. ``ho``), each loaded into
+its rows of ``nn.GRU``'s / ``nn.LSTM``'s stacked weights and biases (the
+biases flax lacks stay 0). GraphWaveNet's layers lie under
+``_GWNetBlock_i`` or, scanned, stacked along a leading block axis under
+``ScanCheckpoint_GWNetBlock_0`` (``GraphWaveNetModel.flax_blocks``).
 """
 from __future__ import annotations
 
@@ -33,13 +42,21 @@ from sgp_tpu_torch.models.attention import (AttentionEncoder,
                                             SpatioTemporalTransformerLayer,
                                             TransformerLayer,
                                             TransformerModel)
-from sgp_tpu_torch.models.blocks import MLP
+from sgp_tpu_torch.models.blocks import MLP, MLPDecoder
+from sgp_tpu_torch.models.dcrnn import DCRNNModel
 from sgp_tpu_torch.models.gated_gn import (CNNResidual,
                                            GatedGraphNetworkConvModel,
                                            GatedGraphNetworkMLPModel)
-from sgp_tpu_torch.models.graph_layers import (GATConv, GatedGraphNetwork,
+from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
+                                               GATConv, GatedGraphNetwork,
+                                               GraphConv,
                                                SpatioTemporalAttention)
+from sgp_tpu_torch.models.gwnet import (DenseSpatialConvOrderK, GWNetLayer,
+                                        GraphWaveNetModel)
+from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel, RNNStack
 from sgp_tpu_torch.models.sgp import SGPModel
+from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
+                                      TemporalConvNet)
 
 Path = Tuple[str, ...]
 
@@ -253,8 +270,150 @@ def _st_attention(out: dict, scope: Path, m: SpatioTemporalAttention):
     _layer_norm(out, scope + ("LayerNorm_1",), m.norm2)
 
 
-# the attention trees: model class -> its target builder
-_ATTENTION = {
+def _mlp_decoder(out: dict, scope: Path, m: MLPDecoder):
+    _trunk(out, scope + ("MLP_0",), m.mlp)
+
+
+def _diff_conv(out: dict, scope: Path, m: DiffConv):
+    _linear(out, scope + ("Dense_0",), m.linear)
+
+
+def _conditional_block(out: dict, scope: Path, m: ConditionalBlock):
+    for k, lin in enumerate((m.x_in, m.u_in, m.lin)):
+        _linear(out, scope + (f"Dense_{k}",), lin)
+    out[scope + ("Dense_3", "kernel")] = (m.u_out.weight, True)
+    if m.skip is not None:
+        _linear(out, scope + ("Dense_4",), m.skip)
+
+
+def _graph_conv(out: dict, scope: Path, m: GraphConv):
+    out[scope + ("Dense_0", "kernel")] = (m.lin.weight, True)
+    if m.root is not None:
+        out[scope + ("root", "kernel")] = (m.root.weight, True)
+    if m.bias is not None:
+        out[scope + ("bias",)] = (m.bias, False)
+
+
+def _temporal_conv(out: dict, scope: Path, m: TemporalConv):
+    _conv(out, scope + ("Conv_0",), m.conv)
+
+
+def _temporal_conv_net(out: dict, scope: Path, m: TemporalConvNet):
+    for i, layer in enumerate(m.layers):
+        _temporal_conv(out, scope + (f"TemporalConv_{i}",), layer)
+
+
+def _norm(out: dict, scope: Path, m: Norm):
+    if m.scale is not None:
+        out[scope + ("scale",)] = (m.scale, False)
+        out[scope + ("bias",)] = (m.bias, False)
+    elif m.layer_norm is not None:
+        _layer_norm(out, scope + ("LayerNorm_0",), m.layer_norm)
+
+
+def _dense_spatial(out: dict, scope: Path, m: DenseSpatialConvOrderK):
+    _linear(out, scope + ("Dense_0",), m.linear)
+
+
+def _dcrnn_model(out: dict, scope: Path, m: DCRNNModel):
+    """``ConditionalBlock_0`` (or ``Dense_0``), ``DCRNN_0/DCRNNCell_i`` with
+    ``DiffConv_0..2`` for r, u and c, ``MLPDecoder_0``."""
+    if isinstance(m.encoder, ConditionalBlock):
+        _conditional_block(out, scope + ("ConditionalBlock_0",), m.encoder)
+    else:
+        _linear(out, scope + ("Dense_0",), m.encoder)
+    for i, cell in enumerate(m.dcrnn.cells):
+        for k, conv in enumerate((cell.r, cell.u, cell.c)):
+            _diff_conv(out, scope + ("DCRNN_0", f"DCRNNCell_{i}",
+                                     f"DiffConv_{k}"), conv)
+    _mlp_decoder(out, scope + ("MLPDecoder_0",), m.decoder)
+
+
+def _gwnet_layer(out: dict, scope: Path, j: int, m: GWNetLayer):
+    """Layer ``j`` of a ``_GWNetBlock``: its modules numbered ``j``."""
+    _temporal_conv_net(out, scope + (f"TemporalConvNet_{j}",), m.tconv)
+    _linear(out, scope + (f"Dense_{j}",), m.skip)
+    _diff_conv(out, scope + (f"DiffConv_{j}",), m.diff)
+    if m.dense is not None:
+        _dense_spatial(out, scope + (f"DenseSpatialConvOrderK_{j}",),
+                       m.dense)
+    _norm(out, scope + (f"Norm_{j}",), m.norm)
+
+
+def _gwnet_model(out: dict, scope: Path, m: GraphWaveNetModel):
+    """The embeddings, ``Dense_0``, the layers in their blocks (a scanned
+    tree holds each block's value of a path along its first axis: a list
+    of targets, block by block) and ``MLPDecoder_0``."""
+    if m.emb_src is not None:
+        out[scope + ("StaticGraphEmbedding_0", "emb")] = (m.emb_src.emb, False)
+        out[scope + ("StaticGraphEmbedding_1", "emb")] = (m.emb_dst.emb, False)
+    _linear(out, scope + ("Dense_0",), m.encoder)
+    stacked, blocks = m.flax_blocks()
+    for b, layers in enumerate(blocks):
+        block: dict = {}
+        name = "ScanCheckpoint_GWNetBlock_0" if stacked \
+            else f"_GWNetBlock_{b}"
+        for j, i in enumerate(layers):
+            _gwnet_layer(block, scope + (name,), j, m.layers[i])
+        for path, target in block.items():
+            if stacked:
+                out.setdefault(path, []).append(target)
+            else:
+                out[path] = target
+    _mlp_decoder(out, scope + ("MLPDecoder_0",), m.decoder)
+
+
+def _rnn_stack(out: dict, scope: Path, m: RNNStack):
+    """Layer ``l``'s ``GRUCell_l`` / ``OptimizedLSTMCell_l``: each gate's
+    Dense into its rows of ``weight_ih_l`` / ``weight_hh_l`` and the
+    biases."""
+    h = m.hidden_size
+    gru = m.cell == "gru"
+    cell, gates = ("GRUCell", "rzn") if gru else ("OptimizedLSTMCell", "ifgo")
+    for layer in range(m.rnn.num_layers):
+        params = {side: [getattr(m.rnn, f"{kind}_{side}_l{layer}").detach()
+                         for kind in ("weight", "bias")]
+                  for side in ("ih", "hh")}
+        for g, gate in enumerate(gates):
+            rows = slice(g * h, (g + 1) * h)
+            for side in ("ih", "hh"):
+                name = f"{side[0]}{gate}"
+                path = scope + (f"{cell}_{layer}", name)
+                w, b = params[side]
+                out[path + ("kernel",)] = (w[rows], True)
+                # GRUCell: biases on ir, iz, in and hn; the LSTM cell: on
+                # the hidden side only
+                if (gru and name in ("ir", "iz", "in", "hn")) or \
+                        (not gru and side == "hh"):
+                    out[path + ("bias",)] = (b[rows], False)
+
+
+def _rnn_model(out: dict, scope: Path, m):
+    _rnn_stack(out, scope + ("_RNNStack_0",), m.rnn)
+    _mlp_decoder(out, scope + ("MLPDecoder_0",), m.decoder)
+
+
+def _tcn_model(out: dict, scope: Path, m: TCNModel):
+    _linear(out, scope + ("Dense_0",), m.encoder)
+    _temporal_conv_net(out, scope + ("TemporalConvNet_0",), m.tcn)
+    _mlp_decoder(out, scope + ("MLPDecoder_0",), m.decoder)
+
+
+# model class -> the function that lists its flax paths
+_TREES = {
+    DCRNNModel: _dcrnn_model,
+    GraphWaveNetModel: _gwnet_model,
+    RNNModel: _rnn_model,
+    FCRNNModel: _rnn_model,
+    TCNModel: _tcn_model,
+    MLPDecoder: _mlp_decoder,
+    DiffConv: _diff_conv,
+    ConditionalBlock: _conditional_block,
+    GraphConv: _graph_conv,
+    TemporalConv: _temporal_conv,
+    TemporalConvNet: _temporal_conv_net,
+    Norm: _norm,
+    DenseSpatialConvOrderK: _dense_spatial,
     TransformerModel: _transformer_model,
     TransformerLayer: _transformer_layer,
     SpatioTemporalTransformerLayer: _st_transformer_layer,
@@ -275,9 +434,9 @@ def targets(model: nn.Module) -> Dict[Path, Tuple[torch.Tensor, object]]:
         return _gated_gn_conv_targets(model)
     if isinstance(model, SGPModel):
         return _targets(model)
-    if type(model) in _ATTENTION:
+    if type(model) in _TREES:
         out: Dict[Path, Tuple[torch.Tensor, object]] = {}
-        _ATTENTION[type(model)](out, (), model)
+        _TREES[type(model)](out, (), model)
         return out
     raise TypeError(f"no flax mapping for {type(model).__name__}")
 
@@ -311,11 +470,15 @@ def _load(params_np: dict, wanted: Dict[Path, Tuple[torch.Tensor, object]]):
         raise KeyError(f"flax tree does not match the model: missing "
                        f"{missing}, left over {extra}")
     with torch.no_grad():
-        for path, (param, how) in wanted.items():
-            value = torch.from_numpy(np.array(
-                to_torch_layout(flat[path], how), np.float32))
-            if value.shape != param.shape:
-                raise ValueError(f"{'/'.join(path)}: flax shape "
-                                 f"{tuple(flat[path].shape)} does not fit "
-                                 f"{tuple(param.shape)}")
-            param.copy_(value)
+        for path, target in wanted.items():
+            # a list: the tree stacks one value a target along its first axis
+            pairs = zip(target, flat[path]) if isinstance(target, list) \
+                else [(target, flat[path])]
+            for (param, how), array in pairs:
+                value = torch.from_numpy(np.array(
+                    to_torch_layout(array, how), np.float32))
+                if value.shape != param.shape:
+                    raise ValueError(f"{'/'.join(path)}: flax shape "
+                                     f"{tuple(array.shape)} does not fit "
+                                     f"{tuple(param.shape)}")
+                param.copy_(value)

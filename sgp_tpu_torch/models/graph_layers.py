@@ -1,9 +1,17 @@
-"""Trainable graph layers (``torch.nn``): the edge-gated GatedGN layer and
-the two attention layers.
+"""Trainable graph layers (``torch.nn``): the diffusion layers, the
+edge-gated GatedGN layer and the two attention layers.
 
-Counterparts in ``sgp_tpu/models/graph_layers.py``: :class:`GATConv` (PyG
-graph attention over an edge list), :class:`SpatioTemporalAttention`
-(temporal then spatial dense attention) and ``GatedGraphNetwork``
+Counterparts in ``sgp_tpu/models/graph_layers.py``: :func:`diff_conv_support`
+and :func:`diff_conv_support_from_arrays` (the row-normalized forward and
+transposed diffusion operators, from a host graph or from a subgraph
+batch's padded edge arrays), :class:`DiffConv` (``tsl``'s ``diff_conv.py``:
+``[x, A x, .., A^k x, A' x, .., A'^k x]`` through one Linear; each hop is
+``op @ x``, so a :class:`~sgp_tpu_torch.ops.spmm.BSROperator` support runs
+kernel K1 on the card, forward and backward), :class:`ConditionalBlock`
+(exogenous conditioning), :class:`GraphConv` (``D^-1 A X Theta``),
+:class:`GATConv` (PyG graph attention over an edge list),
+:class:`SpatioTemporalAttention` (temporal then spatial dense attention)
+and ``GatedGraphNetwork``
 (``tsl/nn/layers/graph_convs/gated_gn.py``, Satorras et al.), of whose
 aggregation layouts three are ported:
 
@@ -28,7 +36,7 @@ aggregation layouts three are ported:
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from sgp_tpu_torch.graph.sparse import Graph, normalize_adj, transpose
 from sgp_tpu_torch.models.attention import MultiHeadAttention
 from sgp_tpu_torch.models.blocks import (get_activation, layer_norm,
                                          lecun_normal_, reset_linear)
@@ -43,6 +52,8 @@ from sgp_tpu_torch.ops.activations import ACTIVATIONS
 from sgp_tpu_torch.ops.gn_allpairs import gn_allpairs_aggregate, row_blocks
 from sgp_tpu_torch.ops.gn_ell import gn_ell_aggregate
 from sgp_tpu_torch.ops.scatter import segment_softmax
+from sgp_tpu_torch.ops.spmm import COOOperator, Operator, build_operator
+from sgp_tpu_torch.utils.device import resolve_device
 
 
 def linear_as(lin: nn.Linear, x, dtype: Optional[torch.dtype] = None):
@@ -52,6 +63,148 @@ def linear_as(lin: nn.Linear, x, dtype: Optional[torch.dtype] = None):
         return lin(x)
     return F.linear(x.to(dtype), lin.weight.to(dtype),
                     None if lin.bias is None else lin.bias.to(dtype))
+
+
+def diff_conv_support(g: Graph, add_backward: bool = True,
+                      operator_mode: str = "auto",
+                      precision: str = "highest", device=None
+                      ) -> List[Operator]:
+    """The row-normalized forward operator (and, with ``add_backward``, the
+    row-normalized transposed one) of ``g`` (``diff_conv.py:50-66``), built
+    by ``build_operator`` with ``operator_mode`` and ``precision`` directly
+    on ``device`` (default ``cuda:0``): a trainer moves the tensors of its
+    batches, not operators."""
+    device = resolve_device(device)
+    ops = [build_operator(normalize_adj(g, "row"), operator_mode,
+                          precision=precision, device=device)]
+    if add_backward:
+        ops.append(build_operator(normalize_adj(transpose(g), "row"),
+                                  operator_mode, precision=precision,
+                                  device=device))
+    return ops
+
+
+def diff_conv_support_from_arrays(src, dst, weight, num_nodes: int,
+                                  add_backward: bool = True
+                                  ) -> List[COOOperator]:
+    """COO supports of a subgraph batch from its edge arrays (tensors on
+    the device the supports run on), row-normalized on that device. An
+    edge of weight 0 (a padding edge) adds nothing to the degrees or the
+    sums, so a caller may leave such edges out first and get the same
+    operators with fewer gathers."""
+    src, dst = src.long(), dst.long()
+
+    def normalized(s, d, w):
+        deg = torch.zeros(num_nodes, dtype=w.dtype,
+                          device=w.device).index_add_(0, d, w)
+        inv = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1e-38),
+                          torch.zeros_like(deg))
+        return COOOperator(s, d, w * inv[d], num_nodes)
+
+    ops = [normalized(src, dst, weight)]
+    if add_backward:
+        ops.append(normalized(dst, src, weight))
+    return ops
+
+
+class DiffConv(nn.Module):
+    """Diffusion convolution: ``[x?, op^1 x, .., op^k x]`` per support,
+    concatenated and through one Linear. ``input_size`` is x's channels and
+    ``n_supports`` the number of operators the call passes (two from
+    :func:`diff_conv_support`)."""
+
+    def __init__(self, input_size: int, output_size: int, k: int,
+                 root_weight: bool = True, n_supports: int = 2):
+        super().__init__()
+        self.k, self.root_weight = k, root_weight
+        terms = n_supports * k + (1 if root_weight else 0)
+        self.linear = nn.Linear(terms * input_size, output_size)
+
+    def reset_parameters(self, generator=None):
+        reset_linear(self.linear, generator)
+
+    @staticmethod
+    def hops(x, supports: Sequence[Operator], k: int) -> list:
+        """``[op^1 x, .., op^k x]`` per support, in the concat order of
+        ``forward``. Diffusion is linear and channel-separable (``op @ [a,
+        b] = [op @ a, op @ b]``), so callers that apply several DiffConvs
+        to overlapping inputs (the DCRNN gates) run the products once."""
+        out = []
+        for op in supports:
+            cur = x
+            for _ in range(k):
+                cur = op @ cur
+                out.append(cur)
+        return out
+
+    def forward(self, x, supports: Sequence[Operator], hops=None):
+        """``hops``: this layer's :meth:`hops` of ``x``, computed by the
+        caller (the same values; no product is run here then)."""
+        out = [x] if self.root_weight else []
+        out.extend(self.hops(x, supports, self.k) if hops is None else hops)
+        return self.linear(torch.cat(out, -1))
+
+
+class ConditionalBlock(nn.Module):
+    """Exogenous conditioning (``tsl/nn/blocks/encoders/conditional.py``):
+    ``act(lin(act(x_in(x))) + u_out(act(u_in(u))))``, dropout, and a skip
+    Linear of x when ``skip_connection``."""
+
+    def __init__(self, input_size: int, exog_size: int, output_size: int,
+                 activation: str = "relu", dropout: float = 0.0,
+                 skip_connection: bool = False):
+        super().__init__()
+        self.activation = activation
+        self.x_in = nn.Linear(input_size, output_size)
+        self.u_in = nn.Linear(exog_size, output_size)
+        self.lin = nn.Linear(output_size, output_size)
+        self.u_out = nn.Linear(output_size, output_size, bias=False)
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        self.skip = nn.Linear(input_size, output_size) \
+            if skip_connection else None
+
+    def reset_parameters(self, generator=None):
+        for lin in (self.x_in, self.u_in, self.lin, self.skip):
+            if lin is not None:
+                reset_linear(lin, generator)
+        lecun_normal_(self.u_out.weight, self.u_out.in_features, generator)
+
+    def forward(self, x, u):
+        act = get_activation(self.activation)
+        out = self.lin(act(self.x_in(x))) + self.u_out(act(self.u_in(u)))
+        out = self.dropout(act(out))
+        if self.skip is not None:
+            out = self.skip(x) + out
+        return out
+
+
+class GraphConv(nn.Module):
+    """``op @ (x Theta) (+ x Theta_root) + b`` on a row-normalized operator
+    (``tsl/nn/base/graph_conv.py:11-75``)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 root_weight: bool = True, use_bias: bool = True):
+        super().__init__()
+        self.lin = nn.Linear(input_size, output_size, bias=False)
+        self.root = nn.Linear(input_size, output_size, bias=False) \
+            if root_weight else None
+        self.bias = nn.Parameter(torch.zeros(output_size)) \
+            if use_bias else None
+
+    def reset_parameters(self, generator=None):
+        for lin in (self.lin, self.root):
+            if lin is not None:
+                lecun_normal_(lin.weight, lin.in_features, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x, op: Operator):
+        out = op @ self.lin(x)
+        if self.root is not None:
+            out = out + self.root(x)
+        if self.bias is not None:
+            out = out + self.bias
+        return out
 
 
 class GATConv(nn.Module):

@@ -189,7 +189,14 @@ class Predictor:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.compute_loss(self._place(batch))
         loss.backward()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        # optax updates every parameter: one the loss does not reach (the
+        # last GraphWaveNet layer's diffusion branch) takes a zero gradient,
+        # which still decays its Adam moments and its weight
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         clip_by_global_norm_(grads, self.grad_clip)
         self.optimizer.step()
         self.scheduler.step()

@@ -57,6 +57,11 @@ ATTENTION_SLICE = (
     "sgp_tpu_torch.ops.functional", "sgp_tpu_torch.models.attention",
     "sgp_tpu_torch.models.bridge")
 
+# the diffusion baselines' modules (DCRNN, GraphWaveNet, the RNNs, the TCN)
+DIFFUSION = (
+    "sgp_tpu_torch.models.dcrnn", "sgp_tpu_torch.models.gwnet",
+    "sgp_tpu_torch.models.rnn", "sgp_tpu_torch.models.tcn")
+
 
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -70,6 +75,7 @@ def test_port_never_imports_jax():
     assert set(ATTENTION_SLICE) <= set(words[2:])
     assert set(MAIN_PATH) <= set(words[2:])
     assert set(BASELINES) <= set(words[2:])
+    assert set(DIFFUSION) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -224,6 +224,73 @@ def test_kernel_at_the_encode_width(cuda, precision, tol, f):
         assert abs(bias) <= TOL_K1_BIAS, bias
 
 
+@pytest.mark.parametrize("f", [256, 2304, 2300])
+def test_kernel_at_the_diffconv_widths(cuda, f):
+    """K1 at DiffConv's hop widths on the 100-nn graph's 1,600 tiles: DCRNN
+    training's F 256 (``[x, h]``, batch 2 x 128 channels), GraphWaveNet's F
+    2,304 (batch 2 x 36 steps x 32 channels) and a ragged 2,300; the max
+    error within 1e-5 and the mean signed error within TOL_K1_BIAS of the
+    largest output."""
+    rng = np.random.default_rng(6)
+    n = 5016
+    op = build_operator(_graph(rng, n, 100 * n), "bsr", device=cuda)
+    assert op.blocks.shape[0] == 40 * 40
+    x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32),
+                        device=cuda)
+    args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+    got = bsr_spmm(*args, x)
+    ref = bsr_spmm_plain(op.blocks, op.block_cols, op.block_rows, 40, x)
+    torch.cuda.synchronize()
+    assert got.shape == (n, f) and torch.isfinite(got).all()
+    assert torch.equal(got, bsr_spmm(*args, x))
+    assert _rel(got, ref) <= 1e-5
+    bias = ((got - ref).mean() / ref.abs().max()).item()
+    print(f"K1 at F {f}: max rel err {_rel(got, ref):.3e}, mean signed err "
+          f"{bias:.3e} of the largest output")
+    assert abs(bias) <= TOL_K1_BIAS, bias
+
+
+def test_dcrnn_step_on_bsr_supports_matches_dense(cuda):
+    """One ``Predictor`` step of ``DCRNNModel`` on BSR supports (K1 forward
+    and backward: 2 supports x 2 hops x 2 products a cell call, each once
+    more in the backward) against the same step on dense supports, on the
+    card: the loss and each gradient within 1e-4 of its largest value."""
+    from sgp_tpu_torch.data.scalers import ScalerParams
+    from sgp_tpu_torch.models import DCRNNModel, diff_conv_support
+    from sgp_tpu_torch.train import Predictor
+    rng = np.random.default_rng(7)
+    n, b, s, c, u = 600, 2, 6, 1, 3
+    g = coalesce(Graph(rng.integers(0, n, 20 * n), rng.integers(0, n, 20 * n),
+                       rng.random(20 * n).astype(np.float32), n))
+    batch = {"x": rng.standard_normal((b, s, n, c)).astype(np.float32),
+             "u": rng.standard_normal((b, s, u)).astype(np.float32),
+             "y": rng.standard_normal((b, 4, n, c)).astype(np.float32),
+             "mask": rng.random((b, 4, n, c)) > 0.1}
+
+    def call(batch, training):
+        return (batch["x"], batch["supports"]), {"u": batch["u"],
+                                                 "training": training}
+    out = {}
+    for mode in ("bsr", "dense"):
+        model = DCRNNModel(c, 16, 32, c, 4, exog_size=u)
+        pred = Predictor(model, batch_to_call=call, seed=0, device=cuda,
+                         static_batch={"supports": diff_conv_support(
+                             g, operator_mode=mode, device=cuda)})
+        pred.init(None, ScalerParams(torch.zeros(1, device=cuda),
+                                     torch.ones(1, device=cuda)))
+        before = bsr_spmm.launches
+        loss = float(pred.train_step(batch))
+        out[mode] = (loss, {k: p.grad.clone()
+                            for k, p in model.named_parameters()},
+                     bsr_spmm.launches - before)
+    (loss, grads, launches), (d_loss, d_grads, d_launches) = \
+        out["bsr"], out["dense"]
+    assert launches == s * 2 * 2 * 2 * 2 and d_launches == 0
+    assert abs(loss - d_loss) <= 1e-4 * abs(d_loss)
+    for k, gd in d_grads.items():
+        assert _rel(grads[k], gd) <= 1e-4, k
+
+
 ENCODE_PARTS = ("states", "hop1", "hop2", "mean")
 
 
