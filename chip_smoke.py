@@ -21,8 +21,11 @@ evaluation at the ``sgp_pv.yaml`` widths, and the runner itself; and the
 baseline runners (``exp/run_traffic_baselines.py``,
 ``exp/run_largescale_baselines.py``) from their command lines, reaching K4
 and K3; and the diffusion baselines, DCRNN and GraphWaveNet trained through
-K1 under DiffConv's hops, and the runners on them and on the LSTM. In
-phases; any failure raises and the exit code is not 0:
+K1 under DiffConv's hops, and the runners on them and on the LSTM; and
+the traffic SGP runner (``exp/run_traffic_sgp.py``) at the widths of
+``configs/traffic/sgp_la.yaml`` on 207 nodes, with its loader-side
+supports through K1 on the 100-nn graph. In phases; any failure raises
+and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
 1. build the four kernels, one ``nvcc`` each, in parallel
@@ -95,7 +98,7 @@ phases; any failure raises and the exit code is not 0:
    as parsed (``auto``: the dense operator at this size), with
    ``operator_mode = "bsr"`` set on the parsed namespace, untrained
    (``--epochs 0``) and with 1e-5 of the dense encoding's bf16 features one
-   ulp off, at seeds 0, 1 and 2: finite metrics below the untrained
+   ulp off, at seeds 0 and 1: finite metrics below the untrained
    model's, K1's launches on the BSR route only, and the routes' test-MAE
    gap printed beside the one-ulp witness's;
 12. the baseline runners through ``Experiment(...).run(argv)`` at the
@@ -131,7 +134,29 @@ phases; any failure raises and the exit code is not 0:
    (``DIFF_RUNNER_CASES``: DCRNN on full-graph windows, DCRNN and
    GraphWaveNet on subgraph batches, the LSTM of ``traffic/rnn.yaml``),
    each below its untrained run, its first step against the CPU port on a
-   1,001-node set.
+   1,001-node set;
+14. the traffic SGP runner from its command line (``--config
+   traffic/sgp_la.yaml --dataset-name synthetic``; every cut is in the
+   ``LA_*`` and ``SUPPORT_*`` constants): (a) on 207 nodes (METR-LA's
+   width) and 8,640 steps (30 days; METR-LA has 34,272), 3 of the yaml's
+   200 epochs: the first step against the port on the CPU (40 nodes, 400
+   steps, dropout off, the card's window starts), the encode's wall and
+   the encoding's bytes (kept on the card), batch/s of the fused training
+   calls at batch 64, synchronized step times, device busy and idle share
+   (torch.profiler), peak memory and the test MAE beside the same command
+   untrained; then ``online_sgp``, ``esn``, ``--sgp-preprocessing true``,
+   ``--iid-sampling true`` and ``--fused false`` on 14 days, each below
+   its untrained run; (b) ``build_support_operators(...,
+   operator_mode="bsr")`` on phase 5's data and 100-nn graph (receptive
+   field 2, bidirectional, the global mean: 5 supports of 1,600 tiles)
+   through ``SGPLoader`` batches, 3 ``make_fused_window_step`` steps and
+   the fused evaluation, held against the dense supports (the same
+   weights, window starts and dropout draws): K1's launches equal to the
+   count from the code (0 on the dense route), the batches within 1e-4 of
+   the largest value with a mean signed error within 1e-7, the losses and
+   metrics within 1e-4; each support against float64; then K1 at that F
+   (64 x 768 = 49,152) against its plain version, the bound, cuSPARSE and
+   the dense matmul.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -141,7 +166,8 @@ clock per SM at the SM clock ``nvidia-smi`` reports.
 
 The line before the last is a JSON object of the kernels (K4's launches
 from run (a), K3 forward's from run (c), each slice's own count beside
-them; K1's ``diffconv`` sub-entry from phase 13); the last is ``{"ok":
+them; K1's ``diffconv`` sub-entry from phase 13, its ``support``
+sub-entry from phase 14); the last is ``{"ok":
 true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -248,7 +274,7 @@ SGP_CALLS = 4           # multi-step calls of the fused IID trainer
 SGP_STEPS_PER_CALL = 32  # the yaml's batches_epoch
 SGP_EVAL_BATCHES = 4    # test batches of 16 also run on the CPU
 SGP_RUNNER_EPOCHS = 4
-SGP_RUNNER_SEEDS = (0, 1, 2)
+SGP_RUNNER_SEEDS = (0, 1)   # two seeds: the script's time limit
 # the share of bf16 features that the dense and BSR routes round the other
 # way (16,539 of 1.64e9: this script on an NVIDIA H100 80GB HBM3, seed 0);
 # the runner's test MAE turns on it, so the routes' MAE gap is printed
@@ -324,6 +350,36 @@ DIFF_RUNNER_CASES = (
      ["--model-name", "gwnet"] + DIFF_RUN),
     ("rnn", "traffic", RNN_CONFIG,
      ["--model-name", "rnn", "--adj-knn", str(KNN)] + DIFF_RUN))
+
+
+# phase 14, the traffic SGP runner at configs/traffic/sgp_la.yaml's widths
+# (reservoir 64 x 2, receptive field 4, bidirectional, global_attr: 1,280
+# features a node; decoder hidden 960, MLP 256 x 2, resnet, dropout 0.3;
+# batch 64, 300 batches an epoch) on a synthetic set at METR-LA's width
+LA_CONFIG = ROOT / "configs" / "traffic" / "sgp_la.yaml"
+LA_NODES = 207          # METR-LA's sensors
+LA_STEPS = 8640         # 30 days of 5-minute readings (METR-LA: 34,272)
+LA_EPOCHS = 3           # of the yaml's 200
+LA_TIME_STEPS = 24      # synchronized steps timed after the run
+LA_ROUTE_STEPS = 4032   # the other routes' series: 14 days
+LA_ROUTE_RUN = ["--epochs", "2", "--batches-epoch", "100"]
+LA_ROUTES = (("online_sgp", ["--model-name", "online_sgp"]),
+             ("esn", ["--model-name", "esn"]),
+             ("sgp_preprocessing", ["--sgp-preprocessing", "true"]),
+             ("iid_sampling", ["--iid-sampling", "true"]),
+             ("fused_false", ["--fused", "false"]))
+LA_CPU_NODES = 40       # the first step against the CPU port: 40 nodes,
+LA_CPU_STEPS = 400      # 400 steps, dropout off on both devices
+# (b): the loader-side supports through K1 on phase 5's 100-nn graph. The
+# receptive field is cut from 4 to 2 (A, A^2, A', A'^2 and the 1/N graph):
+# the 100-nn graph already fills all 1,600 block positions, so a higher
+# power costs K1 no more, and A^3, A^4 would cost the host minutes of
+# scipy products. F = batch 64 x window 1 x 768 features (6 x 128)
+SUPPORT_K = 2
+SUPPORT_STEPS = 3       # fused window steps of each support route
+SUPPORT_EVAL_BATCHES = 2
+SUPPORT_CHUNK = 4096    # columns a call of K1's plain version (its
+                        # [nnzb, 128, F] temporaries: 3.4 GB a chunk)
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -2800,6 +2856,466 @@ def phase13_diffusion(raw, graph, device) -> dict:
     return out
 
 
+def la_argv(nodes: int, steps: int, device, *flags) -> list:
+    """The traffic runner's command line at sgp_la.yaml on a synthetic set
+    of ``nodes`` x ``steps``."""
+    return ["--config", str(LA_CONFIG), "--dataset-name", "synthetic",
+            "--synthetic-nodes", str(nodes), "--synthetic-steps", str(steps),
+            "--seed", str(SEED), "--device", str(device), *flags]
+
+
+def run_traffic(argv) -> dict:
+    """``run_traffic_sgp`` through ``Experiment(...).run(argv)``, as its
+    command line runs it."""
+    import sgp_tpu_torch.exp.run_traffic_sgp as runner
+    from sgp_tpu_torch.exp.common import Experiment
+    return Experiment(runner.run_experiment,
+                      runner.configure_parser()).run(argv)
+
+
+class TrafficRecorder:
+    """Instruments one traffic runner run from outside: the encode's
+    synchronized wall and the encoding's bytes; each fused training call's
+    synchronized host ms; the fused step and its model; the first step's
+    window starts, the weights before it, its loss and its clipped
+    gradients. With ``first_items`` the first step takes those window
+    starts (the card's, replayed on the CPU)."""
+
+    def __init__(self, device, first_items=None):
+        self.device, self.first_items = device, first_items
+        self.encode, self.call_ms = [], []
+        self.step = self.model = self.first = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def patch(self):
+        import sgp_tpu_torch.exp.run_traffic_sgp as runner
+        encode, make = runner.encode_dataset, runner.make_fused_window_step
+        rec = self
+
+        def timed_encode(ds, *args, **kwargs):
+            rec._sync()
+            t0 = time.perf_counter()
+            out = encode(ds, *args, **kwargs)
+            rec._sync()
+            enc = ds.covariates["encoded_x"].value
+            rec.encode.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, shape=list(enc.shape),
+                dtype=str(enc.dtype), device=str(enc.device),
+                bytes=enc.numel() * enc.element_size()))
+            return out
+
+        def make_step(model, *args, **kwargs):
+            step = make(model, *args, **kwargs)
+            rec.step, rec.model = step, model
+
+            def first_step(generator):
+                items = step.sample(generator) if rec.first_items is None \
+                    else rec.first_items.to(rec.device)
+                init = {k: v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()}
+                loss = step.train_on(items)
+                rec.first = dict(
+                    items=items.cpu(), init=init, loss=float(loss),
+                    grads={k: p.grad.detach().cpu().clone()
+                           for k, p in model.named_parameters()})
+                return loss
+
+            def run(generator):
+                rec._sync()
+                t0 = time.perf_counter()
+                if rec.first is None:
+                    loss = torch.stack([first_step(generator)] + [
+                        step.train_on(step.sample(generator))
+                        for _ in range(kwargs["steps_per_call"] - 1)]).mean()
+                else:
+                    loss = step(generator)
+                loss = float(loss)                       # synchronizes
+                rec.call_ms.append((time.perf_counter() - t0) * 1e3)
+                return torch.tensor(loss)
+            return run
+
+        runner.encode_dataset, runner.make_fused_window_step = \
+            timed_encode, make_step
+        try:
+            yield self
+        finally:
+            runner.encode_dataset, runner.make_fused_window_step = \
+                encode, make
+
+
+def traffic_cpu_step(device) -> dict:
+    """The fused route's first step on the card and again by the port on
+    the CPU, the same command at ``LA_CPU_NODES`` nodes and
+    ``LA_CPU_STEPS`` steps, dropout off: the same initial weights (drawn
+    from the seed on the CPU), the card's window starts, each device's own
+    encode. The loss within TOL_LOSS relative, each clipped gradient
+    within TOL_GRAD of its largest value (:func:`grad_errors`)."""
+    flags = ("--epochs", "1", "--batches-epoch", "1", "--dropout", "0")
+    card = TrafficRecorder(device)
+    with card.patch():
+        run_traffic(la_argv(LA_CPU_NODES, LA_CPU_STEPS, device, *flags))
+    cpu = TrafficRecorder(torch.device("cpu"), card.first["items"])
+    t0 = time.perf_counter()
+    with cpu.patch():
+        run_traffic(la_argv(LA_CPU_NODES, LA_CPU_STEPS, "cpu", *flags))
+    same_init = all(torch.equal(v, cpu.first["init"][k])
+                    for k, v in card.first["init"].items())
+    loss_err = abs(card.first["loss"] - cpu.first["loss"]) / \
+        abs(cpu.first["loss"])
+    errs = grad_errors(card.first["grads"], cpu.first["grads"])
+    out = {"nodes": LA_CPU_NODES, "steps": LA_CPU_STEPS,
+           "cpu_run_s": time.perf_counter() - t0, "same_init": same_init,
+           "loss": card.first["loss"], "loss_rel_err": loss_err,
+           "grad_max_rel_err": max(errs.values()),
+           "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+           "tol": [TOL_LOSS, TOL_GRAD]}
+    print(f"[phase 14] first step, card vs CPU port: {json.dumps(out)}")
+    assert same_init and loss_err <= TOL_LOSS, out
+    assert max(errs.values()) <= TOL_GRAD, out
+    return out
+
+
+def traffic_main_run(device) -> dict:
+    """(a) The runner at sgp_la.yaml's widths on LA_NODES x LA_STEPS for
+    LA_EPOCHS epochs (the fused route): the encode's wall and bytes, the
+    training calls' batch/s, then synchronized step times, a profile's
+    device busy and idle share, peak memory, and the test MAE beside the
+    same command untrained (``--epochs 0``). K1's launches are counted
+    (``auto`` picks the dense operator at this size: 0)."""
+    from sgp_tpu_torch.ops import bsr_spmm
+    cfg = la_config()
+    argv = la_argv(LA_NODES, LA_STEPS, device)
+    rec = TrafficRecorder(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    bsr_spmm.launches = 0
+    t0 = time.perf_counter()
+    with rec.patch():
+        res = run_traffic(argv + ["--epochs", str(LA_EPOCHS)])
+    wall = time.perf_counter() - t0
+    launches = bsr_spmm.launches
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    steps_per_call = cfg["batches_epoch"]
+    call_ms = quartiles(rec.call_ms[1:])
+    # synchronized steps on the trained model (dropout on, as trained)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    step_ms = []
+    for _ in range(LA_TIME_STEPS):
+        items = rec.step.sample(gen)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        float(rec.step.train_on(items))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    steps = quartiles(step_ms[TIME_DROP:])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            float(rec.step.train_on(rec.step.sample(gen)))
+        torch.cuda.synchronize(device)
+    busy = device_busy(prof, PROFILE_STEPS)
+    idle = 1.0 - busy["device_busy_ms"] / steps["median"] if busy \
+        else "not measured (no device activity traced)"
+    untrained = run_traffic(argv + ["--epochs", "0"])
+    gemm = traffic_step_gemm_flop(rec.model, cfg["batch_size"] * LA_NODES)
+    row = dict(argv=" ".join(argv), epochs=LA_EPOCHS, wall_s=wall,
+               encode=rec.encode[0], calls=len(rec.call_ms),
+               call_ms=call_ms,
+               batch_per_s=steps_per_call / call_ms["median"] * 1e3,
+               step_ms=steps, idle_share=idle, peak_mib=peak,
+               k1_launches=launches, step_gemm_gflop=gemm / 1e9,
+               step_gemm_tflop_per_s=gemm / steps["median"] / 1e9,
+               test=res, untrained_test_mae=untrained["test_mae"], **busy)
+    print(f"[phase 14] (a) run: {json.dumps(row, default=str)}")
+    assert torch.device(rec.encode[0]["device"]).type == device.type, \
+        rec.encode   # the encoding stays where the run goes
+    assert all(np.isfinite(v) for v in res.values()), res
+    assert res["test_mae"] < untrained["test_mae"], \
+        (res["test_mae"], untrained["test_mae"])
+    assert launches == 0, launches
+    return row
+
+
+def traffic_step_gemm_flop(model, rows: int) -> float:
+    """The matrix products of one training step of ``model`` (an
+    ``SGPModel``) on ``rows`` = batch x nodes rows, forward and backward
+    (3x the forward): the grouped encoder (each block of the features to
+    its block of the hidden width), every ``nn.Linear`` of the trunk and
+    the readout; the node embedding's projection (once a batch, not a
+    row) is left out."""
+    from sgp_tpu_torch.models.blocks import GroupedLinear
+    fwd = 0
+    for name, mod in model.named_modules():
+        if isinstance(mod, GroupedLinear):
+            g, i, o = mod.weight.shape
+            fwd += g * i * o
+        elif isinstance(mod, torch.nn.Linear) and "emb" not in name:
+            fwd += mod.in_features * mod.out_features
+    return 2.0 * rows * fwd * 3
+
+
+def la_config(**over) -> dict:
+    """sgp_la.yaml over the traffic runner's defaults (the flags the yaml
+    leaves out, e.g. ``emb_size``), as the runner parses them."""
+    from sgp_tpu_torch.exp.run_traffic_sgp import configure_parser
+    return {**vars(configure_parser().parse_args([])),
+            **read_flat_yaml(LA_CONFIG), **over}
+
+
+def traffic_routes(device) -> dict:
+    """The other routes of the runner, short (LA_ROUTE_STEPS steps, 2
+    epochs of at most 100 batches): each one's test MAE below its
+    untrained run."""
+    out = {}
+    for tag, flags in LA_ROUTES:
+        t0 = time.perf_counter()
+        argv = la_argv(LA_NODES, LA_ROUTE_STEPS, device, *flags)
+        res = run_traffic(argv + LA_ROUTE_RUN)
+        untrained = run_traffic(argv + ["--epochs", "0"])
+        out[tag] = dict(test_mae=res["test_mae"],
+                        untrained_test_mae=untrained["test_mae"],
+                        wall_s=time.perf_counter() - t0)
+        print(f"[phase 14] (a) route {tag}: {json.dumps(out[tag])}")
+        assert all(np.isfinite(v) for v in res.values()), (tag, res)
+        assert res["test_mae"] < untrained["test_mae"], (tag, out[tag])
+    return out
+
+
+def support_setup(raw, graph, device):
+    """Phase 5's data at sgp_la.yaml's windows and scaler, encoded on the
+    card by the yaml's encoder at receptive field SUPPORT_K (768 features
+    a node) and kept there: ``(cfg, ds, split)``."""
+    from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
+                                    TemporalSplitter, Windowing)
+    from sgp_tpu_torch.encode import SGPEncoder, encode_dataset
+    from sgp_tpu_torch.exp.common import filter_kwargs
+    cfg = la_config(receptive_field=SUPPORT_K)
+    exog = raw.datetime_encoded("day")
+    ds = SpatioTemporalDataset(
+        raw.target, index=raw.index, mask=raw.mask, graph=graph,
+        covariates={"u": exog},
+        windowing=Windowing(window=cfg["window"], horizon=cfg["horizon"]))
+    split = TemporalSplitter(0.1, 0.2).split(ds)
+    ds.fit_scaler(StandardScaler(axis=(0, 1)),
+                  step_index=ds.indices()[split.train])
+    enc = SGPEncoder(**filter_kwargs(SGPEncoder.__init__, {
+        **cfg, "input_size": ds.n_channels + exog.shape[-1], "seed": SEED,
+        "device": device}))
+    encode_dataset(ds, enc, encode_exogenous=cfg["preprocess_exogenous"],
+                   keep_raw=cfg["keep_raw"], device_resident=True,
+                   device=device)
+    return cfg, ds, split
+
+
+def support_route(mode, cfg, ds, split, dev, items, device) -> dict:
+    """One support route (``operator_mode`` ``mode``) through the path
+    the runner's ``--sgp-preprocessing`` takes: ``SGPLoader`` batches,
+    SUPPORT_STEPS fused window steps on the given window starts (the same
+    weights and dropout draws on either route) and the fused evaluation
+    of SUPPORT_EVAL_BATCHES test batches; K1's launches counted from 0
+    just before."""
+    from sgp_tpu_torch.data.sgp_loader import (SGPLoader,
+                                               build_support_operators)
+    from sgp_tpu_torch.ops import bsr_spmm
+    from sgp_tpu_torch.train import MaskedMetrics
+    from sgp_tpu_torch.train.fused_window import (make_fused_eval,
+                                                  make_fused_window_step)
+    t0 = time.perf_counter()
+    ops = build_support_operators(
+        ds.graph, k=cfg["receptive_field"], undirected=cfg["undirected"],
+        add_loops=cfg["add_self_loops"], bidirectional=cfg["bidirectional"],
+        global_attr=cfg["global_attr"], operator_mode=mode, device=device)
+    build_s = time.perf_counter() - t0
+    bs = cfg["batch_size"]
+    width = int(dev["x"].shape[-1]) * (1 + len(ops))
+    model = sgp_model(cfg, ds, width, int(dev["u"].shape[-1]), device)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg["lr"], eps=1e-8)
+    step = make_fused_window_step(
+        model, opt, dev["x"], dev["y"], dev["m"], ds.indices()[split.train],
+        ds.windowing.window_offsets(), ds.windowing.horizon_offsets(),
+        ds.scaler_params(device=device), u=dev["u"], support_ops=ops,
+        batch_size=bs, grad_clip=GRAD_CLIP)
+    evaluate = make_fused_eval(
+        model, dev["x"], dev["y"], dev["m"],
+        ds.indices()[split.test][:SUPPORT_EVAL_BATCHES * bs],
+        ds.windowing.window_offsets(), ds.windowing.horizon_offsets(),
+        ds.scaler_params(device=device), MaskedMetrics.forecasting(),
+        u=dev["u"], support_ops=ops, batch_size=bs)
+    torch.cuda.synchronize(device)
+    bsr_spmm.launches = 0
+    t0 = time.perf_counter()
+    batches = [b["x"] for b in SGPLoader(ds, ops, items=split.train[:2 * bs],
+                                         batch_size=bs)]
+    torch.manual_seed(SEED)                 # the same dropout draws
+    losses = [float(step.train_on(it)) for it in items]
+    metrics = evaluate()
+    torch.cuda.synchronize(device)
+    return dict(ops=ops, batches=batches, losses=losses, metrics=metrics,
+                launches=bsr_spmm.launches, build_s=build_s,
+                path_s=time.perf_counter() - t0, state={
+                    k: v.detach().clone()
+                    for k, v in model.state_dict().items()})
+
+
+def k1_at_support_width(op, dense_op, x) -> dict:
+    """K1 at the supports' shape (a loader batch ``[64, 1, N, 768]``
+    folded to ``[N, F]``, F = 49,152, as ``BSROperator`` folds it) on the
+    100-nn support A: against its plain version (in SUPPORT_CHUNK-column
+    calls: its ``[nnzb, 128, F]`` temporaries would take 80 GB at once),
+    interleaved CUDA-event times, the bound, cuSPARSE's BSR product and
+    the dense operator's matmul on the same input."""
+    from sgp_tpu_torch.ops import bsr_spmm, bsr_spmm_plain
+    n = x.shape[-2]
+    folded = x.reshape(-1, n, x.shape[-1]).transpose(0, 1).reshape(
+        n, -1).contiguous()
+    args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+    n_br = op.row_ptr.numel() - 1
+    f = folded.shape[1]
+
+    def plain():
+        return torch.cat([bsr_spmm_plain(
+            op.blocks, op.block_cols, op.block_rows, n_br,
+            folded[:, s:s + SUPPORT_CHUNK])
+            for s in range(0, f, SUPPORT_CHUNK)], dim=1)
+    got, again, ref = bsr_spmm(*args, folded), bsr_spmm(*args, folded), \
+        plain()
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, ref)
+    bias = ((got - ref).mean() / ref.abs().max()).item()
+    k_ms, p_ms = interleaved_ms(lambda: bsr_spmm(*args, folded), plain,
+                                2, 3, plain_iters=1)
+    row = dict(case="support hop", n=n, f=f, nnzb=op.blocks.shape[0],
+               dtype="float32", max_abs_err=abs_err, rel_err=rel,
+               tol=TOL_F32, out_mean_err=bias,
+               bitwise_repeat=torch.equal(got, again), ms=k_ms["median"],
+               q1_q3=[k_ms["q1"], k_ms["q3"]], plain_ms=p_ms["median"],
+               plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
+               dense_tile_gflop=2 * op.blocks.numel() * f / 1e9)
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        *args, folded)) + folded.numel() * 4
+    row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+    npad = n_br * op.blocks.shape[-1]
+    xp = torch.zeros((npad, f), dtype=folded.dtype, device=folded.device)
+    xp[:n] = folded
+    try:
+        a = torch.sparse_bsr_tensor(op.row_ptr, op.block_cols, op.blocks,
+                                    size=(npad, npad))
+        lib = (a @ xp)[:n]
+        row["library_ms"] = cuda_ms(lambda: a @ xp, 2, warmup=1)
+        row["library_max_abs_err"] = rel_err(lib, ref)[0]
+        del lib
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        row["library_ms"] = None
+        row["library_note"] = f"{type(err).__name__}: {err}"[:300]
+    del xp, again
+    row["dense_operator_ms"] = cuda_ms(lambda: dense_op @ x, 3, warmup=1)
+    row["dense_operator_rel_err"] = rel_err(
+        (dense_op @ x).reshape(-1, n, x.shape[-1]).transpose(0, 1).reshape(
+            n, -1), ref)[1]
+    print(f"[phase 14] K1: {json.dumps(row)}")
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert rel <= TOL_F32, f"K1 disagrees with plain at F {f}: {row}"
+    assert row["bitwise_repeat"], f"two calls differ: {row}"
+    assert abs(bias) <= TOL_K1_BIAS, f"K1 output is biased: {row}"
+    assert row["dense_operator_rel_err"] <= TOL_F32, row
+    return row
+
+
+def support_vs_float64(bsr: dict, dense: dict, c: int) -> dict:
+    """Each support's lanes of the first loader batch, on either route,
+    against the dense support applied in float64 on the card: the max
+    error and the mean signed error, relative to the largest value (which
+    route the gap between them comes from)."""
+    x = dense["batches"][0][..., :c].double()
+    out = {}
+    for i, op in enumerate(dense["ops"]):
+        ref = op.mat.double() @ x
+        top = ref.abs().max().item()
+        lanes = slice(c * (i + 1), c * (i + 2))
+        out[i] = {route: [
+            (r["batches"][0][..., lanes].double() - ref).abs().max().item()
+            / top, (r["batches"][0][..., lanes].double() - ref).mean().item()
+            / top] for route, r in (("bsr", bsr), ("dense", dense))}
+        del ref
+    return out
+
+
+def phase14_traffic(raw, graph, device) -> dict:
+    """The traffic SGP runner: (a) from its command line at sgp_la.yaml's
+    widths (the first step against the CPU port, the main run, the other
+    routes); (b) the loader-side supports with ``operator_mode="bsr"`` on
+    phase 5's 100-nn graph (K1) against the dense supports, and K1 at
+    their width."""
+    from sgp_tpu_torch.exp.run_traffic_sgp import device_arrays
+    out = {}
+    for tag, fn in (("cpu_step", traffic_cpu_step),
+                    ("main", traffic_main_run), ("routes", traffic_routes)):
+        t0 = time.perf_counter()
+        out[tag] = fn(device)
+        print(f"[time] phase 14 {tag}: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, ds, split = support_setup(raw, graph, device)
+    dev = device_arrays(ds, device)
+    enc = ds.covariates["encoded_x"].value
+    print(f"[phase 14] (b) {ds.n_nodes} nodes, {graph.num_edges} edges: "
+          f"encoding {tuple(enc.shape)} {enc.dtype} on {enc.device} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    starts = torch.as_tensor(ds.indices()[split.train], device=device)
+    items = [starts[torch.randint(len(starts), (cfg["batch_size"],),
+                                  generator=gen, device=device)]
+             for _ in range(SUPPORT_STEPS)]
+    routes = {mode: support_route(mode, cfg, ds, split, dev, items, device)
+              for mode in ("bsr", "dense")}
+    bsr, dense = routes["bsr"], routes["dense"]
+    c = int(dev["x"].shape[-1])
+    x_err = max(rel_err(a[..., c:], b[..., c:])[1]
+                for a, b in zip(bsr["batches"], dense["batches"]))
+    x_bias = max(abs(((a[..., c:] - b[..., c:]).mean()
+                      / b[..., c:].abs().max()).item())
+                 for a, b in zip(bsr["batches"], dense["batches"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(bsr["losses"], dense["losses"]))
+    eval_err = max(abs(bsr["metrics"][k] - v) / abs(v)
+                   for k, v in dense["metrics"].items())
+    weight_err = max(rel_err(bsr["state"][k], v)[1]
+                     for k, v in dense["state"].items())
+    n_ops = len(bsr["ops"])
+    eval_batches = -(-min(len(split.test), SUPPORT_EVAL_BATCHES
+                          * cfg["batch_size"]) // cfg["batch_size"])
+    expect = n_ops * (len(bsr["batches"]) + SUPPORT_STEPS + eval_batches)
+    row = dict(supports=n_ops, k=cfg["receptive_field"],
+               f=cfg["batch_size"] * c, launches=bsr["launches"],
+               launches_expected=expect,
+               dense_launches=dense["launches"], loader_x_rel_err=x_err,
+               loader_x_mean_err=x_bias, loss_rel_err=loss_err,
+               eval_rel_err=eval_err, weights_rel_err=weight_err,
+               losses={k: r["losses"] for k, r in routes.items()},
+               metrics={k: r["metrics"] for k, r in routes.items()},
+               build_s={k: r["build_s"] for k, r in routes.items()},
+               path_s={k: r["path_s"] for k, r in routes.items()},
+               tol=[TOL_SLICE, TOL_K1_BIAS])
+    print(f"[phase 14] (b) BSR supports vs dense: {json.dumps(row)}")
+    assert bsr["launches"] == expect and dense["launches"] == 0, row
+    assert x_err <= TOL_SLICE and x_bias <= TOL_K1_BIAS, row
+    assert loss_err <= TOL_SLICE and eval_err <= TOL_SLICE, row
+    assert all(np.isfinite(bsr["losses"])), row
+    row["vs_float64"] = support_vs_float64(bsr, dense, c)
+    print(f"[phase 14] (b) each support's first batch against float64: "
+          f"{json.dumps(row['vs_float64'])}")
+    k1 = k1_at_support_width(bsr["ops"][0], dense["ops"][0],
+                             bsr["batches"][0][..., :c])
+    out["support"], out["k1"] = row, k1
+    print(f"[time] phase 14 (b): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -2853,6 +3369,7 @@ def main():
     sgp = timed("phase 11", phase11_sgp, ds, graph, device)
     runners = timed("phase 12", phase12_runners, device)
     diffusion = timed("phase 13", phase13_diffusion, ds, graph, device)
+    traffic = timed("phase 14", phase14_traffic, ds, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -2866,6 +3383,11 @@ def main():
         "sgp_tpu/ops/bsr_kernel.py:39", diffusion["gwnet"]["launches"],
         diffusion["k1"][DIFF_WIDTHS[-1]])
     kernels[0]["diffconv"]["dcrnn_launches"] = diffusion["dcrnn"]["launches"]
+    # the loader-side supports of the traffic runner, F 49,152 (phase 14)
+    kernels[0]["support"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", traffic["support"]["launches"],
+        traffic["k1"])
     # K4's launches from the traffic runner's run (a), K3 forward's from
     # the large-scale runner's run (c); the slices' own counts beside them
     run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]

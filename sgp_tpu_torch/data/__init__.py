@@ -1,4 +1,4 @@
-from sgp_tpu_torch.data.loader import WindowedLoader
+from sgp_tpu_torch.data.loader import IIDLoader, WindowedLoader
 from sgp_tpu_torch.data.scalers import (RobustScaler, Scaler, ScalerParams,
                                         StandardScaler)
 from sgp_tpu_torch.data.spatiotemporal import Batch, SpatioTemporalDataset
@@ -8,7 +8,7 @@ from sgp_tpu_torch.data.subgraph import (SubgraphLoader, SubsetLoader,
                                         cap_edges)
 from sgp_tpu_torch.data.windowing import Windowing
 
-__all__ = ["Batch", "RobustScaler", "Scaler", "ScalerParams", "Split",
+__all__ = ["Batch", "IIDLoader", "RobustScaler", "Scaler", "ScalerParams", "Split",
            "Splitter", "SpatioTemporalDataset", "StandardScaler",
            "SubgraphLoader", "SubsetLoader", "TemporalSplitter",
            "WindowedLoader", "Windowing", "cap_edges", "datetime_encoded"]

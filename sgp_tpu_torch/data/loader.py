@@ -1,8 +1,9 @@
-"""Batch iterator over window items.
+"""Batch iterators over window items and (time, node) pairs.
 
-A numpy copy of ``WindowedLoader`` in ``sgp_tpu/data/loader.py``: no
-worker processes, a batch is one vectorized host gather, and the numpy
-generator shuffles in the same order as the JAX package's loader.
+A numpy copy of ``WindowedLoader`` and ``IIDLoader`` in
+``sgp_tpu/data/loader.py``: no worker processes, a batch is one vectorized
+gather, and the numpy generator shuffles and draws in the same order as
+the JAX package's loaders.
 """
 from __future__ import annotations
 
@@ -46,3 +47,34 @@ class WindowedLoader:
             if len(sel) == 0:
                 return
             yield self.dataset.gather_batch(sel)
+
+
+class IIDLoader:
+    """Uniform (time, node)-pair batches: each pass yields ``num_batches``
+    batches of ``batch_size`` pairs drawn with replacement over the valid
+    window starts (``step_index``) and the nodes, from the loader's numpy
+    generator (the JAX package's draws, bit for bit)."""
+
+    def __init__(self, dataset: SpatioTemporalDataset,
+                 batch_size: int = 4096, num_batches: int = 1000,
+                 seed: int = 0,
+                 step_index: Optional[np.ndarray] = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_batches = num_batches
+        self._rng = np.random.default_rng(seed)
+        self.valid_starts = (dataset.indices() if step_index is None
+                             else np.asarray(step_index))
+
+    def __len__(self) -> int:
+        return self.num_batches
+
+    def draw(self):
+        """One batch's ``(steps, nodes)``."""
+        t = self._rng.choice(self.valid_starts, self.batch_size)
+        n = self._rng.integers(0, self.dataset.n_nodes, self.batch_size)
+        return t, n
+
+    def __iter__(self) -> Iterator[Batch]:
+        for _ in range(self.num_batches):
+            yield self.dataset.gather_iid_batch(*self.draw())

@@ -1,11 +1,12 @@
 """The windowed spatiotemporal dataset over host arrays.
 
 A numpy copy of the part of ``sgp_tpu/data/spatiotemporal.py`` that the
-training slice reaches, held bit-exact against it by the parity tests: the
+training slices reach, held bit-exact against it by the parity tests: the
 whole series lives as contiguous host arrays and a batch is one vectorized
-gather over window and horizon steps. The device-resident covariates of
-the JAX version (encoded features kept in HBM) are not ported; every array
-here is numpy, and the trainer moves a batch to the device.
+gather over window and horizon steps. A covariate may instead be a torch
+tensor (the encoded features that ``encode_dataset(device_resident=True)``
+keeps on the device): every gather that touches it then runs where it
+lives, with no copy to the host, and hands the model f32 features.
 
 Layout: target ``[T, N, C]`` float32, mask ``[T, N, C]`` bool, covariates
 with pattern ``'t n c'`` (node-level) or ``'t c'`` (global), an optional
@@ -17,15 +18,41 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from sgp_tpu_torch.data.scalers import Scaler, ScalerParams
 from sgp_tpu_torch.data.windowing import Windowing
 from sgp_tpu_torch.graph.sparse import Graph
 
 
+def _cat(parts):
+    """Channel-wise concatenation, on the device of the first tensor part
+    when there is one."""
+    if len(parts) == 1:
+        return parts[0]
+    device = next((a.device for a in parts if isinstance(a, torch.Tensor)),
+                  None)
+    if device is None:
+        return np.concatenate(parts, axis=-1)
+    return torch.cat([torch.as_tensor(np.ascontiguousarray(a), device=device)
+                      if isinstance(a, np.ndarray) else a for a in parts],
+                     dim=-1)
+
+
+def _take(arr, *index):
+    """``arr[index]`` for numpy index arrays; a tensor is indexed where it
+    lives, and floating features come out f32 (flax promotes bf16 inputs
+    against f32 weights; torch does not)."""
+    if not isinstance(arr, torch.Tensor):
+        return arr[index]
+    out = arr[tuple(torch.as_tensor(i, device=arr.device)
+                    if isinstance(i, np.ndarray) else i for i in index)]
+    return out.float() if out.is_floating_point() else out
+
+
 @dataclasses.dataclass
 class Covariate:
-    value: np.ndarray
+    value: np.ndarray   # or a torch tensor kept where it lives
     pattern: str  # 't n c', 't c', 'n c'
 
 
@@ -115,7 +142,10 @@ class SpatioTemporalDataset:
     # -- covariates --------------------------------------------------------
     def add_covariate(self, name: str, value: np.ndarray,
                       pattern: Optional[str] = None):
-        value = np.asarray(value)
+        """A numpy array (stored as f32) or a torch tensor (kept as it
+        is, on its device)."""
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
         if pattern is None:
             if value.ndim == 3:
                 pattern = "t n c"
@@ -129,8 +159,9 @@ class SpatioTemporalDataset:
                 f"{name}: time dim {value.shape[0]} != {self.n_steps}"
         if pattern == "t n c":
             assert value.shape[1] == self.n_nodes
-        self.covariates[name] = Covariate(value.astype(np.float32, copy=False),
-                                          pattern)
+        if not isinstance(value, torch.Tensor):
+            value = value.astype(np.float32, copy=False)
+        self.covariates[name] = Covariate(value, pattern)
 
     # -- scaling -----------------------------------------------------------
     def fit_scaler(self, scaler: Scaler,
@@ -168,20 +199,21 @@ class SpatioTemporalDataset:
         cov = self.covariates[key]
         return cov.value, cov.pattern
 
-    def _over_nodes(self, arr: np.ndarray) -> np.ndarray:
-        return np.broadcast_to(arr[:, None, :],
-                               (arr.shape[0], self.n_nodes, arr.shape[-1]))
+    def _over_nodes(self, arr):
+        shape = (arr.shape[0], self.n_nodes, arr.shape[-1])
+        if isinstance(arr, torch.Tensor):
+            return arr[:, None, :].expand(shape)
+        return np.broadcast_to(arr[:, None, :], shape)
 
-    def input_array(self) -> np.ndarray:
+    def input_array(self):
         """The input keys concatenated channel-wise to ``[T, N, Cin]``,
-        global (``'t c'``) covariates broadcast over nodes."""
+        global (``'t c'``) covariates broadcast over nodes; a tensor when
+        any key is one."""
         parts = []
         for k in self.input_keys:
             arr, pattern = self._key_array(k)
             parts.append(self._over_nodes(arr) if pattern == "t c" else arr)
-        if len(parts) == 1:
-            return parts[0]
-        return np.concatenate(parts, axis=-1)
+        return _cat(parts)
 
     def exog_array(self) -> Optional[np.ndarray]:
         """Exogenous ``u``: ``[T, F]`` if every part is global, else
@@ -196,9 +228,7 @@ class SpatioTemporalDataset:
                     for arr, p in parts]
         else:
             vals = [arr for arr, _ in parts]
-        if len(vals) == 1:
-            return vals[0]
-        return np.concatenate(vals, axis=-1)
+        return _cat(vals)
 
     # -- batch gather ------------------------------------------------------
     def gather_batch(self, item_idx: np.ndarray,
@@ -210,19 +240,39 @@ class SpatioTemporalDataset:
         starts = self.indices()[np.asarray(item_idx)]
         w_steps = starts[:, None] + w.window_offsets()[None, :]   # [B, W]
         h_steps = starts[:, None] + w.horizon_offsets()[None, :]  # [B, H]
-        batch = Batch(x=self.input_array()[w_steps], y=self.target[h_steps],
-                      mask=self.mask[h_steps])
+        batch = Batch(x=_take(self.input_array(), w_steps),
+                      y=self.target[h_steps], mask=self.mask[h_steps])
         u = self.exog_array()
         if u is not None:
-            batch["u"] = u[w_steps]       # [B, W, F] or [B, W, N, F]
-            batch["u_horizon"] = u[h_steps]
+            batch["u"] = _take(u, w_steps)    # [B, W, F] or [B, W, N, F]
+            batch["u_horizon"] = _take(u, h_steps)
         if node_index is not None:
             node_index = np.asarray(node_index)
-            for k in ("x", "y", "mask"):
-                batch[k] = batch[k][..., node_index, :] \
-                    if batch[k].ndim == 4 else batch[k]
-            if u is not None and batch["u"].ndim == 4:
-                batch["u"] = batch["u"][..., node_index, :]
-                batch["u_horizon"] = batch["u_horizon"][..., node_index, :]
+            for k in ("x", "y", "mask", "u", "u_horizon"):
+                if k in batch and batch[k].ndim == 4:
+                    batch[k] = _take(batch[k], Ellipsis, node_index,
+                                     slice(None))
             batch["node_index"] = node_index
+        return batch
+
+    def gather_iid_batch(self, step_idx: np.ndarray,
+                         node_idx: np.ndarray) -> Batch:
+        """The batch of (time, node) pairs: window inputs ``x [B, W, Cin]``
+        at the sampled step and node, horizon targets and masks ``[B, H,
+        C]``, ``node_index``, and ``u`` at the node (node-level) or the
+        step (global)."""
+        w = self.windowing
+        starts = np.asarray(step_idx)
+        node_idx = np.asarray(node_idx)
+        w_steps = starts[:, None] + w.window_offsets()[None, :]   # [B, W]
+        h_steps = starts[:, None] + w.horizon_offsets()[None, :]
+        batch = Batch(x=_take(self.input_array(), w_steps, node_idx[:, None]),
+                      y=self.target[h_steps, node_idx[:, None]],
+                      mask=self.mask[h_steps, node_idx[:, None]],
+                      node_index=node_idx)
+        u = self.exog_array()
+        if u is not None:
+            at = (node_idx[:, None],) if u.ndim == 3 else ()
+            batch["u"] = _take(u, w_steps, *at)
+            batch["u_horizon"] = _take(u, h_steps, *at)
         return batch

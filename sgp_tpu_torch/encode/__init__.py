@@ -10,7 +10,8 @@ from sgp_tpu_torch.encode.reservoir import (Reservoir, ReservoirLayerParams,
                                             reservoir_scan)
 from sgp_tpu_torch.encode.spatial import (prepare_propagation_graphs,
                                           propagate_khop,
-                                          sgp_spatial_embedding)
+                                          sgp_spatial_embedding,
+                                          sgp_spatial_support)
 
 __all__ = [
     "SGPEncoder", "SGPSpatialEncoder", "SGPTemporalEncoder",
@@ -18,4 +19,5 @@ __all__ = [
     "get_encoder_class", "rewire_exog_keys", "streaming_encode", "Reservoir",
     "ReservoirLayerParams", "reservoir_scan", "prepare_propagation_graphs",
     "propagate_khop", "sgp_spatial_embedding",
+    "sgp_spatial_support",
 ]

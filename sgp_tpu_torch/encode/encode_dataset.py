@@ -8,11 +8,11 @@ covariate ``encoded_x`` and rewire the input map —
     x <- encoded_x
     u <- (u if exogenous not encoded) + (scaled raw data if keep_raw)
 
-with the same ``.npz`` cache. The port's dataset holds numpy arrays only,
-so the encoding is stored on the host (as float32 holding the values of
-``store_dtype``); the trainer moves it to the card once
-(``train/iid.py::fused_iid_inputs``). The JAX package's
-``device_resident=True`` is not ported yet.
+with the same ``.npz`` cache. By default the encoding is stored on the
+host (as float32 holding the values of ``store_dtype``) and the trainer
+moves it to the card once (``train/iid.py::fused_iid_inputs``); with
+``device_resident=True`` it stays a tensor (in ``store_dtype``) on the
+encoder's device, and the dataset gathers batches from it there.
 """
 from __future__ import annotations
 
@@ -86,17 +86,16 @@ def encode_dataset(dataset: SpatioTemporalDataset,
 
     The encode runs where the encoder's reservoir lives (or on ``device``);
     ``store_dtype`` (e.g. ``"bfloat16"``) rounds each chunk as the encoder
-    writes it. A ``save_path`` that exists is loaded instead of encoding;
-    one that does not is written after it."""
-    if device_resident:
-        raise NotImplementedError(
-            "device_resident=True: the port's dataset holds numpy arrays "
-            "only; device-resident covariates are ROADMAP A9")
+    writes it. ``device_resident`` keeps the encoding there as a tensor
+    (a cached one is moved there). A ``save_path`` that exists is loaded
+    instead of encoding; one that does not is written after it."""
     dtype = torch_dtype(store_dtype)
     if save_path is not None and os.path.exists(save_path):
-        encoded = np.load(save_path)["encoded_x"]
+        encoded = torch.from_numpy(np.load(save_path)["encoded_x"])
         if dtype is not None:
-            encoded = torch.from_numpy(encoded).to(dtype).float().numpy()
+            encoded = encoded.to(dtype)
+        encoded = encoded.to(_encoder_device(encoder, device)) \
+            if device_resident else encoded.float().numpy()
         logger.info(f"Loaded cached encoding from {save_path}")
     else:
         dev = _encoder_device(encoder, device)
@@ -114,12 +113,17 @@ def encode_dataset(dataset: SpatioTemporalDataset,
         encoded = encoder(x, dataset.graph, **supported)
         if dtype is not None and "out_dtype" not in supported:
             encoded = encoded.to(dtype)
-        encoded = encoded.float().cpu().numpy()
+        if device_resident:
+            if encoded.device.type == "cuda":
+                torch.cuda.synchronize(encoded.device)
+        else:
+            encoded = encoded.float().cpu().numpy()
         logger.info(f"Dataset encoded in {time.time() - start:.1f}s "
-                    f"-> encoded_x {encoded.shape}")
+                    f"-> encoded_x {tuple(encoded.shape)}")
         if save_path is not None:
             os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
-            np.savez(save_path, encoded_x=encoded)
+            np.savez(save_path, encoded_x=encoded.float().cpu().numpy()
+                     if device_resident else encoded)
 
     dataset.add_covariate("encoded_x", encoded, pattern="t n c")
     dataset.set_input_keys(["encoded_x"])

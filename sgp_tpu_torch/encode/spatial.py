@@ -4,7 +4,9 @@ Counterpart of ``sgp_tpu/encode/spatial.py``: ``res = [x, Ax, A^2 x, ...,
 A^k x]`` with a row- (or GCN-) normalized propagation operator, optionally
 repeated on the transposed operator (bidirectional). Host-side graph
 preparation is split from device-side propagation so the prepared
-operators can be reused across calls.
+operators can be reused across calls. :func:`sgp_spatial_support`
+materializes the powers themselves, for loader-side propagation
+(``data/sgp_loader.py``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from sgp_tpu_torch.graph.sparse import (Graph, add_self_loops, edge_dropout,
                                         normalize_adj, remove_self_loops,
-                                        to_undirected, transpose)
+                                        spgemm, to_undirected, transpose)
 from sgp_tpu_torch.ops.spmm import Operator, build_operator
 
 
@@ -102,3 +104,42 @@ def sgp_spatial_embedding(x: torch.Tensor,
                                 precision=precision, device=x.device)
         res += propagate_khop(bwd_op, res[0], k, include_input=False)
     return res
+
+
+def sgp_spatial_support(g: Graph, k: int = 2,
+                        undirected: bool = False,
+                        add_loops: bool = False,
+                        remove_loops: bool = False,
+                        bidirectional: bool = False,
+                        global_attr: bool = False,
+                        true_powers: bool = True) -> List[Graph]:
+    """The operator list ``[A, A^2, ..., A^k]`` (then the same on the
+    transposed graph when ``bidirectional``, then the dense ``1/N`` graph
+    when ``global_attr``), as host graphs.
+
+    ``true_powers=False`` keeps the reference's quirk of appending ``A @ A``
+    k-1 times instead of the successive powers. The backward support is the
+    real transpose, as in :func:`sgp_spatial_embedding`."""
+    if undirected:
+        g = to_undirected(g)
+    if add_loops:
+        g = add_self_loops(g)
+    elif remove_loops:
+        g = remove_self_loops(g)
+    adj0 = normalize_adj(g, "sym" if undirected else "row")
+    support = [adj0]
+    power = adj0
+    for _ in range(k - 1):
+        if true_powers:
+            power = spgemm(power, adj0)
+            support.append(power)
+        else:
+            support.append(spgemm(adj0, adj0))
+    if bidirectional:
+        support += sgp_spatial_support(transpose(g), k=k,
+                                       true_powers=true_powers)
+    if global_attr:
+        n = g.num_nodes
+        support.append(Graph.from_dense(np.full((n, n), 1.0 / n,
+                                                np.float32)))
+    return support

@@ -1,7 +1,7 @@
 """Host-side sparse graph representation and graph algorithms.
 
 A numpy copy of the part of ``sgp_tpu/graph/sparse.py`` that the serving,
-GatedGN training and subgraph-sampling paths reach, held bit-exact against
+GatedGN training, subgraph-sampling and support-materialization paths reach, held bit-exact against
 it by the parity tests. Graphs are prepared once on the host; device compute consumes a
 dense operator, the packed block-sparse tiles of :meth:`Graph.to_bsr`, the
 ELL table of :func:`padded_incoming` or a dense mask with the band windows
@@ -61,6 +61,12 @@ class Graph:
         return sp.csr_matrix(
             (self.weight, (self.dst, self.src)),
             shape=(self.num_nodes, self.num_nodes))
+
+    @classmethod
+    def from_scipy(cls, mat: sp.spmatrix) -> "Graph":
+        coo = mat.tocoo()
+        return cls(coo.col, coo.row, coo.data.astype(np.float32),
+                   mat.shape[0])
 
     def to_dense(self, dtype=np.float32) -> np.ndarray:
         """Dense operator ``A[dst, src]``."""
@@ -178,6 +184,12 @@ def normalize_adj(g: Graph, norm: str = "row",
         return g.with_weight(
             (g.weight * inv_sqrt[g.dst] * inv_sqrt[g.src]).astype(np.float32))
     raise ValueError(f"unknown norm {norm!r}")
+
+
+def spgemm(a: Graph, b: Graph) -> Graph:
+    """The operator product ``a @ b`` (support materialization), by
+    scipy on the host."""
+    return Graph.from_scipy(a.to_scipy() @ b.to_scipy())
 
 
 def edge_dropout(g: Graph, p: float, rng: np.random.Generator) -> Graph:

@@ -11,6 +11,7 @@ from sgp_tpu_torch.models.blocks import (MLP, Dense, GroupedLinear,
                                          get_activation, maybe_cat_exog)
 from sgp_tpu_torch.models.bridge import flax_to_torch
 from sgp_tpu_torch.models.dcrnn import DCRNN, DCRNNCell, DCRNNModel
+from sgp_tpu_torch.models.esn import ESNModel
 from sgp_tpu_torch.models.gated_gn import (CNNResidual, Conv1dResidual,
                                            GatedGraphNetworkConvModel,
                                            GatedGraphNetworkMLPModel,
@@ -24,14 +25,13 @@ from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
 from sgp_tpu_torch.models.gwnet import (DenseSpatialConvOrderK,
                                         GraphWaveNetModel)
 from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel
-from sgp_tpu_torch.models.sgp import SGPModel
+from sgp_tpu_torch.models.sgp import SGPModel, SGPOnlineModel
 from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
                                       TemporalConvNet)
 
 # the JAX registry's models not ported yet, by the ROADMAP item that ports
 # them
-_NOT_PORTED = {"stcn": "A9", "rnn2gcn": "A9", "esn": "A7",
-               "online_sgp": "A7"}
+_NOT_PORTED = {"stcn": "A9", "rnn2gcn": "A9"}
 
 
 def get_model_class(name: str):
@@ -39,7 +39,8 @@ def get_model_class(name: str):
     classes by name; a model of the JAX registry not ported yet raises
     ``NotImplementedError`` naming its ROADMAP item, an unknown name
     ``KeyError``."""
-    ported = {"sgp": SGPModel, "gatedgn": GatedGraphNetworkMLPModel,
+    ported = {"sgp": SGPModel, "online_sgp": SGPOnlineModel,
+              "esn": ESNModel, "gatedgn": GatedGraphNetworkMLPModel,
               "gatedgn_conv": GatedGraphNetworkConvModel,
               "transformer": TransformerModel, "rnn": RNNModel,
               "fc_rnn": FCRNNModel, "dcrnn": DCRNNModel,
@@ -52,7 +53,7 @@ def get_model_class(name: str):
 
 __all__ = ["MLP", "Dense", "GroupedLinear", "LinearReadout", "ResidualMLP",
            "StaticGraphEmbedding", "get_activation", "maybe_cat_exog",
-           "SGPModel", "flax_to_torch", "GatedGraphNetwork",
+           "SGPModel", "SGPOnlineModel", "ESNModel", "flax_to_torch", "GatedGraphNetwork",
            "GatedGraphNetworkMLPModel", "GatedGraphNetworkConvModel",
            "CNNResidual", "Conv1dResidual", "full_graph_edges", "GATConv",
            "SpatioTemporalAttention", "AttentionEncoder",

@@ -1,4 +1,6 @@
 """Load a flax parameter tree into a model of the port: :class:`SGPModel`,
+:class:`SGPOnlineModel` (its decoder under ``SGPModel_0``),
+:class:`ESNModel` (only its readout is a parameter),
 :class:`GatedGraphNetworkMLPModel`, :class:`GatedGraphNetworkConvModel`,
 :class:`TransformerModel`, or one of the attention layers on its own
 (``MultiHeadAttention``, ``AttentionEncoder``, ``CausalLinearAttention``,
@@ -44,6 +46,7 @@ from sgp_tpu_torch.models.attention import (AttentionEncoder,
                                             TransformerModel)
 from sgp_tpu_torch.models.blocks import MLP, MLPDecoder
 from sgp_tpu_torch.models.dcrnn import DCRNNModel
+from sgp_tpu_torch.models.esn import ESNModel
 from sgp_tpu_torch.models.gated_gn import (CNNResidual,
                                            GatedGraphNetworkConvModel,
                                            GatedGraphNetworkMLPModel)
@@ -54,7 +57,7 @@ from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
 from sgp_tpu_torch.models.gwnet import (DenseSpatialConvOrderK, GWNetLayer,
                                         GraphWaveNetModel)
 from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel, RNNStack
-from sgp_tpu_torch.models.sgp import SGPModel
+from sgp_tpu_torch.models.sgp import SGPModel, SGPOnlineModel
 from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
                                       TemporalConvNet)
 
@@ -126,6 +129,17 @@ def _targets(model: SGPModel) -> Dict[Path, Tuple[torch.Tensor, bool]]:
            trunk)
     _linear(out, ("LinearReadout_0", "Dense_0"), model.readout.linear)
     return out
+
+
+def _sgp_online(out: dict, scope: Path, m: SGPOnlineModel):
+    for path, target in _targets(m.sgp).items():
+        out[scope + ("SGPModel_0",) + path] = target
+
+
+def _esn(out: dict, scope: Path, m: ESNModel):
+    """Only the readout: the reservoir is frozen buffers, as it lies
+    outside the flax variables."""
+    _linear(out, scope + ("LinearReadout_0", "Dense_0"), m.readout.linear)
 
 
 def _gn_layer(out: dict, scope: Path, layer: GatedGraphNetwork):
@@ -401,6 +415,8 @@ def _tcn_model(out: dict, scope: Path, m: TCNModel):
 
 # model class -> the function that lists its flax paths
 _TREES = {
+    SGPOnlineModel: _sgp_online,
+    ESNModel: _esn,
     DCRNNModel: _dcrnn_model,
     GraphWaveNetModel: _gwnet_model,
     RNNModel: _rnn_model,

@@ -6,7 +6,8 @@ block of the embedding), an optional learned node embedding, an
 (optionally residual) MLP trunk and a linear multi-horizon readout. Input
 may be full-graph ``[b (w) n f]`` or IID-sampled ``[b (w) f]`` per (time,
 node) pair — the same parameters serve both. Dropout follows the module's
-``train()``/``eval()`` state. ``SGPOnlineModel`` is not ported yet.
+``train()``/``eval()`` state. ``SGPOnlineModel`` computes the K-hop
+embedding inside its forward and decodes it with an ``SGPModel``.
 """
 from __future__ import annotations
 
@@ -111,3 +112,50 @@ class SGPModel(nn.Module):
         if squeeze_nodes:
             out = out[:, :, 0, :]             # [b h c]
         return out
+
+
+class SGPOnlineModel(nn.Module):
+    """Counterpart of ``sgp_tpu/models/sgp.py::SGPOnlineModel``: the K-hop
+    spatial embedding of the last window step's features, ``[x, A x, ...,
+    A^k x]`` (then ``A'`` from x again when ``bidirectional``), computed in
+    the forward through the operators passed at call time, and decoded by
+    an :class:`SGPModel` (``self.sgp``, flax's ``SGPModel_0``) whose
+    ``order`` counts ``reservoir_layers`` blocks a hop."""
+
+    def __init__(self, input_size: int, n_nodes: int, output_size: int,
+                 horizon: int, receptive_field: int = 3,
+                 reservoir_layers: int = 1, bidirectional: bool = True,
+                 hidden_size: int = 128, mlp_size: int = 64,
+                 n_layers: int = 1, positional_encoding: bool = True,
+                 emb_size: int = 32, exog_size: int = 0,
+                 resnet: bool = False, fully_connected: bool = False,
+                 dropout: float = 0.0, activation: str = "silu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.receptive_field = receptive_field
+        self.bidirectional = bidirectional
+        order = 1 + (2 if bidirectional else 1) * receptive_field
+        self.sgp = SGPModel(
+            input_size=input_size * order, order=order * reservoir_layers,
+            n_nodes=n_nodes, hidden_size=hidden_size, mlp_size=mlp_size,
+            output_size=output_size, n_layers=n_layers, horizon=horizon,
+            positional_encoding=positional_encoding, emb_size=emb_size,
+            exog_size=exog_size, resnet=resnet,
+            fully_connected=fully_connected, dropout=dropout,
+            activation=activation, generator=generator)
+
+    def reset_parameters(self, generator=None):
+        self.sgp.reset_parameters(generator)
+
+    def forward(self, x, operators, u=None, node_index=None,
+                training: bool = False):
+        if x.ndim == 4:
+            x = x[:, -1]
+        res = [x]
+        for op in operators[:2 if self.bidirectional else 1]:
+            cur = x
+            for _ in range(self.receptive_field):
+                cur = op @ cur
+                res.append(cur)
+        return self.sgp(torch.cat(res, dim=-1), u=u, node_index=node_index,
+                        training=training)

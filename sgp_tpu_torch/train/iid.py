@@ -130,7 +130,7 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
     if compute_dtype is not None:
         raise NotImplementedError(
             "compute_dtype (bf16 decoder steps) is not ported yet "
-            "(ROADMAP A5)")
+            "(ROADMAP A7)")
     loss_pt = _METRIC_FNS[loss]
     h_np = _host(horizon_offsets)
     n_h = int(h_np.shape[0])

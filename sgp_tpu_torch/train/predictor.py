@@ -69,6 +69,23 @@ def clip_by_global_norm_(grads, max_norm: float):
     return norm
 
 
+def apply_gradients(model: torch.nn.Module, optimizer, grad_clip: float,
+                    scheduler=None):
+    """The update after a backward, as the JAX trainer's optax chain takes
+    it: a parameter the loss does not reach gets a zero gradient (optax
+    updates every parameter: it still decays its Adam moments and its
+    weight), every gradient is clipped by the global norm, then the
+    optimizer steps and the learning-rate schedule advances."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_by_global_norm_([p.grad for p in params], grad_clip)
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+
+
 def _to_device(v, device):
     if isinstance(v, np.ndarray):
         return torch.as_tensor(v).to(device)
@@ -189,17 +206,9 @@ class Predictor:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.compute_loss(self._place(batch))
         loss.backward()
-        # optax updates every parameter: one the loss does not reach (the
-        # last GraphWaveNet layer's diffusion branch) takes a zero gradient,
-        # which still decays its Adam moments and its weight
-        params = [p for p in self.model.parameters() if p.requires_grad]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        clip_by_global_norm_(grads, self.grad_clip)
-        self.optimizer.step()
-        self.scheduler.step()
+        # (the last GraphWaveNet layer's diffusion branch reaches no loss)
+        apply_gradients(self.model, self.optimizer, self.grad_clip,
+                        self.scheduler)
         return loss.detach()
 
     # -- loops -------------------------------------------------------------

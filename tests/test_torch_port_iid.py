@@ -276,7 +276,7 @@ def test_step_options_refused(rng):
     args = (tm, opt, torch.as_tensor(enc).to(torch.bfloat16),
             torch.as_tensor(y), torch.as_tensor(mask), valid, H_OFF,
             ScalerParams(torch.as_tensor(bias), torch.as_tensor(scale)))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A7"):
         make_fused_iid_step(*args, compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="packed"):
         make_fused_iid_step(*args, gather_block=2)

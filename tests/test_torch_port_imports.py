@@ -63,6 +63,14 @@ DIFFUSION = (
     "sgp_tpu_torch.models.rnn", "sgp_tpu_torch.models.tcn")
 
 
+# the traffic SGP runner's modules (loader-side supports, the online and
+# ESN models)
+TRAFFIC_SGP = (
+    "sgp_tpu_torch.data.sgp_loader", "sgp_tpu_torch.models.esn",
+    "sgp_tpu_torch.models.sgp", "sgp_tpu_torch.encode.spatial",
+    "sgp_tpu_torch.exp.run_traffic_sgp")
+
+
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
@@ -76,6 +84,7 @@ def test_port_never_imports_jax():
     assert set(MAIN_PATH) <= set(words[2:])
     assert set(BASELINES) <= set(words[2:])
     assert set(DIFFUSION) <= set(words[2:])
+    assert set(TRAFFIC_SGP) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

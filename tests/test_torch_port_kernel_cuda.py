@@ -1038,3 +1038,29 @@ def test_sddmm_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):        # more rows than block rows hold
         big = torch.zeros(400, 8, device=cuda)
         sddmm.bsr_sddmm_kernel(big, big, *args)
+
+
+def test_support_operators_on_the_card_match_cpu(cuda):
+    """The traffic runner's loader-side supports (``operator_mode="bsr"``:
+    A, A^2, A', A'^2 and the 1/N graph) through ``apply_support`` and
+    ``SGPLoader``-shaped batches ``[B, W, N, C]``: one K1 launch a support
+    on the card, the result within 1e-5 of the largest value of the CPU
+    port's (K1's plain version)."""
+    from sgp_tpu_torch.data.sgp_loader import (apply_support,
+                                               build_support_operators)
+    rng = np.random.default_rng(3)
+    g = coalesce(Graph(rng.integers(0, 700, 14000),
+                       rng.integers(0, 700, 14000),
+                       rng.random(14000).astype(np.float32), 700))
+    kw = dict(k=2, bidirectional=True, global_attr=True,
+              operator_mode="bsr")
+    ops = build_support_operators(g, device=cuda, **kw)
+    cpu_ops = build_support_operators(g, device="cpu", **kw)
+    x = rng.standard_normal((8, 2, 700, 24)).astype(np.float32)
+    before = bsr_spmm.launches
+    got = apply_support(torch.as_tensor(x, device=cuda), ops)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == before + len(ops) == before + 5
+    ref = apply_support(torch.as_tensor(x), cpu_ops)
+    err = (got.cpu() - ref).abs().max() / ref.abs().max()
+    assert got.shape == (8, 2, 700, 24 * 6) and err <= 1e-5, err

@@ -243,7 +243,8 @@ def test_encode_dataset_rewires_like_jax(encode_exogenous, keep_raw):
 def test_encode_dataset_cache_and_store_dtype(tmp_path):
     """``store_dtype="bfloat16"`` rounds the encoding as JAX's does (held
     within a bf16 ulp); a second call loads the ``.npz`` it wrote, bit for
-    bit, without encoding."""
+    bit, without encoding, onto the host or (``device_resident``) as a
+    tensor on the device."""
     jds, tds = _datasets()
     kw = dict(input_size=3, reservoir_size=4, receptive_field=2, seed=2)
     path = str(tmp_path / "enc.npz")
@@ -261,5 +262,12 @@ def test_encode_dataset_cache_and_store_dtype(tmp_path):
 
     encode_dataset(again, Refuses(), store_dtype="bfloat16", save_path=path)
     np.testing.assert_array_equal(again.input_array(), first)
-    with pytest.raises(NotImplementedError, match="A9"):
-        encode_dataset(again, Refuses(), device_resident=True)
+    # device_resident: the cached encoding goes to the device as a tensor
+    # in the store dtype, holding the same values
+    _, resident = _datasets()
+    encode_dataset(resident, Refuses(), store_dtype="bfloat16",
+                   save_path=path, device_resident=True, device="cpu")
+    value = resident.covariates["encoded_x"].value
+    assert isinstance(value, torch.Tensor)
+    assert value.dtype == torch.bfloat16
+    np.testing.assert_array_equal(value.float().numpy(), first)
