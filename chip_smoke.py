@@ -24,7 +24,9 @@ and K3; and the diffusion baselines, DCRNN and GraphWaveNet trained through
 K1 under DiffConv's hops, and the runners on them and on the LSTM; and
 the traffic SGP runner (``exp/run_traffic_sgp.py``) at the widths of
 ``configs/traffic/sgp_la.yaml`` on 207 nodes, with its loader-side
-supports through K1 on the 100-nn graph. In phases; any failure raises
+supports through K1 on the 100-nn graph; and the large-scale runner's
+stratified trainer on PV-US's year (8,868 steps) with K1 under its
+in-step supports, and its trial search. In phases; any failure raises
 and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
@@ -156,7 +158,33 @@ and the exit code is not 0:
    the largest value with a mean signed error within 1e-7, the losses and
    metrics within 1e-4; each support against float64; then K1 at that F
    (64 x 768 = 49,152) against its plain version, the bound, cuSPARSE and
-   the dense matmul.
+   the dense matmul;
+15. the large-scale runner's stratified trainer and trial search
+   (``--config largescale_100nn/sgp_pv.yaml --dataset-name synthetic``;
+   every cut is in the ``STRAT_*`` and ``SEARCH_*`` constants): first the
+   stratified route's first step against the port on the CPU (300 nodes,
+   400 steps, dropout off, the card's draws); (a) ``--iid-stratified
+   true`` on 5,016 nodes x 8,868 steps (PV-US's year; the synthetic set is
+   made once and kept for the phase), 8 of the yaml's 12,897 epochs, the
+   dense supports (``auto``): the reservoir encode's wall and the
+   resident bf16 embedding's bytes, batch/s of the training calls at
+   batch 4,096 (32 times x 128 nodes), synchronized step times, device
+   busy and idle share (torch.profiler), peak memory beside the precompute
+   path's estimate, the test MAE beside the same command untrained; (b)
+   the run's embedding, weights and draws through the supports built with
+   ``operator_mode="bsr"`` against the dense ones (the f32 hops within
+   1e-5 with the mean signed error, the bf16 features within one ulp, the
+   first loss within 1e-4, K1's launches counted), K1 at the step's F
+   4,096 and the evaluation's F 2,048 against its plain version, the
+   bound, cuSPARSE and the dense matmul, then the runner with
+   ``operator_mode = "bsr"`` on the namespace for 2 epochs (K1's launches
+   equal to the count from the code, 0 on the dense route, the test MAE
+   below the untrained run's); (c) ``--search-lr 0.001,0.0001
+   --search-seeds 0,1`` at phase 11's size (T 640), 4 epochs: the best
+   trial below the same search untrained, trial-batch/s beside the
+   single-trial batch/s of the same command, and calls of the single and
+   the trial steps in f32 and with ``compute_dtype=torch.bfloat16``, in
+   turns.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -167,13 +195,15 @@ clock per SM at the SM clock ``nvidia-smi`` reports.
 The line before the last is a JSON object of the kernels (K4's launches
 from run (a), K3 forward's from run (c), each slice's own count beside
 them; K1's ``diffconv`` sub-entry from phase 13, its ``support``
-sub-entry from phase 14); the last is ``{"ok":
+sub-entry from phase 14, its ``stratified`` sub-entry, with the
+evaluation's width under ``eval``, from phase 15); the last is ``{"ok":
 true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import re
 import subprocess
@@ -380,6 +410,22 @@ SUPPORT_STEPS = 3       # fused window steps of each support route
 SUPPORT_EVAL_BATCHES = 2
 SUPPORT_CHUNK = 4096    # columns a call of K1's plain version (its
                         # [nnzb, 128, F] temporaries: 3.4 GB a chunk)
+# phase 15, the large-scale runner's stratified trainer and trial search at
+# sgp_pv.yaml's widths (reservoir 16 x 8 layers: Ht 128; receptive field 2
+# and the global mean: 512 features a row; decoder hidden 960, MLP 256 x 2,
+# resnet, embedding 32; batch 4,096 as 32 times x 128 nodes, 32 batches a
+# call) on 5,016 synthetic nodes and the 100-nn graph
+STRAT_STEPS = 8868      # PV-US's year (its raw files are not in the repo)
+STRAT_EPOCHS = 8        # of the yaml's 12,897: 256 steps
+STRAT_BSR_EPOCHS = 2    # the BSR route's run from the command line
+STRAT_TIME_STEPS = 12   # synchronized steps timed after the run
+STRAT_CPU_NODES = 300   # the first step against the CPU port: 300 nodes,
+STRAT_CPU_STEPS = 400   # 400 steps, dropout off
+STRAT_FLIP_SHARE = 1e-3  # bf16 features the routes may round the other way
+SEARCH_LRS = "0.001,0.0001"  # (c): 2 lr x 2 seeds at phase 11's T 640
+SEARCH_SEEDS = "0,1"
+SEARCH_EPOCHS = 4
+SEARCH_ROUNDS = 2       # (f32, bf16, bf16, f32) rounds of timed calls
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -3161,13 +3207,16 @@ def support_route(mode, cfg, ds, split, dev, items, device) -> dict:
                     for k, v in model.state_dict().items()})
 
 
-def k1_at_support_width(op, dense_op, x) -> dict:
-    """K1 at the supports' shape (a loader batch ``[64, 1, N, 768]``
-    folded to ``[N, F]``, F = 49,152, as ``BSROperator`` folds it) on the
-    100-nn support A: against its plain version (in SUPPORT_CHUNK-column
-    calls: its ``[nnzb, 128, F]`` temporaries would take 80 GB at once),
-    interleaved CUDA-event times, the bound, cuSPARSE's BSR product and
-    the dense operator's matmul on the same input."""
+def k1_at_support_width(op, dense_op, x, tag: str = "phase 14",
+                        case: str = "support hop") -> dict:
+    """K1 at the supports' shape (phase 14: a loader batch ``[64, 1, N,
+    768]`` folded to ``[N, F]``, F = 49,152, as ``BSROperator`` folds it;
+    phase 15: the stratified step's ``[32, N, 128]`` and its evaluation's
+    ``[16, 1, N, 128]``) on the 100-nn support A: against its plain version
+    (in SUPPORT_CHUNK-column calls: its ``[nnzb, 128, F]`` temporaries
+    would take 80 GB at once at F 49,152), interleaved CUDA-event times,
+    the bound, cuSPARSE's BSR product and the dense operator's matmul on
+    the same input."""
     from sgp_tpu_torch.ops import bsr_spmm, bsr_spmm_plain
     n = x.shape[-2]
     folded = x.reshape(-1, n, x.shape[-1]).transpose(0, 1).reshape(
@@ -3188,8 +3237,9 @@ def k1_at_support_width(op, dense_op, x) -> dict:
     bias = ((got - ref).mean() / ref.abs().max()).item()
     k_ms, p_ms = interleaved_ms(lambda: bsr_spmm(*args, folded), plain,
                                 2, 3, plain_iters=1)
-    row = dict(case="support hop", n=n, f=f, nnzb=op.blocks.shape[0],
-               dtype="float32", max_abs_err=abs_err, rel_err=rel,
+    row = dict(case=case, n=n, f=f, nnzb=op.blocks.shape[0],
+               dtype="float32", x_dtype=str(x.dtype).split(".")[-1],
+               max_abs_err=abs_err, rel_err=rel,
                tol=TOL_F32, out_mean_err=bias,
                bitwise_repeat=torch.equal(got, again), ms=k_ms["median"],
                q1_q3=[k_ms["q1"], k_ms["q3"]], plain_ms=p_ms["median"],
@@ -3216,7 +3266,7 @@ def k1_at_support_width(op, dense_op, x) -> dict:
     row["dense_operator_rel_err"] = rel_err(
         (dense_op @ x).reshape(-1, n, x.shape[-1]).transpose(0, 1).reshape(
             n, -1), ref)[1]
-    print(f"[phase 14] K1: {json.dumps(row)}")
+    print(f"[{tag}] K1: {json.dumps(row)}")
     assert got.shape == ref.shape and torch.isfinite(got).all()
     assert rel <= TOL_F32, f"K1 disagrees with plain at F {f}: {row}"
     assert row["bitwise_repeat"], f"two calls differ: {row}"
@@ -3316,6 +3366,536 @@ def phase14_traffic(raw, graph, device) -> dict:
     return out
 
 
+def run_largescale(argv, fn=None) -> dict:
+    """``run_largescale_sgp`` through ``Experiment(...).run(argv)``, as its
+    command line runs it (``fn`` in place of ``run_experiment``)."""
+    import sgp_tpu_torch.exp.run_largescale_sgp as runner
+    from sgp_tpu_torch.exp.common import Experiment
+    return Experiment(fn or runner.run_experiment,
+                      runner.configure_parser_largescale()).run(argv)
+
+
+def strat_argv(nodes: int, steps: int, device, *flags) -> list:
+    """The large-scale runner's stratified command line at sgp_pv.yaml on a
+    synthetic set of ``nodes`` x ``steps``."""
+    return ["--config", str(CONFIG), "--dataset-name", "synthetic",
+            "--synthetic-nodes", str(nodes), "--synthetic-steps", str(steps),
+            "--iid-stratified", "true", "--seed", str(SEED), "--device",
+            str(device), *flags]
+
+
+def bsr_supports(args):
+    """``run_experiment`` with ``operator_mode = "bsr"`` on the namespace:
+    the supports on K1's route."""
+    import sgp_tpu_torch.exp.run_largescale_sgp as runner
+    args.operator_mode = "bsr"
+    return runner.run_experiment(args)
+
+
+@contextlib.contextmanager
+def cached_datasets():
+    """The runner's ``get_dataset`` made once for each set of arguments
+    inside the block: the synthetic year costs the host a pass of the
+    dense diffusion operator a step."""
+    import sgp_tpu_torch.exp.run_largescale_sgp as runner
+    get, cache = runner.get_dataset, {}
+
+    def cached(name, **kwargs):
+        key = (name, tuple(sorted(kwargs.items())))
+        if key not in cache:
+            t0 = time.perf_counter()
+            cache[key] = get(name, **kwargs)
+            print(f"[phase 15] dataset {key}: "
+                  f"{time.perf_counter() - t0:.1f} s on the host")
+        return cache[key]
+    runner.get_dataset = cached
+    try:
+        yield
+    finally:
+        runner.get_dataset = get
+
+
+class StratRecorder:
+    """Instruments one run of the large-scale runner from outside: the
+    reservoir encode's synchronized wall and the embedding's bytes; the
+    graph and options of ``build_support_operators``; the stratified step
+    (or the trial step, or the single-trial multi-step), its arguments
+    and model; each training call's synchronized host ms; the first step's
+    draws, the weights before it, its loss and its clipped gradients.
+    With ``first_draws`` the first step takes those draws (the card's,
+    replayed on the CPU)."""
+
+    def __init__(self, device, first_draws=None):
+        self.device, self.first_draws = device, first_draws
+        self.encode, self.call_ms = [], []
+        self.step = self.model = self.first = self.args = None
+        self.graph, self.eval_items = None, 0
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def timed_call(self, fn, *args):
+        self._sync()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self._sync()
+        self.call_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    @contextlib.contextmanager
+    def patch(self):
+        import sgp_tpu_torch.exp.run_largescale_sgp as runner
+        saved = {k: getattr(runner, k) for k in (
+            "Reservoir", "build_support_operators",
+            "make_fused_iid_stratified_step", "make_fused_iid_multi_step",
+            "make_fused_iid_multi_trial_step", "make_fused_eval")}
+        rec = self
+
+        class TimedReservoir(saved["Reservoir"]):
+            def __call__(self, x, *args, **kwargs):
+                rec._sync()
+                t0 = time.perf_counter()
+                out = super().__call__(x, *args, **kwargs)
+                rec._sync()
+                rec.encode.append(dict(
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    shape=list(out.shape), dtype=str(out.dtype),
+                    device=str(out.device),
+                    bytes=out.numel() * out.element_size()))
+                return out
+
+        def supports(g, **kwargs):
+            rec.graph, rec.support_kwargs = g, kwargs
+            return saved["build_support_operators"](g, **kwargs)
+
+        def make_stratified(model, optimizer, *args, **kwargs):
+            step = saved["make_fused_iid_stratified_step"](
+                model, optimizer, *args, **kwargs)
+            rec.step, rec.model, rec.args, rec.kwargs = step, model, args, \
+                kwargs
+
+            def first_step(generator):
+                draws = step.sample(generator) if rec.first_draws is None \
+                    else tuple(d.to(rec.device) for d in rec.first_draws)
+                init = {k: v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()}
+                loss = step.train_on(*draws)
+                rec.first = dict(
+                    draws=tuple(d.cpu() for d in draws), init=init,
+                    loss=float(loss), grads={
+                        k: p.grad.detach().cpu().clone()
+                        for k, p in model.named_parameters()})
+                return loss
+
+            def call(generator):
+                if rec.first is None:
+                    return torch.stack([first_step(generator)] + [
+                        step.train_on(*step.sample(generator))
+                        for _ in range(kwargs["steps_per_call"] - 1)]).mean()
+                return step(generator)
+
+            return lambda generator: rec.timed_call(call, generator)
+
+        def make_multi(model, optimizer, *args, **kwargs):
+            step = saved["make_fused_iid_multi_step"](model, optimizer,
+                                                      *args, **kwargs)
+            rec.step, rec.model, rec.args, rec.kwargs = step, model, args, \
+                kwargs
+            return lambda generator: rec.timed_call(step, generator)
+
+        def make_trials(model, *args, **kwargs):
+            step = saved["make_fused_iid_multi_trial_step"](model, *args,
+                                                            **kwargs)
+            rec.step, rec.model, rec.args, rec.kwargs = step, model, args, \
+                kwargs
+
+            def run(params, opt_state, generator):
+                return rec.timed_call(step, params, opt_state, generator)
+            run.init_opt = step.init_opt
+            return run
+
+        def make_eval(model, x_full, target, mask, items, *args, **kwargs):
+            rec.eval_items = len(items)
+            return saved["make_fused_eval"](model, x_full, target, mask,
+                                            items, *args, **kwargs)
+
+        runner.make_fused_eval = make_eval
+        runner.Reservoir = TimedReservoir
+        runner.build_support_operators = supports
+        runner.make_fused_iid_stratified_step = make_stratified
+        runner.make_fused_iid_multi_step = make_multi
+        runner.make_fused_iid_multi_trial_step = make_trials
+        try:
+            yield self
+        finally:
+            for k, v in saved.items():
+                setattr(runner, k, v)
+
+
+def strat_cpu_step(device) -> dict:
+    """The stratified route's first step on the card and again by the port
+    on the CPU, the same command at ``STRAT_CPU_NODES`` nodes and
+    ``STRAT_CPU_STEPS`` steps, dropout off: the same initial weights (drawn
+    from the seed on the CPU), the card's draws, each device's own encode.
+    The loss within TOL_LOSS relative, each clipped gradient within
+    TOL_GRAD of its largest value (:func:`grad_errors`)."""
+    flags = ("--epochs", "1", "--batches-epoch", "1", "--dropout", "0")
+    card = StratRecorder(device)
+    with card.patch():
+        run_largescale(strat_argv(STRAT_CPU_NODES, STRAT_CPU_STEPS, device,
+                                  *flags))
+    cpu = StratRecorder(torch.device("cpu"), card.first["draws"])
+    t0 = time.perf_counter()
+    with cpu.patch():
+        run_largescale(strat_argv(STRAT_CPU_NODES, STRAT_CPU_STEPS, "cpu",
+                                  *flags))
+    same_init = all(torch.equal(v, cpu.first["init"][k])
+                    for k, v in card.first["init"].items())
+    loss_err = abs(card.first["loss"] - cpu.first["loss"]) / \
+        abs(cpu.first["loss"])
+    errs = grad_errors(card.first["grads"], cpu.first["grads"])
+    out = {"nodes": STRAT_CPU_NODES, "steps": STRAT_CPU_STEPS,
+           "cpu_run_s": time.perf_counter() - t0, "same_init": same_init,
+           "loss": card.first["loss"], "loss_rel_err": loss_err,
+           "grad_max_rel_err": max(errs.values()),
+           "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+           "tol": [TOL_LOSS, TOL_GRAD]}
+    print(f"[phase 15] first step, card vs CPU port: {json.dumps(out)}")
+    assert same_init and loss_err <= TOL_LOSS, out
+    assert max(errs.values()) <= TOL_GRAD, out
+    return out
+
+
+def strat_step_work(rec) -> dict:
+    """What one stratified step moves and computes at the run's shapes, from
+    the shapes alone: the embedding rows it gathers (``h_sel``), the dense
+    supports' rows it gathers (``gather_rows``), the batched hop products
+    and the decoder's products (forward and backward)."""
+    h = rec.args[0]
+    tb, p = rec.kwargs["times_per_batch"], rec.kwargs["nodes_per_time"]
+    n, ht = h.shape[1], h.shape[2]
+    ops = rec.args[6]
+    return {"h_sel_bytes": tb * n * ht * h.element_size(),
+            "support_rows_bytes": len(ops) * tb * p * n * 4,
+            "hop_gflop": len(ops) * 2.0 * tb * p * n * ht / 1e9,
+            "decoder_gflop": traffic_step_gemm_flop(rec.model, tb * p) / 1e9}
+
+
+def strat_main_run(device) -> dict:
+    """(a) The stratified runner from its command line at sgp_pv.yaml's
+    widths on 5,016 nodes x STRAT_STEPS for STRAT_EPOCHS epochs, dense
+    supports (``auto`` at this size): the encode's wall and the resident
+    embedding's bytes, the training calls' batch/s, synchronized step
+    times, a profile's device busy and idle share, peak memory beside the
+    precompute path's estimate, and the test MAE beside the same command
+    untrained (``--epochs 0``); K1's launches counted (0)."""
+    from sgp_tpu_torch.ops import bsr_spmm
+    argv = strat_argv(N_NODES, STRAT_STEPS, device)
+    rec = StratRecorder(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    bsr_spmm.launches = 0
+    t0 = time.perf_counter()
+    with rec.patch():
+        res = run_largescale(argv + ["--epochs", str(STRAT_EPOCHS)])
+    wall = time.perf_counter() - t0
+    launches = bsr_spmm.launches
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    cfg = read_flat_yaml(CONFIG)
+    steps_per_call = cfg["batches_epoch"]
+    call_ms = quartiles(rec.call_ms[1:])
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    step_ms = []
+    for _ in range(STRAT_TIME_STEPS):
+        draws = rec.step.sample(gen)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        float(rec.step.train_on(*draws))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    steps = quartiles(step_ms[TIME_DROP:])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            float(rec.step.train_on(*rec.step.sample(gen)))
+        torch.cuda.synchronize(device)
+    busy = device_busy(prof, PROFILE_STEPS)
+    idle = 1.0 - busy["device_busy_ms"] / steps["median"] if busy \
+        else "not measured (no device activity traced)"
+    import argparse
+    from sgp_tpu_torch.exp.run_traffic_sgp import derive_order
+    order = derive_order(argparse.Namespace(**cfg))
+    precompute_gib = (STRAT_STEPS * N_NODES * order * cfg["reservoir_size"]
+                      * 4 / 2 ** 30)
+    work = strat_step_work(rec)
+    row = dict(argv=" ".join(argv), epochs=STRAT_EPOCHS, wall_s=wall,
+               encode=rec.encode[0], calls=len(rec.call_ms),
+               call_ms=call_ms,
+               batch_per_s=steps_per_call / call_ms["median"] * 1e3,
+               batch=cfg["batch_size"], step_ms=steps, idle_share=idle,
+               peak_mib=peak, precompute_estimate_gib_f32=precompute_gib,
+               k1_launches=launches, work=work,
+               step_decoder_tflop_per_s=work["decoder_gflop"]
+               / steps["median"], test=res, **busy)
+    print(f"[phase 15] (a) run: {json.dumps(row, default=str)}")
+    assert torch.device(rec.encode[0]["device"]).type == device.type
+    assert all(np.isfinite(v) for v in res.values()), res
+    assert launches == 0, launches
+    return row, rec
+
+
+def strat_untrained(device) -> dict:
+    """(a)'s command with ``--epochs 0``: the untrained test metrics."""
+    res = run_largescale(strat_argv(N_NODES, STRAT_STEPS, device,
+                                    "--epochs", "0"))
+    print(f"[phase 15] (a) untrained: {json.dumps(res)}")
+    return res
+
+
+def strat_routes(rec, device) -> dict:
+    """(b) The dense run's embedding through the same step with the
+    supports built on K1's route (``operator_mode="bsr"``) from the same
+    initial weights and draws: the f32 hops within TOL_F32 of the largest
+    value with the mean signed error (TOL_K1_BIAS), the bf16 features each
+    within one bf16 ulp of the dense route's, or within TOL_F32 of the
+    largest value (values near 0, whose ulp is below the f32 routes' own
+    difference), at most STRAT_FLIP_SHARE of them rounded the other way;
+    the first loss within TOL_SLICE; K1's launches counted (one a support
+    a step's assembly)."""
+    from sgp_tpu_torch.data.sgp_loader import build_support_operators
+    from sgp_tpu_torch.ops import bsr_spmm
+    from sgp_tpu_torch.train.iid import make_fused_iid_stratified_step
+    t0 = time.perf_counter()
+    kw = dict(rec.support_kwargs, operator_mode="bsr")
+    bsr_ops = build_support_operators(rec.graph, **kw)
+    build_s = time.perf_counter() - t0
+    dense_ops = rec.args[6]
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    steps = {}
+    for route, ops in (("dense", dense_ops), ("bsr", bsr_ops)):
+        model = copy.deepcopy(rec.model)
+        model.load_state_dict(rec.first["init"])
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+        args = rec.args[:6] + (ops,) + rec.args[7:]
+        steps[route] = make_fused_iid_stratified_step(
+            model, opt, *args, **dict(rec.kwargs, steps_per_call=1))
+    t, n = steps["dense"].sample(gen)
+    h_sel = rec.args[0][t].float()
+    hop_err, hop_bias = [], []
+    for d_op, b_op in zip(dense_ops, bsr_ops):
+        ref, got = d_op @ h_sel, b_op @ h_sel
+        top = ref.abs().max()
+        hop_err.append(((got - ref).abs().max() / top).item())
+        hop_bias.append(((got - ref).mean() / top).item())
+        del ref, got
+    bsr_spmm.launches = 0
+    feats = {r: s.features(t, n) for r, s in steps.items()}
+    losses = {r: float(s.train_on(t, n)) for r, s in steps.items()}
+    torch.cuda.synchronize(device)
+    launches = bsr_spmm.launches
+    a, b = feats["bsr"].float(), feats["dense"].float()
+    flipped = int((feats["bsr"] != feats["dense"]).sum())
+    row = dict(supports=len(bsr_ops), build_s=build_s,
+               f_step=int(h_sel.shape[0] * h_sel.shape[-1]),
+               hop_rel_err=hop_err, hop_mean_err=hop_bias,
+               features_dtype=str(feats["bsr"].dtype),
+               features_rel_err=((a - b).abs().max() / b.abs().max()).item(),
+               features_mean_err=((a - b).mean() / b.abs().max()).item(),
+               features_within_bf16_ulp=within_bf16_ulp(
+                   a, b, TOL_F32 * b.abs().max().item()),
+               flipped=flipped, flipped_share=flipped / b.numel(),
+               losses=losses,
+               loss_rel_err=abs(losses["bsr"] - losses["dense"])
+               / abs(losses["dense"]), launches=launches,
+               launches_expected=2 * len(bsr_ops),
+               tol=[TOL_F32, TOL_K1_BIAS, STRAT_FLIP_SHARE, TOL_SLICE])
+    print(f"[phase 15] (b) BSR supports vs dense, same embedding, weights "
+          f"and draws: {json.dumps(row)}")
+    assert max(hop_err) <= TOL_F32 and \
+        max(abs(v) for v in hop_bias) <= TOL_K1_BIAS, row
+    assert feats["bsr"].dtype == feats["dense"].dtype == rec.args[0].dtype
+    assert row["features_within_bf16_ulp"], row
+    assert row["flipped_share"] <= STRAT_FLIP_SHARE, row
+    assert row["loss_rel_err"] <= TOL_SLICE, row
+    assert launches == row["launches_expected"], row
+    k1 = {}
+    x_eval = rec.args[0][:16, None].float()     # [16, 1, N, 128]: F 2,048
+    for f, x in ((4096, h_sel), (2048, x_eval)):
+        k1[f] = k1_at_support_width(
+            bsr_ops[0], dense_ops[0], x, tag="phase 15",
+            case=f"stratified {'step' if f == 4096 else 'evaluation'} hop "
+                 f"(x widened to f32, as the wrapper does)")
+    del steps, feats, h_sel, x_eval
+    return row, k1
+
+
+def strat_bsr_run(device, untrained_mae: float) -> dict:
+    """(b) The runner with ``operator_mode = "bsr"`` on the namespace, from
+    its command line, STRAT_BSR_EPOCHS epochs: K1 in every step's
+    assembly and in the test evaluation, its launches equal to the count
+    from the code, finite metrics below the untrained run's."""
+    from sgp_tpu_torch.ops import bsr_spmm
+    cfg = read_flat_yaml(CONFIG)
+    rec = StratRecorder(device)
+    bsr_spmm.launches = 0
+    t0 = time.perf_counter()
+    with rec.patch():
+        res = run_largescale(strat_argv(
+            N_NODES, STRAT_STEPS, device, "--epochs",
+            str(STRAT_BSR_EPOCHS)), bsr_supports)
+    wall = time.perf_counter() - t0
+    launches = bsr_spmm.launches
+    n_ops = len(rec.args[6])
+    steps = STRAT_BSR_EPOCHS * cfg["batches_epoch"]
+    eval_batches = -(-rec.eval_items // cfg["batch_inference"])
+    expect = n_ops * (steps + eval_batches)
+    row = dict(epochs=STRAT_BSR_EPOCHS, wall_s=wall, launches=launches,
+               launches_expected=expect, eval_batches=eval_batches,
+               call_ms=quartiles(rec.call_ms[1:] or rec.call_ms), test=res,
+               untrained_test_mae=untrained_mae)
+    print(f"[phase 15] (b) run with operator_mode=bsr: {json.dumps(row)}")
+    assert all(np.isfinite(v) for v in res.values()), res
+    assert res["test_mae"] < untrained_mae, row
+    assert launches == expect, row
+    return row
+
+
+def alternating_calls(fns: dict, order, rounds: int) -> dict:
+    """Synchronized host ms of each ``fns[name]()`` call, called in
+    ``order`` ``rounds`` times (the first call of each left out): their
+    quartiles and the last loss each returned."""
+    ms = {k: [] for k in fns}
+    last = {}
+    for _ in range(rounds):
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last[name] = fns[name]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: dict(quartiles(v[1:]), last_loss=last[k]) for k, v in
+            ms.items()}
+
+
+def strat_search(device) -> dict:
+    """(c) The trial search from its command line at phase 11's size (5,016
+    nodes x N_STEPS, the streaming packed input; ``auto``: the dense
+    encode), 2 lr x 2 seeds for SEARCH_EPOCHS epochs: finite metrics, the
+    best trial's test MAE below the same search untrained, its calls'
+    trial-batch/s beside the single-trial batch/s of the same command
+    without the search; then calls of both steps in f32 and with
+    ``compute_dtype=torch.bfloat16`` on the run's packed rows, in turns."""
+    from sgp_tpu_torch.train.iid import make_fused_iid_multi_step
+    from sgp_tpu_torch.train.multi_trial import (
+        make_fused_iid_multi_trial_step, stack_trials)
+    cfg = read_flat_yaml(CONFIG)
+    argv = ["--config", str(CONFIG), "--dataset-name", "synthetic",
+            "--synthetic-nodes", str(N_NODES), "--synthetic-steps",
+            str(N_STEPS), "--seed", str(SEED), "--device", str(device),
+            "--epochs", str(SEARCH_EPOCHS)]
+    search = ["--search-lr", SEARCH_LRS, "--search-seeds", SEARCH_SEEDS]
+    trials = StratRecorder(device)
+    with trials.patch():
+        res = run_largescale(argv + search)
+    untrained = run_largescale(argv + search + ["--epochs", "0"])
+    single = StratRecorder(device)
+    with single.patch():
+        one = run_largescale(argv)
+    k = len(res["trials"])
+    spc = cfg["batches_epoch"]
+    t_ms, s_ms = quartiles(trials.call_ms[1:]), quartiles(single.call_ms[1:])
+
+    # f32 and bf16 calls of both steps on the single run's packed rows
+    def single_call(dtype):
+        m = copy.deepcopy(single.model)
+        opt = torch.optim.Adam(m.parameters(), lr=cfg["lr"], eps=1e-8)
+        step = make_fused_iid_multi_step(
+            m, opt, *single.args, **dict(single.kwargs,
+                                         compute_dtype=dtype))
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        return lambda: float(step(gen))
+
+    def trial_call(dtype):
+        stack = stack_trials([copy.deepcopy(trials.model)
+                              for _ in range(k)])
+        kwargs = dict(trials.kwargs, compute_dtype=dtype)
+        step = make_fused_iid_multi_trial_step(trials.model, *trials.args,
+                                               **kwargs)
+        state = [stack, step.init_opt(stack)]
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+
+        def call():
+            state[0], state[1], losses = step(state[0], state[1], gen)
+            return losses.cpu().tolist()
+        return call
+    fns = {"single_f32": single_call(None),
+           "single_bf16": single_call(torch.bfloat16),
+           "trials_f32": trial_call(None),
+           "trials_bf16": trial_call(torch.bfloat16)}
+    order = ("single_f32", "single_bf16", "single_bf16", "single_f32",
+             "trials_f32", "trials_bf16", "trials_bf16", "trials_f32")
+    timed_calls = alternating_calls(fns, order, SEARCH_ROUNDS)
+    row = dict(argv=" ".join(argv + search), trials=k,
+               trial_call_ms=t_ms,
+               trial_batch_per_s=spc * k / t_ms["median"] * 1e3,
+               single_call_ms=s_ms,
+               single_batch_per_s=spc / s_ms["median"] * 1e3,
+               calls=timed_calls, steps_per_call=spc,
+               best=(res["best_lr"], res["best_seed"]),
+               val_mae_per_trial=res["val_mae_per_trial"],
+               test_mae=res["test_mae"],
+               untrained_test_mae=untrained["test_mae"],
+               single_test_mae=one["test_mae"])
+    for name in ("single", "trials"):
+        row[f"{name}_bf16_over_f32"] = (timed_calls[f"{name}_bf16"]["median"]
+                                        / timed_calls[f"{name}_f32"]["median"])
+    print(f"[phase 15] (c) trial search: {json.dumps(row)}")
+    assert all(np.isfinite(v) for v in res["val_mae_per_trial"]), res
+    assert np.isfinite(res["test_mae"]) and \
+        res["test_mae"] < untrained["test_mae"], row
+    assert {"lr": res["best_lr"], "seed": res["best_seed"]} in res["trials"]
+    assert all(np.all(np.isfinite(v["last_loss"]))
+               for v in timed_calls.values()), timed_calls
+    return row
+
+
+def phase15_stratified(device) -> dict:
+    """The large-scale runner's stratified trainer and trial search: (a) the
+    stratified route from its command line at sgp_pv.yaml's widths on
+    5,016 nodes x STRAT_STEPS (first its first step against the CPU port
+    at STRAT_CPU_NODES); (b) the same embedding through the supports on
+    K1's route against the dense ones, K1 at F 4,096 and 2,048, and the
+    runner on K1's route; (c) the trial search at phase 11's size."""
+    out = {}
+    t0 = time.perf_counter()
+    out["cpu_step"] = strat_cpu_step(device)
+    print(f"[time] phase 15 cpu_step: {time.perf_counter() - t0:.1f} s")
+    with cached_datasets():
+        t0 = time.perf_counter()
+        out["main"], rec = strat_main_run(device)
+        print(f"[time] phase 15 (a) run: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["routes"], out["k1"] = strat_routes(rec, device)
+        print(f"[time] phase 15 (b) routes: {time.perf_counter() - t0:.1f} s")
+        del rec
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        untrained = strat_untrained(device)
+        out["main"]["untrained_test_mae"] = untrained["test_mae"]
+        assert out["main"]["test"]["test_mae"] < untrained["test_mae"], \
+            (out["main"]["test"], untrained)
+        out["bsr_run"] = strat_bsr_run(device, untrained["test_mae"])
+        print(f"[time] phase 15 untrained and BSR runs: "
+              f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["search"] = strat_search(device)
+    print(f"[time] phase 15 (c) search: {time.perf_counter() - t0:.1f} s")
+    out["launches"] = out["bsr_run"]["launches"]
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -3370,6 +3950,7 @@ def main():
     runners = timed("phase 12", phase12_runners, device)
     diffusion = timed("phase 13", phase13_diffusion, ds, graph, device)
     traffic = timed("phase 14", phase14_traffic, ds, graph, device)
+    strat = timed("phase 15", phase15_stratified, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -3388,6 +3969,14 @@ def main():
         "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
         "sgp_tpu/ops/bsr_kernel.py:39", traffic["support"]["launches"],
         traffic["k1"])
+    # the stratified step's assembly on BSR supports, F 4,096, and its
+    # evaluation's hops, F 2,048 (phase 15); launches from (b)'s runner run
+    kernels[0]["stratified"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", strat["launches"], strat["k1"][4096])
+    kernels[0]["stratified"]["eval"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", strat["launches"], strat["k1"][2048])
     # K4's launches from the traffic runner's run (a), K3 forward's from
     # the large-scale runner's run (c); the slices' own counts beside them
     run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]

@@ -10,15 +10,22 @@ By default the encoder emits the packed IID training layout directly
 (``streaming_encode`` with the target and mask lanes appended), so the
 unpacked encoding never exists; ``--packed-gather false``, another
 encoder or a non-bf16 ``--encode-dtype`` take the ``encode_dataset`` path.
-The stratified trainer (``--iid-stratified``), the vmapped search
-(``--search-lr``, ``--search-seeds``) and ``--data-sharding nodes`` are not
-ported yet (ROADMAP A7, A10).
+
+``--iid-stratified true`` keeps only the reservoir's temporal embedding on
+the device and propagates the sampled steps through the supports inside
+each training step (``make_fused_iid_stratified_step``), for series too
+long to expand. ``--search-lr``/``--search-seeds`` train every lr x seed
+trial on shared batches (``train/multi_trial.py``), select on the fused
+validation MAE and report the best trial's test metrics.
+``--data-sharding nodes`` is not ported yet (ROADMAP A10).
 
 Usage::
 
     python -m sgp_tpu_torch.exp.run_largescale_sgp \\
         --config largescale_100nn/sgp_pv.yaml --dataset-name synthetic \\
         --synthetic-nodes 5016 --synthetic-steps 640 --epochs 4
+    # the stratified trainer: add --iid-stratified true
+    # the trial search: add --search-lr 0.01,0.001 --search-seeds 0,1
     # on the CPU: add --device cpu
 """
 from __future__ import annotations
@@ -32,37 +39,39 @@ import torch
 
 from sgp_tpu_torch.data import (RobustScaler, SpatioTemporalDataset,
                                 Windowing)
-from sgp_tpu_torch.encode import (encode_dataset, encoder_input_array,
-                                  get_encoder_class, rewire_exog_keys,
-                                  streaming_encode)
+from sgp_tpu_torch.data.sgp_loader import build_support_operators
+from sgp_tpu_torch.encode import (Reservoir, encode_dataset,
+                                  encoder_input_array, get_encoder_class,
+                                  rewire_exog_keys, streaming_encode)
 from sgp_tpu_torch.encode.encode_dataset import torch_dtype
 from sgp_tpu_torch.exp.common import (Experiment, dataset_kwargs,
                                       filter_kwargs, get_dataset,
                                       get_splitter, str2bool)
 from sgp_tpu_torch.exp.run_traffic_sgp import configure_parser, derive_order
 from sgp_tpu_torch.models import SGPModel
-from sgp_tpu_torch.train import MaskedMetrics
+from sgp_tpu_torch.ops import GlobalMeanOperator
+from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                             restore_run_state)
 from sgp_tpu_torch.train.fused_window import make_fused_eval
 from sgp_tpu_torch.train.iid import (fused_iid_inputs,
                                      make_fused_iid_multi_step,
+                                     make_fused_iid_stratified_step,
                                      pack_iid_data)
+from sgp_tpu_torch.train.multi_trial import (best_trial, eval_trials,
+                                             init_trial_params, load_trial,
+                                             make_fused_iid_multi_trial_step)
 from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 
+def _searching(args) -> bool:
+    return bool(getattr(args, "search_lr", None)
+                or getattr(args, "search_seeds", None))
+
+
 def _unported(args):
-    if getattr(args, "iid_stratified", False):
-        raise NotImplementedError(
-            "--iid-stratified (the stratified trainer) is not ported yet "
-            "(ROADMAP A7)")
-    if getattr(args, "search_lr", None) or getattr(args, "search_seeds",
-                                                   None):
-        raise NotImplementedError(
-            "--search-lr/--search-seeds (the vmapped trial search) is not "
-            "ported yet (ROADMAP A7)")
     if getattr(args, "data_sharding", "none") != "none":
         raise NotImplementedError(
             "--data-sharding (multi-device training) is not ported yet "
@@ -80,9 +89,10 @@ def _state_copy(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def run_experiment(args):
-    _unported(args)
-    device = resolve_device(getattr(args, "device", None))
+def _dataset(args):
+    """The dataset, its k-nn graph with the day encoding as exogenous
+    input, the split and ``RobustScaler(10, 90)`` fitted on the train
+    windows' start steps: ``(ds, split, exog)``."""
     dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
     exog = dataset.datetime_encoded("day")
     graph = dataset.get_connectivity(
@@ -97,6 +107,47 @@ def run_experiment(args):
                          args.test_len).split(ds)
     ds.fit_scaler(RobustScaler(axis=(0, 1), quantile_range=(10., 90.)),
                   step_index=ds.indices()[split.train])
+    return ds, split, exog
+
+
+def _decoder(args, ds, x_size: int, u_size: int, device,
+             generator: torch.Generator = None):
+    """The SGP decoder over ``x_size`` features, its weights drawn from
+    ``generator`` (default: seeded with ``--seed``)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(args.seed)
+    return SGPModel(
+        input_size=x_size, order=derive_order(args), n_nodes=ds.n_nodes,
+        hidden_size=args.hidden_size, mlp_size=args.mlp_size,
+        output_size=ds.n_channels, n_layers=args.n_layers,
+        horizon=ds.windowing.horizon_steps,
+        positional_encoding=args.positional_encoding,
+        emb_size=args.emb_size, exog_size=u_size, resnet=args.resnet,
+        fully_connected=args.fully_connected, dropout=args.dropout,
+        generator=generator).to(device)
+
+
+def _exog_on(ds, device):
+    u_arr = ds.exog_array()
+    return None if u_arr is None else torch.as_tensor(
+        np.ascontiguousarray(u_arr), dtype=torch.float32, device=device)
+
+
+def run_experiment(args):
+    if getattr(args, "iid_stratified", False):
+        return run_experiment_stratified(args)
+    if _searching(args):
+        if getattr(args, "checkpoint_every", 0) or getattr(args, "resume",
+                                                           False):
+            raise ValueError(
+                "--checkpoint-every/--resume are not supported with the "
+                "vmapped --search-lr/--search-seeds path")
+        if getattr(args, "data_sharding", "none") != "none":
+            raise ValueError("--data-sharding is not supported with the "
+                             "vmapped --search-lr/--search-seeds path")
+    _unported(args)
+    device = resolve_device(getattr(args, "device", None))
+    ds, split, exog = _dataset(args)
     order = derive_order(args)
     est_gb = (ds.n_steps * ds.n_nodes * order * args.reservoir_size
               * 4 / 2 ** 30)
@@ -137,9 +188,7 @@ def run_experiment(args):
                     f"{packed.dtype}")
         del x_series, lanes
         rewire_exog_keys(ds, args.preprocess_exogenous, args.keep_raw)
-        u_arr = ds.exog_array()
-        u = None if u_arr is None else torch.as_tensor(
-            np.ascontiguousarray(u_arr), dtype=torch.float32, device=device)
+        u = _exog_on(ds, device)
         enc = None
         x_size = encoder.output_size
     else:
@@ -160,19 +209,15 @@ def run_experiment(args):
 
     # train on the train slice only
     train_steps = ds.indices()[split.train]
-    model = SGPModel(
-        input_size=x_size, order=order, n_nodes=ds.n_nodes,
-        hidden_size=args.hidden_size, mlp_size=args.mlp_size,
-        output_size=ds.n_channels, n_layers=args.n_layers,
-        horizon=ds.windowing.horizon_steps,
-        positional_encoding=args.positional_encoding,
-        emb_size=args.emb_size, exog_size=u_size, resnet=args.resnet,
-        fully_connected=args.fully_connected, dropout=args.dropout,
-        generator=torch.Generator().manual_seed(args.seed)).to(device)
-    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
+    model = _decoder(args, ds, x_size, u_size, device)
     batches_epoch = args.batches_epoch if args.batches_epoch > 0 else 32
     scaler = ds.scaler_params(device=device)
+    if _searching(args):
+        return _run_multi_trial(
+            args, ds, split, model, enc, tgt, mask, train_steps, h_off, u,
+            packed, streaming_packed, x_size, u_size, scaler, device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
     step = make_fused_iid_multi_step(
         model, optimizer, enc, tgt, mask, train_steps, h_off, scaler, u=u,
         batch_size=args.batch_size, scale_target=args.scale_target,
@@ -266,6 +311,170 @@ def _run_restartable_fit(args, model, optimizer, step, generator,
                         "best_loss": best_loss}
 
 
+def _run_multi_trial(args, ds, split, model, enc, tgt, mask, train_steps,
+                     h_off, u, packed, streaming_packed, x_size, u_size,
+                     scaler, device):
+    """The search over lr x seed: every trial trains on shared sampled
+    batches (``train/multi_trial.py``), each keeps a copy of its weights at
+    its best epoch's train loss, the fused validation evaluation selects
+    the winner and the fused test evaluation reports it. ``model`` holds
+    the trials' architecture and ends with the best trial's weights."""
+    lrs = [float(v) for v in (args.search_lr or str(args.lr)).split(",")]
+    seeds = [int(v) for v in
+             (args.search_seeds or str(args.seed)).split(",")]
+    trials = [(lr, seed) for lr in lrs for seed in seeds]
+    k_trials = len(trials)
+    logger.info(f"search over {k_trials} trials (lr x seed): {trials}")
+    stack = init_trial_params(
+        lambda gen: _decoder(args, ds, x_size, u_size, device, gen),
+        [s for _, s in trials])
+    batches_epoch = args.batches_epoch if args.batches_epoch > 0 else 32
+    step = make_fused_iid_multi_trial_step(
+        model, enc, tgt, mask, train_steps, h_off, scaler,
+        lrs=[lr for lr, _ in trials], u=u, batch_size=args.batch_size,
+        grad_clip=args.grad_clip_val, scale_target=args.scale_target,
+        steps_per_call=batches_epoch, packed=packed)
+    opt_state = step.init_opt(stack)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    best_losses = torch.full((k_trials,), np.inf, device=device)
+    best_stack = stack
+    t0 = time.time()
+    for epoch in range(args.epochs):
+        stack, opt_state, losses = step(stack, opt_state, generator)
+        better = losses < best_losses
+        # new tensors: the step returns new ones, never updating in place
+        best_stack = {k: torch.where(
+            better.reshape((k_trials,) + (1,) * (v.ndim - 1)), v,
+            best_stack[k]) for k, v in stack.items()}
+        best_losses = torch.minimum(best_losses, losses)
+        if epoch % max(1, args.epochs // 20) == 0:
+            bps = (batches_epoch * k_trials * (epoch + 1)
+                   / max(time.time() - t0, 1e-9))
+            logger.info(f"epoch {epoch}: train_mae="
+                        f"{losses.cpu().numpy().round(4).tolist()} "
+                        f"({bps:.1f} trial-batch/s)")
+    _sync(device)
+    train_time = time.time() - t0
+
+    metrics = MaskedMetrics.forecasting()
+    w_off = ds.windowing.window_offsets()
+
+    def fused(items):
+        return make_fused_eval(
+            model, packed if streaming_packed else enc, tgt, mask, items,
+            w_off, h_off, scaler, metrics, u=u,
+            batch_size=args.batch_inference or 16,
+            x_slice=x_size if streaming_packed else None)
+
+    val_items = ds.indices()[split.val]
+    sel_eval = fused(val_items if len(val_items) else
+                     ds.indices()[split.train])
+    per_trial_val = eval_trials(sel_eval, model, best_stack)
+    k_best = best_trial(per_trial_val, "mae")
+    load_trial(model, best_stack, k_best)
+    test_res = fused(ds.indices()[split.test])()
+    results = {f"test_{k}": v for k, v in test_res.items()}
+    results.update(
+        best_lr=trials[k_best][0], best_seed=trials[k_best][1],
+        val_mae_per_trial=per_trial_val["mae"].tolist(),
+        trials=[{"lr": lr, "seed": s} for lr, s in trials],
+        train_time_s=train_time)
+    logger.info(f"best trial {k_best} {trials[k_best]}: {results}")
+    return results
+
+
+def run_experiment_stratified(args):
+    """The path for series too long to expand: only the reservoir's
+    temporal embedding stays on the device, and the spatial propagation
+    happens inside each training step (``make_fused_iid_stratified_step``),
+    so the (k+1)x expansion is never built. The supports come from
+    ``build_support_operators`` with ``operator_mode`` read from the
+    namespace (``auto`` when absent); the test evaluation propagates
+    through the same supports and the global mean."""
+    if _searching(args):
+        raise ValueError("--search-lr/--search-seeds are not supported "
+                         "with --iid-stratified (the trial search runs on "
+                         "the precompute path)")
+    _unported(args)
+    device = resolve_device(getattr(args, "device", None))
+    ds, split, exog = _dataset(args)
+    input_size = ds.n_channels + (exog.shape[-1]
+                                  if args.preprocess_exogenous else 0)
+    res = Reservoir(input_size=input_size,
+                    hidden_size=args.reservoir_size,
+                    num_layers=args.reservoir_layers,
+                    leaking_rate=args.leaking_rate,
+                    spectral_radius=args.spectral_radius,
+                    density=args.density, alpha_decay=args.alpha_decay,
+                    input_scaling=args.input_scaling,
+                    activation=args.reservoir_activation,
+                    seed=args.seed, device=device)
+    x_series = torch.as_tensor(
+        encoder_input_array(ds, args.preprocess_exogenous), device=device)
+    t0 = time.time()
+    h_temporal = res(x_series, out_dtype=torch_dtype(
+        args.encode_dtype or "bfloat16"))
+    _sync(device)
+    del x_series
+    logger.info(f"reservoir encode {tuple(h_temporal.shape)} "
+                f"{h_temporal.dtype} in {time.time() - t0:.1f}s (resident)")
+
+    ops = build_support_operators(
+        ds.graph, k=args.receptive_field, undirected=args.undirected,
+        add_loops=args.add_self_loops, bidirectional=args.bidirectional,
+        global_attr=False,
+        operator_mode=getattr(args, "operator_mode", "auto"), device=device)
+    d_total = int(h_temporal.shape[-1]) * (1 + len(ops)
+                                           + (1 if args.global_attr else 0))
+    # the decoder's exogenous input as encode_dataset rewires it: the day
+    # encoding only when the reservoir did not take it, keep_raw adds the
+    # scaled raw series
+    rewire_exog_keys(ds, args.preprocess_exogenous, args.keep_raw)
+    u = _exog_on(ds, device)
+    u_size = 0 if u is None else int(u.shape[-1])
+    model = _decoder(args, ds, d_total, u_size, device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+
+    batches_epoch = args.batches_epoch if args.batches_epoch > 0 else 32
+    times_per_batch = getattr(args, "times_per_batch", 32)
+    nodes_per_time = max(args.batch_size // times_per_batch, 1)
+    eval_ops = list(ops) + ([GlobalMeanOperator(ds.n_nodes)]
+                            if args.global_attr else [])
+    metrics = MaskedMetrics.forecasting()
+    tgt = torch.as_tensor(np.ascontiguousarray(ds.target),
+                          dtype=torch.float32, device=device)
+    mask = torch.as_tensor(ds.mask, device=device)
+    h_off = ds.windowing.horizon_offsets()
+    scaler = ds.scaler_params(device=device)
+    step = make_fused_iid_stratified_step(
+        model, optimizer, h_temporal, tgt, mask, ds.indices()[split.train],
+        h_off, scaler, ops, global_attr=args.global_attr, u=u,
+        times_per_batch=times_per_batch, nodes_per_time=nodes_per_time,
+        scale_target=args.scale_target, steps_per_call=batches_epoch,
+        grad_clip=args.grad_clip_val)
+    # the full-graph test evaluation: the temporal embedding propagated
+    # through the same supports and the global mean, as in the step
+    test_eval_fn = make_fused_eval(
+        model, h_temporal, tgt, mask, ds.indices()[split.test],
+        ds.windowing.window_offsets(), h_off, scaler, metrics, u=u,
+        support_ops=eval_ops, batch_size=args.batch_inference or 16)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    best_state, fit_state = _run_restartable_fit(
+        args, model, optimizer, step, generator, batches_epoch)
+    logger.info(f"train done in {fit_state['train_time_s']:.1f}s")
+    model.load_state_dict(best_state)
+    Predictor(model, metrics=metrics, device=device).save(
+        f"{args.logdir}/best.pt")
+    results = {f"test_{k}": v for k, v in test_eval_fn().items()}
+    results["train_mae"] = fit_state["best_loss"]
+    results["train_time_s"] = fit_state["train_time_s"]
+    logger.info(f"results: {results}")
+    return results
+
+
 def configure_parser_largescale():
     parser = configure_parser(data_sharding_choices=None)
     parser.add_argument("--iid-stratified", type=str2bool, default=False)
@@ -286,11 +495,12 @@ def configure_parser_largescale():
                              "exact generator stream of the uninterrupted "
                              "run")
     parser.add_argument("--search-lr", type=str, default="",
-                        help="vmapped trial search: not ported yet "
-                             "(ROADMAP A7)")
+                        help="comma-separated lr list: train all lr x "
+                             "seed trials on shared batches, select on the "
+                             "fused validation MAE")
     parser.add_argument("--search-seeds", type=str, default="",
-                        help="vmapped trial search: not ported yet "
-                             "(ROADMAP A7)")
+                        help="comma-separated init seeds for the trial "
+                             "search")
     parser.add_argument("--encode-precision", type=str, default="highest",
                         choices=("highest", "default"),
                         help="precision of the streaming K-hop "

@@ -32,6 +32,7 @@ biases flax lacks stay 0). GraphWaveNet's layers lie under
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Tuple
 
 import numpy as np
@@ -472,6 +473,27 @@ def flax_to_torch(params_np: dict, model: nn.Module) -> nn.Module:
     :func:`targets`) in place; returns the model."""
     _load(params_np, targets(model))
     return model
+
+
+def flax_trials_to_torch(stacked_np: dict, model: nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """Carry a flax tree of K stacked trials (every leaf ``[K, ...]``, as
+    ``vmap(model.init)`` gives them) across: each trial's slice goes into a
+    copy of ``model`` through :func:`flax_to_torch`, and the copies'
+    parameters are stacked as ``torch.func.stack_module_state`` stacks
+    them (name -> ``[K, ...]``)."""
+    k = len(next(iter(_flatten(stacked_np).values())))
+    trials = []
+    for i in range(k):
+        one = _map_tree(stacked_np, lambda a: np.asarray(a)[i])
+        trials.append(flax_to_torch(one, copy.deepcopy(model)))
+    params, _ = torch.func.stack_module_state(trials)
+    return {name: v.detach() for name, v in params.items()}
+
+
+def _map_tree(tree: dict, fn) -> dict:
+    return {key: _map_tree(v, fn) if isinstance(v, dict) else fn(v)
+            for key, v in tree.items()}
 
 
 def _load(params_np: dict, wanted: Dict[Path, Tuple[torch.Tensor, object]]):

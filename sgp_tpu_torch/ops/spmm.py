@@ -125,7 +125,8 @@ class BSROperator:
 
 class GlobalMeanOperator:
     """The dense ``1/N`` matrix of the ``global_attr`` support, as an
-    O(N·F) mean over nodes broadcast back."""
+    O(N·F) mean over nodes broadcast back, summed in f32 and rounded to
+    x's dtype (``jnp.mean`` of a bf16 array)."""
 
     def __init__(self, num_nodes: int):
         self._num_nodes = int(num_nodes)
@@ -135,7 +136,8 @@ class GlobalMeanOperator:
         return self._num_nodes
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
-        return x.mean(-2, keepdim=True).expand_as(x)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return x.mean(-2, keepdim=True, dtype=acc).to(x.dtype).expand_as(x)
 
     def transpose(self) -> "GlobalMeanOperator":
         return self

@@ -140,7 +140,8 @@ def make_fused_eval(model, x_full, target, mask, item_starts,
     Each batch gathers the windows ``x [B, W, N, C]`` (with ``x_slice``,
     only the first ``x_slice`` lanes: ``x_full`` is then the packed row
     layout of ``train/iid.py::pack_iid_data``, so that only it has to stay
-    on the device), appends ``op @ x`` for each of ``support_ops``, runs
+    on the device), appends ``op @ x`` for each of ``support_ops`` in x's
+    dtype, as the JAX package does (a bf16 embedding gives bf16 hops), runs
     ``model(x, u=u, training=False)``, inverse-scales and accumulates.
     Features reach the model as f32."""
     device = x_full.device
@@ -156,9 +157,10 @@ def make_fused_eval(model, x_full, target, mask, item_starts,
             x = gw(x_full, items)                       # [B, W, N, C]
             if x_slice is not None:
                 x = x[..., :x_slice]
-            x = x.float()
             if support_ops is not None:
+                # in x's dtype: a bf16 embedding gives bf16 hops
                 x = torch.cat([x] + [op @ x for op in support_ops], dim=-1)
+            x = x.float()
             y = gh(target, items)
             m = gh(mask, items) & ok[:, None, None, None]
             kwargs = {} if u is None else {"u": gw(u, items)}

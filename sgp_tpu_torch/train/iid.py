@@ -9,11 +9,13 @@ Python loop over steps (the JAX package's ``lax.scan``) whose losses stay
 on the device until the caller reads their mean.
 
 Sampling draws from an explicit ``torch.Generator`` on the data's device;
-its stream is not JAX's, so the parity tests feed the gather-and-loss core
-(``sample_and_loss.loss``) the JAX package's draws. The JAX package's
-``take_time_rows`` (a TPU gather trick) is plain indexing here; its
-``pipeline`` option (a TPU scheduling experiment), the stratified trainer
-and ``compute_dtype`` are not ported.
+its stream is not JAX's, so the parity tests feed the steps' ``train_on``
+(and the core's ``sample_and_loss.loss``) the JAX package's draws. The
+stratified trainer (:func:`make_fused_iid_stratified_step`) keeps only the
+temporal embedding on the device and propagates the sampled steps through
+the supports inside each step. The JAX package's ``take_time_rows`` (a TPU
+gather trick) is plain indexing here; its ``pipeline`` option (a TPU
+scheduling experiment) is not ported.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from sgp_tpu_torch.data.scalers import ScalerParams
 from sgp_tpu_torch.data.spatiotemporal import SpatioTemporalDataset
+from sgp_tpu_torch.ops.spmm import DenseOperator, GlobalMeanOperator
 from sgp_tpu_torch.train.metrics import _METRIC_FNS, _masked_reduce
 from sgp_tpu_torch.train.predictor import clip_by_global_norm_
 from sgp_tpu_torch.utils.device import resolve_device
@@ -102,6 +105,14 @@ def _packed_dtype_ok(encoded) -> bool:
     return False
 
 
+def _cast_floats(params: dict, dtype) -> dict:
+    """Every f32 tensor of ``params`` in ``dtype`` (mixed precision: f32
+    master weights, the forward and backward in ``dtype``; the gradient of
+    the cast accumulates in f32)."""
+    return {k: v.to(dtype) if v.dtype == torch.float32 else v
+            for k, v in params.items()}
+
+
 def _build_iid_sample_and_loss(model, encoded, target, mask,
                                valid_starts, horizon_offsets,
                                scaler: ScalerParams, u=None,
@@ -111,13 +122,19 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
                                gather_block: int = 1, node_perm=None):
     """The sampling and loss core of the fused steps: returns ``(data,
     sample_and_loss)``, where ``sample_and_loss(generator)`` is the masked
-    loss of one freshly sampled batch (with autograd), in two phases:
+    loss of one freshly sampled batch (with autograd), in phases that the
+    single-trial and the multi-trial steps share:
 
     - ``sample_and_loss.sample(generator) -> (t, n)``: the draws, time
       steps ``t`` from ``valid_starts`` and nodes ``n`` (with
       ``gather_block=G > 1``: ``batch/G`` draws of (time, node block));
-    - ``sample_and_loss.loss(t, n)``: the gather, forward and masked loss
-      on given draws, which the parity tests take from the JAX package.
+    - ``sample_and_loss.gather(t, n) -> sampled``: the rows of the draws;
+    - ``sample_and_loss.loss_on(sampled, params=None)``: the forward and
+      masked loss on gathered rows, with ``model``'s own parameters or
+      with ``params`` (a name -> tensor dict, through
+      ``torch.func.functional_call``);
+    - ``sample_and_loss.loss(t, n)``: gather and loss on given draws,
+      which the parity tests take from the JAX package.
 
     ``packed`` True packs the (bf16) encoding with :func:`pack_iid_data`; a
     tensor is taken as the prebuilt packed layout (``encoded`` may then be
@@ -126,11 +143,11 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
     batch and the node count); ``node_perm [N]`` declares that the packed
     node axis is ordered by that permutation, and maps the sampled
     positions back to node ids. Packed rows reach the model as f32, as
-    flax promotes bf16 inputs against f32 parameters."""
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (bf16 decoder steps) is not ported yet "
-            "(ROADMAP A7)")
+    flax promotes bf16 inputs against f32 parameters.
+    ``compute_dtype=torch.bfloat16`` casts the f32 parameters and the
+    inputs x and u to bf16 inside the differentiable call, as the JAX
+    package's ``_cast_floats`` does: the parameters and their gradients
+    stay f32, and the output is cast to f32 before the loss."""
     loss_pt = _METRIC_FNS[loss]
     h_np = _host(horizon_offsets)
     n_h = int(h_np.shape[0])
@@ -203,12 +220,23 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
             u_rows = u[t, n] if u.ndim == 3 else u[t]
         return x, y, m, n, u_rows
 
-    def loss_on(t, n):
-        x, y, m, n, u_rows = gather(t, n)
+    def loss_on(sampled, params: Optional[dict] = None):
+        x, y, m, n, u_rows = sampled
         kwargs = {} if u_rows is None else {"u": u_rows}
+        if compute_dtype is not None:
+            params = _cast_floats(
+                dict(model.named_parameters()) if params is None else params,
+                compute_dtype)
+            x = x.to(compute_dtype)
+            if u_rows is not None:
+                kwargs["u"] = u_rows.to(compute_dtype)
+        else:
+            x = x.float()
+        kwargs.update(node_index=n, training=True, iid=True)
         model.train(True)
-        y_hat = model(x.float(), node_index=n, training=True, iid=True,
-                      **kwargs).float()
+        y_hat = (model(x, **kwargs) if params is None else
+                 torch.func.functional_call(model, params, (x,), kwargs))
+        y_hat = y_hat.float()
         sc = scaler.index_nodes_iid(n)
         if scale_target:
             y_ref = sc.transform(y)
@@ -218,10 +246,12 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
         return v / torch.clamp(cnt, min=1.0)
 
     def sample_and_loss(generator):
-        return loss_on(*sample(generator))
+        return loss_on(gather(*sample(generator)))
 
     sample_and_loss.sample = sample
-    sample_and_loss.loss = loss_on
+    sample_and_loss.gather = gather
+    sample_and_loss.loss_on = loss_on
+    sample_and_loss.loss = lambda t, n: loss_on(gather(t, n))
     sample_and_loss.packed = packed
     return data, sample_and_loss
 
@@ -238,8 +268,9 @@ def make_fused_iid_step(model, optimizer, encoded, target, mask,
     loss, backward, clip by global norm (``grad_clip``, as
     ``optax.clip_by_global_norm``) and ``optimizer.step()`` on ``model``'s
     parameters in place. The loss stays a device tensor.
-    ``step.train_on(t, n)`` takes one step on given draws; ``packed`` and
-    the rest as in :func:`_build_iid_sample_and_loss`."""
+    ``step.train_on(t, n)`` takes one step on given draws; ``packed``,
+    ``compute_dtype`` and the rest as in :func:`_build_iid_sample_and_loss`.
+    """
     data, sample_and_loss = _build_iid_sample_and_loss(
         model, encoded, target, mask, valid_starts, horizon_offsets,
         scaler, u=u, batch_size=batch_size, loss=loss,
@@ -296,6 +327,136 @@ def make_fused_iid_multi_step(model, optimizer, encoded, target, mask,
     multi_step.data = single.data
     multi_step.packed = single.packed
     return multi_step
+
+
+def make_fused_iid_stratified_step(model, optimizer,
+                                   h_temporal: torch.Tensor,  # [T, N, Ht]
+                                   target: torch.Tensor,      # [T, N, C]
+                                   mask: torch.Tensor,        # [T, N, C]
+                                   valid_starts, horizon_offsets,
+                                   scaler: ScalerParams,
+                                   support_ops,
+                                   global_attr: bool = True,
+                                   u: Optional[torch.Tensor] = None,
+                                   times_per_batch: int = 32,
+                                   nodes_per_time: int = 128,
+                                   loss: str = "mae",
+                                   scale_target: bool = False,
+                                   steps_per_call: int = 1,
+                                   assembly: str = "gather_rows",
+                                   support_dtype=None,
+                                   grad_clip: Optional[float] = None
+                                   ) -> Callable:
+    """Stratified IID training with the spatial propagation inside the
+    step: only the temporal (reservoir) embedding ``h_temporal`` stays on
+    the device, ``k + 1`` times smaller than the precomputed expansion.
+
+    A step draws ``times_per_batch`` window starts ``t`` (uniform, with
+    replacement) and ``nodes_per_time`` nodes a start ``n [Tb, P]``, a
+    batch of ``Tb * P`` (time, node) pairs that share their times; takes
+    the selected steps ``h_sel [Tb, N, Ht]``; and assembles the sampled
+    rows of ``[h, A_1 h, ..., mean(h)]`` in ``h_temporal``'s dtype, with
+    no autograd. ``assembly`` picks how a hop's rows are made:
+
+    - ``"gather_rows"``: a dense support's rows at the sampled nodes, then
+      one batched ``[Tb, P, N] x [Tb, N, Ht]`` product, f32 sums cast to
+      the embedding's dtype (the JAX package's einsum). Other operators
+      take the ``full_prop`` route.
+    - ``"full_prop"``: ``op @ h_sel`` over all nodes, then the row gather;
+      a ``BSROperator`` folds ``h_sel`` into one ``[N, Tb * Ht]`` product,
+      kernel K1 on the card.
+
+    ``support_dtype=torch.bfloat16`` rounds the dense supports to bf16
+    (``precision="default"``: both operands bf16, sums f32). Then the
+    forward, the masked loss, the backward, the clip by global norm at
+    ``grad_clip`` and ``optimizer.step()``, ``steps_per_call`` times;
+    ``step(generator)`` returns the mean loss as a device tensor.
+    ``step.train_on(t, n)`` takes one step on given draws and
+    ``step.features(t, n)`` returns the assembled ``[Tb * P, D]`` rows."""
+    if assembly not in ("gather_rows", "full_prop"):
+        raise ValueError(f"assembly must be 'gather_rows' or 'full_prop', "
+                         f"got {assembly!r}")
+    if support_dtype is not None:
+        if support_dtype != torch.bfloat16:
+            raise ValueError(f"support_dtype must be torch.bfloat16, got "
+                             f"{support_dtype}")
+        support_ops = [DenseOperator(op.mat, "default")
+                       if isinstance(op, DenseOperator) else op
+                       for op in support_ops]
+    loss_pt = _METRIC_FNS[loss]
+    device = h_temporal.device
+    n_nodes, h_dim = h_temporal.shape[1:]
+    batch_size = times_per_batch * nodes_per_time
+    valid = torch.as_tensor(valid_starts, device=device)
+    h_off = torch.as_tensor(_host(horizon_offsets), device=device)
+    params = list(model.parameters())
+
+    @torch.no_grad()
+    def features(t, n):
+        h_sel = h_temporal[t]                          # [Tb, N, Ht]
+        rows_of = n[:, :, None].expand(-1, -1, h_dim)
+        parts = [torch.gather(h_sel, 1, rows_of)]      # [Tb, P, Ht]
+        for op in support_ops:
+            if isinstance(op, DenseOperator) and assembly == "gather_rows":
+                # only the sampled destination rows of the support
+                hs = (h_sel.to(torch.bfloat16) if op.precision == "default"
+                      else h_sel)
+                hop = torch.bmm(op.mat[n], hs.to(op.mat.dtype))
+            else:
+                hop = torch.gather(op @ h_sel, 1, rows_of)
+            parts.append(hop.to(h_sel.dtype))
+        if global_attr:
+            mean = GlobalMeanOperator(n_nodes) @ h_sel   # a broadcast
+            parts.append(mean[:, :1].expand_as(parts[0]))
+        return torch.cat(parts, -1).reshape(batch_size, -1)
+
+    def loss_on(t, n):
+        x = features(t, n)
+        t_flat = t.repeat_interleave(nodes_per_time)
+        n_flat = n.reshape(-1)
+        steps = t_flat[:, None] + h_off[None, :]
+        y = target[steps, n_flat[:, None]]             # [B, H, C]
+        m = mask[steps, n_flat[:, None]]
+        kwargs = {}
+        if u is not None:
+            # node-level [T, N, F] or global [T, F]
+            kwargs["u"] = u[t_flat, n_flat] if u.ndim == 3 else u[t_flat]
+        model.train(True)
+        y_hat = model(x.float(), node_index=n_flat, training=True, iid=True,
+                      **kwargs).float()
+        sc = scaler.index_nodes_iid(n_flat)
+        if scale_target:
+            y_ref = sc.transform(y)
+        else:
+            y_hat, y_ref = sc.inverse_transform(y_hat), y
+        v, cnt = _masked_reduce(loss_pt, y_hat, y_ref, m)
+        return v / torch.clamp(cnt, min=1.0)
+
+    def train_on(t, n):
+        optimizer.zero_grad(set_to_none=True)
+        loss_val = loss_on(t, n)
+        loss_val.backward()
+        if grad_clip is not None:
+            clip_by_global_norm_([p.grad for p in params
+                                  if p.grad is not None], grad_clip)
+        optimizer.step()
+        return loss_val.detach()
+
+    def sample(generator: torch.Generator):
+        t = valid[torch.randint(len(valid), (times_per_batch,),
+                                generator=generator, device=device)]
+        n = torch.randint(n_nodes, (times_per_batch, nodes_per_time),
+                          generator=generator, device=device)
+        return t, n
+
+    def step(generator: torch.Generator):
+        return torch.stack([train_on(*sample(generator))
+                            for _ in range(max(steps_per_call, 1))]).mean()
+
+    step.train_on = train_on
+    step.sample = sample
+    step.features = features
+    return step
 
 
 def fused_iid_inputs(dataset: SpatioTemporalDataset, dtype=torch.float32,

@@ -12,7 +12,14 @@ replaces by the canonical NaN (so its targets lose up to 63 f32 ulps
 there; the port keeps every bit). The loss and gradients of a step at 1e-5
 relative to each tensor's largest value; the parameters after 4 clipped
 Adam steps at 1e-5 absolute (lr 1e-3); the fused evaluation's metrics at
-1e-5 relative.
+1e-5 relative. With ``compute_dtype=torch.bfloat16`` both packages round
+every product and activation to bf16 (2^-8 relative), not at the same
+places: the first loss at 2e-3 relative (measured 2.2e-4) and its
+gradients at 5e-2 of each tensor's largest value (measured 1.9e-2); the
+weights after that step at 1e-5 where the gradient lies beyond 5e-2 of its
+tensor's largest, and within one step the other way (2 lr) elsewhere (an
+Adam step moves a weight by about lr times its gradient's sign); the
+losses of 6 more steps at 5e-3 relative.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +31,7 @@ import torch
 from sgp_tpu.data.scalers import ScalerParams as JScalerParams
 from sgp_tpu.models import SGPModel as JSGPModel
 from sgp_tpu.train.fused_window import make_fused_eval as j_fused_eval
+from sgp_tpu.train.iid import make_fused_iid_multi_step as j_multi_step
 from sgp_tpu.train.iid import make_fused_iid_step as j_step
 from sgp_tpu.train.iid import pack_iid_data as j_pack
 from sgp_tpu.train.iid import unpack_iid_rows as j_unpack
@@ -276,8 +284,6 @@ def test_step_options_refused(rng):
     args = (tm, opt, torch.as_tensor(enc).to(torch.bfloat16),
             torch.as_tensor(y), torch.as_tensor(mask), valid, H_OFF,
             ScalerParams(torch.as_tensor(bias), torch.as_tensor(scale)))
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_fused_iid_step(*args, compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="packed"):
         make_fused_iid_step(*args, gather_block=2)
     with pytest.raises(ValueError, match="divide"):
@@ -288,6 +294,90 @@ def test_step_options_refused(rng):
     f32 = make_fused_iid_step(tm, opt, torch.as_tensor(enc), *args[3:],
                               packed=True)
     assert not f32.packed
+
+
+def _path_value(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+def test_bf16_compute_matches_jax(rng, multi):
+    """``compute_dtype=torch.bfloat16`` on the fused step and the
+    multi-step call, on the JAX package's bf16 steps' draws and the same
+    weights: the decoder sees bf16 inputs, the parameters and their
+    gradients stay f32. The first step's loss, gradients and weights, then
+    2 calls of 3 steps (or 6 single steps), against the JAX package's."""
+    enc, y, mask, u, bias, scale, valid = _problem(rng, "node")
+    jm, params, tm = _models(u)
+    per_call = 3 if multi else 1
+    common = dict(batch_size=BATCH, packed=True)
+    jopt = optax.chain(optax.clip_by_global_norm(CLIP), optax.adam(1e-3))
+    jargs = (jnp.asarray(enc, jnp.bfloat16), jnp.asarray(y),
+             jnp.asarray(mask), jnp.asarray(valid), jnp.asarray(H_OFF),
+             JScalerParams(jnp.asarray(bias), jnp.asarray(scale)))
+    jsingle = j_step(jm, jopt, *jargs, u=jnp.asarray(u),
+                     compute_dtype=jnp.bfloat16, **common)
+    jcall = j_multi_step(jm, jopt, *jargs, u=jnp.asarray(u),
+                         compute_dtype=jnp.bfloat16, steps_per_call=per_call,
+                         **common) if multi else jsingle
+    topt = torch.optim.Adam(tm.parameters(), lr=1e-3, eps=1e-8)
+    targs = (torch.as_tensor(enc).to(torch.bfloat16), torch.as_tensor(y),
+             torch.as_tensor(mask), valid, H_OFF,
+             ScalerParams(torch.as_tensor(bias), torch.as_tensor(scale)))
+    kw = dict(u=torch.as_tensor(u), grad_clip=CLIP,
+              compute_dtype=torch.bfloat16, **common)
+    if multi:
+        call = make_fused_iid_multi_step(tm, topt, *targs,
+                                         steps_per_call=per_call, **kw)
+        tstep = call.single
+    else:
+        tstep = make_fused_iid_step(tm, topt, *targs, **kw)
+    seen = []
+    tm.encoder.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].dtype))
+
+    # the first step from the same weights on the same draws
+    key = jax.random.PRNGKey(7)
+    snl = jsingle.sample_and_loss
+    sampled = snl.sample(key, jsingle.data)
+    jloss, jgrad = jax.value_and_grad(
+        lambda p: snl.loss(p, sampled, key))(params)
+    draws = _draws(key, valid, N, BATCH)
+    tloss = tstep.sample_and_loss.loss(*draws)
+    tloss.backward()
+    assert seen == [torch.bfloat16] and tloss.dtype == torch.float32
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss),
+                               rtol=2e-3)
+    jgrad = jax.tree.map(np.asarray, jgrad)["params"]
+    named = targets(tm)
+    for path, (param, transpose) in named.items():
+        want = _path_value(jgrad, path)
+        assert param.dtype == param.grad.dtype == torch.float32
+        _rel(param.grad.numpy(), want.T if transpose else want, 5e-2,
+             "/".join(path))
+    tstep.train_on(*draws)
+    params, opt_state, _ = jsingle(params, jopt.init(params), key)
+    # Adam's first step moves a weight by lr times its gradient's sign: the
+    # same step where the gradient lies beyond the gradients' tolerance of
+    # 0, at most one step the other way elsewhere
+    jp = jax.tree.map(np.asarray, params)["params"]
+    for path, (param, transpose) in named.items():
+        g, w = _path_value(jgrad, path), _path_value(jp, path)
+        g, w = (g.T, w.T) if transpose else (g, w)
+        sure = np.abs(g) > 5e-2 * np.abs(g).max()
+        diff = np.abs(param.detach().numpy() - w)
+        assert diff[sure].max(initial=0) <= TOL, "/".join(path)
+        assert diff.max() <= 2e-3 + TOL, "/".join(path)
+
+    for c in range(6 // per_call):
+        k = jax.random.PRNGKey(100 + c)
+        params, opt_state, jl = jcall(params, opt_state, k)
+        keys = jax.random.split(k, per_call) if multi else [k]
+        tl = torch.stack([tstep.train_on(*_draws(kk, valid, N, BATCH))
+                          for kk in keys]).mean()
+        np.testing.assert_allclose(float(tl), float(jl), rtol=5e-3)
 
 
 @pytest.mark.parametrize("x_slice", [False, True], ids=["encoding",

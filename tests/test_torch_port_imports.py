@@ -37,13 +37,13 @@ TRAINING_SLICE = (
     "sgp_tpu_torch.train.metrics", "sgp_tpu_torch.train.predictor")
 
 # the SGP main path's modules (encode, packed IID training, the fused
-# evaluation, checkpoints and the runner)
+# evaluation, checkpoints, the runner and its trial search)
 MAIN_PATH = (
     "sgp_tpu_torch.encode.encoders", "sgp_tpu_torch.encode.encode_dataset",
     "sgp_tpu_torch.train.iid", "sgp_tpu_torch.train.fused_window",
     "sgp_tpu_torch.train.checkpoint", "sgp_tpu_torch.utils.config",
     "sgp_tpu_torch.exp.common", "sgp_tpu_torch.exp.run_traffic_sgp",
-    "sgp_tpu_torch.exp.run_largescale_sgp")
+    "sgp_tpu_torch.exp.run_largescale_sgp", "sgp_tpu_torch.train.multi_trial")
 
 # the baseline runners' modules
 BASELINES = (
