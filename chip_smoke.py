@@ -26,7 +26,11 @@ the traffic SGP runner (``exp/run_traffic_sgp.py``) at the widths of
 ``configs/traffic/sgp_la.yaml`` on 207 nodes, with its loader-side
 supports through K1 on the 100-nn graph; and the large-scale runner's
 stratified trainer on PV-US's year (8,868 steps) with K1 under its
-in-step supports, and its trial search. In phases; any failure raises
+in-step supports, and its trial search; and DynGESN, the graph echo-state
+encoder with K1 under its recurrence, the closed-form runner
+(``exp/run_closed_form.py``) and its online forecaster, beside the
+wavefront reservoir scan and ``Predictor``'s bf16 steps and restartable
+state. In phases; any failure raises
 and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
@@ -184,7 +188,34 @@ and the exit code is not 0:
    trial below the same search untrained, trial-batch/s beside the
    single-trial batch/s of the same command, and calls of the single and
    the trial steps in f32 and with ``compute_dtype=torch.bfloat16``, in
-   turns.
+   turns;
+16. DynGESN and the rest of A7 (every cut is in the ``GESN_*`` and
+   ``PRED_STEPS`` constants): (a) ``GESNEncoder`` at
+   ``configs/traffic/gesn_la.yaml``'s widths (3 layers x 320 units) on
+   phase 5's series and the closed-form runner's graph (similarity
+   threshold 0.1: 3,332,132 edges, every block stored), f32: through K1
+   (``operator_mode="bsr"``; one launch a layer-step, T x L = 1,920)
+   against the dense operator, both against the same scan in float64,
+   the first 16 steps against the port on the CPU, two calls held to the
+   same bits; K1 at F 320 against its plain version, the bound, cuSPARSE
+   and the dense matmul; (b) ``exp/run_closed_form.py`` through
+   ``Experiment(...).run(argv)`` on that config: the host route on 207
+   nodes x 1,152 steps on the card and on the CPU port, each also with
+   every ridge solve in float64 (the card's test MAE held to the CPU's
+   within max(1e-4 relative, 3 x the larger f32-vs-float64 gap)), then
+   ``--device-resident true`` on 5,016 nodes x 640 steps, dense and with
+   ``operator_mode = "bsr"`` on the namespace (K1's launches T x L):
+   encode, Gram and solve, evaluation, peak memory, finite metrics; (c)
+   ``OnlineGESNForecaster`` on that graph over BSR, 1 and 4 streams: the
+   warm-up and 8 steps held to the offline encode and the stacked
+   readouts (and the 4 streams to 4 forecasters), K1's launches a step,
+   step latency quartiles; (d) ``reservoir_scan(mode="wavefront")``
+   against the sequential scan on phase 11's input at sgp_pv.yaml's
+   reservoir (8 x 16), both walls and each scan's device activities a
+   step; (e) ``Predictor(compute_dtype="bfloat16")`` against f32 on phase
+   5's GatedGN slice (K4): step ms, peak memory, the first loss against
+   the CPU port (2e-2), then ``save_state``, a new ``Predictor``,
+   ``load_state`` and two steps against the uninterrupted run.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -196,7 +227,8 @@ The line before the last is a JSON object of the kernels (K4's launches
 from run (a), K3 forward's from run (c), each slice's own count beside
 them; K1's ``diffconv`` sub-entry from phase 13, its ``support``
 sub-entry from phase 14, its ``stratified`` sub-entry, with the
-evaluation's width under ``eval``, from phase 15); the last is ``{"ok":
+evaluation's width under ``eval``, from phase 15; its ``gesn``
+sub-entry, F 320, from phase 16); the last is ``{"ok":
 true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -426,6 +458,15 @@ SEARCH_LRS = "0.001,0.0001"  # (c): 2 lr x 2 seeds at phase 11's T 640
 SEARCH_SEEDS = "0,1"
 SEARCH_EPOCHS = 4
 SEARCH_ROUNDS = 2       # (f32, bf16, bf16, f32) rounds of timed calls
+GESN_CONFIG = ROOT / "configs" / "traffic" / "gesn_la.yaml"
+GESN_CPU_STEPS = 16     # (a) encode steps also run by the port on the CPU
+GESN_LA_STEPS = 1152    # (b) the host route's series at 207 nodes: 4 days
+TOL_CF = 1e-4           # (b) card vs CPU port test MAE, relative floor
+GESN_FIT_STEPS = 64     # (c) offline steps the serving readouts fit on
+GESN_SERVE_WARM = 56    # (c) history replayed before the held steps
+GESN_SERVE_STEPS = 8    # (c) steps held to the offline encode
+GESN_SERVE_TIMED = 24   # (c) further steps timed
+PRED_STEPS = 6          # (e) steps a round of each Predictor
 
 
 def read_flat_yaml(path: Path) -> dict:
@@ -1047,10 +1088,10 @@ def gn_data(raw, graph, config: Path = GN_CONFIG):
 
 
 def gn_predictor(cfg, ds, static, device, init_state=None,
-                 to_call=gn_to_call):
+                 to_call=gn_to_call, compute_dtype=None):
     """The gatedgn_pv.yaml model and trainer, initialized from ``SEED`` (or
     from ``init_state``); ``static`` holds the graph's layout, ``to_call``
-    hands it to the model."""
+    hands it to the model; ``compute_dtype`` is the trainer's."""
     from sgp_tpu_torch.models import GatedGraphNetworkMLPModel
     from sgp_tpu_torch.train import Predictor
     u_size = ds.covariates["u"].value.shape[-1]
@@ -1064,7 +1105,8 @@ def gn_predictor(cfg, ds, static, device, init_state=None,
     pred = Predictor(model, loss="mae", lr=cfg["lr"], grad_clip=GRAD_CLIP,
                      scale_target=cfg.get("scale_target", False),
                      batch_to_call=to_call, seed=SEED,
-                     static_batch=static, device=device)
+                     static_batch=static, compute_dtype=compute_dtype,
+                     device=device)
     pred.init(None, ds.scaler_params())
     if init_state is not None:
         pred.model.load_state_dict(init_state)
@@ -3896,6 +3938,507 @@ def phase15_stratified(device) -> dict:
     return out
 
 
+def gesn_setup(raw, n_steps: int = None):
+    """The closed-form runner's data path at gesn_la.yaml's windows (its
+    graph: the similarity graph thresholded at the default 0.1, no k-nn;
+    the day encoding as exogenous input; temporal split; StandardScaler
+    fitted on the train windows' start steps) and the encoder's input
+    ``[T, N, 3]``."""
+    from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
+                                    TemporalSplitter, Windowing)
+    from sgp_tpu_torch.encode import encoder_input_array
+    cfg = read_flat_yaml(GESN_CONFIG)
+    graph = raw.get_connectivity(threshold=0.1, knn=None,
+                                 include_self=False)
+    t = n_steps or raw.target.shape[0]
+    ds = SpatioTemporalDataset(
+        raw.target[:t], index=raw.index[:t], mask=raw.mask[:t], graph=graph,
+        covariates={"u": raw.datetime_encoded("day")[:t]},
+        windowing=Windowing(window=cfg["window"], horizon=cfg["horizon"]))
+    split = TemporalSplitter(0.1, 0.2).split(ds)
+    ds.fit_scaler(StandardScaler(axis=(0, 1)),
+                  step_index=ds.indices()[split.train])
+    return cfg, ds, graph, encoder_input_array(ds, True)
+
+
+def gesn_encoder(cfg, input_size: int, mode: str, device):
+    """The yaml's GESN encoder, routed as the runner routes its flags."""
+    from sgp_tpu_torch.encode import GESNEncoder
+    from sgp_tpu_torch.exp.common import filter_kwargs
+    return GESNEncoder(**filter_kwargs(GESNEncoder.__init__, {
+        **cfg, "input_size": input_size, "seed": SEED, "operator_mode": mode,
+        "device": device}))
+
+
+def phase16_encode(raw, device) -> dict:
+    """(a) The GESN encode of phase 5's series (5,016 nodes x 640 steps,
+    the runner's graph) at gesn_la.yaml's widths, f32: through K1
+    (``operator_mode="bsr"``, one launch a layer-step) against the dense
+    operator and the CPU port, two calls' bits; then K1 at F 320 on a
+    layer's recurrent input."""
+    from sgp_tpu_torch.ops import bsr_spmm
+    cfg, ds, graph, x_np = gesn_setup(raw)
+    x = torch.as_tensor(x_np, device=device)
+    t_steps, layers = x.shape[0], cfg["reservoir_layers"]
+    enc = gesn_encoder(cfg, x.shape[-1], "bsr", device)
+    dense = gesn_encoder(cfg, x.shape[-1], "dense", device)
+    ops, out, walls, launches = {}, {}, {}, {}
+    for name, e in (("bsr", enc), ("dense", dense)):
+        t0 = time.perf_counter()
+        ops[name] = e.operator(graph)
+        torch.cuda.synchronize()
+        walls[f"{name}_operator_build"] = (time.perf_counter() - t0) * 1e3
+    for name in ("bsr", "dense", "bsr_again"):
+        e, op = (dense, ops["dense"]) if name == "dense" else \
+            (enc, ops["bsr"])
+        torch.cuda.synchronize()
+        bsr_spmm.launches = 0
+        t0 = time.perf_counter()
+        out[name] = e.gesn(x, op)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = bsr_spmm.launches
+    same_bits = torch.equal(out.pop("bsr_again"), out["bsr"])
+    top = max(by_chunks(t_steps, lambda s, e: out["dense"][s:e].abs().max()
+                        .item()))
+    route_err = max(by_chunks(t_steps, lambda s, e: (
+        out["bsr"][s:e] - out["dense"][s:e]).abs().max().item())) / top
+    route_bias = sum(by_chunks(t_steps, lambda s, e: (
+        out["bsr"][s:e] - out["dense"][s:e]).double().sum().item())) / (
+        out["bsr"].numel() * top)
+    f64 = gesn_vs_float64(dense, ops["dense"], x, out)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cpu_enc = gesn_encoder(cfg, x.shape[-1], "bsr", cpu)
+    cpu_out = cpu_enc(torch.as_tensor(x_np[:GESN_CPU_STEPS]), graph)
+    cpu_s = time.perf_counter() - t0
+    cpu_err = rel_err(out["bsr"][:GESN_CPU_STEPS].cpu(), cpu_out)[1]
+    # the f32 routes differ by their rounding, which the recurrence carries
+    # on: each is held within the larger of TOL_F32 and twice the dense
+    # route's distance to float64
+    tol = max(TOL_F32, 2 * f64["dense"])
+    row = dict(shape=list(out["bsr"].shape), edges=graph.num_edges,
+               encode_ms=walls, k1_launches=launches,
+               expected_launches=t_steps * layers,
+               bsr_vs_dense_rel_err=route_err,
+               bsr_vs_dense_mean_err=route_bias, vs_float64_rel_err=f64,
+               tol=tol, bitwise_repeat=same_bits, cpu_steps=GESN_CPU_STEPS,
+               cpu_rel_err=cpu_err, cpu_s=cpu_s)
+    print(f"[phase 16] (a) GESN encode: {json.dumps(row)}")
+    assert launches["bsr"] == launches["bsr_again"] == t_steps * layers, row
+    assert launches["dense"] == 0, row
+    assert all(bool(torch.isfinite(v).all()) for v in out.values()), row
+    assert route_err <= tol and cpu_err <= tol, row
+    assert f64["bsr"] <= tol, row
+    assert same_bits, row
+    # K1 on a layer's recurrent input, h W_hh^T [N, 320], at the last step
+    h = enc.gesn.hidden_size
+    hop_in = (out["bsr"][-1, :, h:2 * h] @ enc.gesn.layers[1].w_hh.T
+              ).contiguous()
+    del out
+    k1 = k1_at_support_width(ops["bsr"], ops["dense"], hop_in,
+                             tag="phase 16", case="gesn hop")
+    k1["launches"] = launches["bsr"]
+    return k1
+
+
+def gesn_vs_float64(enc, op, x, outs: dict) -> dict:
+    """Each f32 encoding of ``outs`` against the same scan in float64 (the
+    dense operator and the layers in float64, run in SGP_CHUNK-step chunks
+    with the state carried): the max error over the largest value."""
+    from sgp_tpu_torch.encode import GraphESN
+    g64 = GraphESN.from_arrays([dict(
+        w_ih=p.w_ih.cpu().numpy(), w_hh=p.w_hh.cpu().numpy(),
+        b_ih=None if p.b_ih is None else p.b_ih.cpu().numpy(),
+        alpha=p.alpha) for p in enc.gesn.layers], enc.gesn.activation,
+        device=x.device)
+    g64.layers = [type(p)(p.w_ih.double(), p.w_hh.double(),
+                          None if p.b_ih is None else p.b_ih.double(),
+                          p.alpha) for p in g64.layers]
+    op64 = type(op)(op.mat.double())
+    h, err, top = None, dict.fromkeys(outs, 0.0), 0.0
+    for s in range(0, x.shape[0], SGP_CHUNK):
+        e = min(s + SGP_CHUNK, x.shape[0])
+        ref, h = g64(x[s:e].double(), op64, h0=h, with_state=True)
+        top = max(top, ref.abs().max().item())
+        for k, v in outs.items():
+            err[k] = max(err[k], (v[s:e].double() - ref).abs().max().item())
+        del ref
+    return {k: v / top for k, v in err.items()}
+
+
+class ClosedFormRecorder:
+    """Instruments ``run_closed_form`` runs from outside: the encode's wall
+    (``encode_dataset``), the Gram and solve (``closed_form_readout`` or
+    its streaming form; every solve optionally in float64 on the host), the
+    evaluation (from the readout's return to the run's), K1's launches, the
+    solves whose Cholesky failed (then solved by the SVD) and peak device
+    memory. ``reuse`` keeps each device's first encoding and
+    hands it to that device's later runs (the float64 rerun)."""
+
+    def __init__(self, reuse: bool = False):
+        import sgp_tpu_torch.exp.run_closed_form as runner
+        self.runner = runner
+        self.reuse = reuse
+        self.cache = {}
+
+    def run(self, argv, device, bsr: bool = False, f64: bool = False):
+        from sgp_tpu_torch.encode import rewire_exog_keys
+        from sgp_tpu_torch.exp.common import Experiment
+        from sgp_tpu_torch.ops import bsr_spmm
+        import sgp_tpu_torch.train.ridge as ridge
+        runner, rec = self.runner, {}
+        cuda = device.type == "cuda"
+        orig = {k: getattr(runner, k) for k in (
+            "encode_dataset", "closed_form_readout",
+            "closed_form_readout_streaming")}
+        solve = ridge.solve_ridge_normal
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize()
+
+        def encode(ds, encoder, **kw):
+            sync()
+            t0 = time.perf_counter()
+            key = str(device)
+            if self.reuse and key in self.cache:
+                ds.add_covariate("encoded_x", self.cache[key],
+                                 pattern="t n c")
+                ds.set_input_keys(["encoded_x"])
+                rewire_exog_keys(ds, kw["encode_exogenous"],
+                                 kw["keep_raw"])
+            else:
+                orig["encode_dataset"](ds, encoder, **kw)
+                if self.reuse:
+                    self.cache[key] = ds.covariates["encoded_x"].value
+            sync()
+            rec["encode_ms"] = (time.perf_counter() - t0) * 1e3
+            return ds
+
+        def timed_readout(name):
+            def fn(*args, **kw):
+                sync()
+                t0 = time.perf_counter()
+                out = orig[name](*args, **kw)
+                sync()
+                rec["readout_end"] = time.perf_counter()
+                rec["gram_solve_ms"] = (rec["readout_end"] - t0) * 1e3
+                return out
+            return fn
+
+        def solve64(gram, moment, alpha):
+            g = gram.double().cpu().numpy()
+            w = np.linalg.solve(g + alpha * np.eye(g.shape[0]),
+                                moment.double().cpu().numpy())
+            return torch.as_tensor(w, dtype=torch.float32,
+                                   device=gram.device)
+
+        def route(args):
+            if bsr:
+                args.operator_mode = "bsr"
+            return runner.run_experiment(args)
+
+        runner.encode_dataset = encode
+        for name in ("closed_form_readout", "closed_form_readout_streaming"):
+            setattr(runner, name, timed_readout(name))
+        if f64:
+            ridge.solve_ridge_normal = solve64
+        cholesky = torch.linalg.cholesky_ex
+        infos = []
+
+        def cholesky_ex(a):         # which solves fell back to the SVD
+            chol, info = cholesky(a)
+            infos.append(int(info))
+            return chol, info
+
+        torch.linalg.cholesky_ex = cholesky_ex
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        bsr_spmm.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = Experiment(route, runner.configure_parser()).run(
+                argv + ["--device", str(device)])
+        finally:
+            for k, v in orig.items():
+                setattr(runner, k, v)
+            ridge.solve_ridge_normal = solve
+            torch.linalg.cholesky_ex = cholesky
+        end = time.perf_counter()
+        out = dict(res, launches=bsr_spmm.launches,
+                   cholesky_failed=sum(i != 0 for i in infos),
+                   wall_s=end - t0, encode_ms=rec["encode_ms"],
+                   gram_solve_ms=rec["gram_solve_ms"],
+                   eval_ms=(end - rec["readout_end"]) * 1e3)
+        if cuda:
+            out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        return out
+
+
+def phase16_runner(device) -> dict:
+    """(b) ``run_closed_form`` through ``Experiment(...).run(argv)`` on
+    gesn_la.yaml: the host route on 207 nodes (card and CPU port, each
+    also with every ridge solve in float64 on the host), then
+    ``--device-resident true`` on 5,016 nodes x 640 steps, dense and with
+    ``operator_mode = "bsr"`` on the namespace."""
+    cpu = torch.device("cpu")
+    rec = ClosedFormRecorder(reuse=True)
+    argv = ["--config", str(GESN_CONFIG), "--dataset-name", "synthetic",
+            "--seed", str(SEED)]
+    host = argv + ["--synthetic-nodes", str(LA_NODES), "--synthetic-steps",
+                   str(GESN_LA_STEPS)]
+    runs = {}
+    for name, dev, f64 in (("card", device, False), ("card_f64", device, True),
+                           ("cpu", cpu, False), ("cpu_f64", cpu, True)):
+        runs[name] = rec.run(host, dev, f64=f64)
+        print(f"[phase 16] (b) host route, {LA_NODES} nodes x "
+              f"{GESN_LA_STEPS} steps, {name}: {json.dumps(runs[name])}")
+        assert all(np.isfinite(v) for v in runs[name].values()), runs[name]
+        assert runs[name]["launches"] == 0, runs[name]
+    gaps = {d: abs(runs[d]["test_mae"] - runs[f"{d}_f64"]["test_mae"])
+            for d in ("card", "cpu")}
+    tol = max(TOL_CF * abs(runs["cpu"]["test_mae"]), 3 * max(gaps.values()))
+    diff = abs(runs["card"]["test_mae"] - runs["cpu"]["test_mae"])
+    held = dict(card_vs_cpu=diff, tol=tol, f32_vs_f64_solve_gap=gaps,
+                f64_card_vs_cpu=abs(runs["card_f64"]["test_mae"]
+                                    - runs["cpu_f64"]["test_mae"]))
+    print(f"[phase 16] (b) host route test MAE, card vs CPU port: "
+          f"{json.dumps(held)}")
+    assert diff <= tol, held
+    rec = ClosedFormRecorder()
+    resident = argv + ["--synthetic-nodes", str(N_NODES),
+                       "--synthetic-steps", str(N_STEPS),
+                       "--device-resident", "true"]
+    layers = read_flat_yaml(GESN_CONFIG)["reservoir_layers"]
+    for name, bsr in (("dense", False), ("bsr", True)):
+        runs[f"resident_{name}"] = r = rec.run(resident, device, bsr=bsr)
+        print(f"[phase 16] (b) --device-resident true, {N_NODES} nodes x "
+              f"{N_STEPS} steps, {name} operator: {json.dumps(r)}")
+        assert all(np.isfinite(v) for v in r.values()), r
+        assert r["launches"] == (N_STEPS * layers if bsr else 0), r
+    gap = abs(runs["resident_bsr"]["test_mae"]
+              - runs["resident_dense"]["test_mae"])
+    print(f"[phase 16] (b) device-resident test MAE, BSR vs dense route: "
+          f"{gap:.3e}")
+    return runs
+
+
+def phase16_serve(raw, device) -> dict:
+    """(c) ``OnlineGESNForecaster`` on the runner's 5,016-node graph over
+    BSR at gesn_la.yaml's widths (input: the target alone), readouts
+    fitted by ``closed_form_readout`` on an offline encode of the first
+    GESN_FIT_STEPS steps: warm-up plus GESN_SERVE_STEPS steps held to the
+    offline encode and the stacked readouts, 1 stream and 4 (each held to
+    a forecaster of its own); K1's launches a step and step latencies."""
+    from sgp_tpu_torch.data import StandardScaler
+    from sgp_tpu_torch.ops import bsr_spmm
+    from sgp_tpu_torch.serve import OnlineGESNForecaster
+    from sgp_tpu_torch.train.ridge import closed_form_readout
+    cfg = read_flat_yaml(GESN_CONFIG)
+    graph = raw.get_connectivity(threshold=0.1, knn=None,
+                                 include_self=False)
+    enc = gesn_encoder(cfg, 1, "bsr", device)
+    layers, lags = cfg["reservoir_layers"], cfg["horizon"]
+    fit, warm, steps = GESN_FIT_STEPS, GESN_SERVE_WARM, GESN_SERVE_STEPS
+    span = warm + steps + GESN_SERVE_TIMED
+    sc = StandardScaler(axis=(0, 1)).fit(raw.target[:fit], raw.mask[:fit])
+    scaler = sc.params(device=device)
+    x_raw = torch.as_tensor(raw.target, device=device)   # [T, N, 1]
+    xs = scaler.transform(x_raw)
+    offline = enc(xs[:fit], graph)                        # [fit, N, D]
+    tr = fit - lags
+    readouts = closed_form_readout(
+        offline[:tr].reshape(-1, offline.shape[-1]),
+        [xs[1 + lag:tr + 1 + lag].reshape(-1, 1) for lag in range(lags)],
+        alpha=cfg["l2_reg"])
+    w = torch.stack([a for a, _ in readouts])
+    b = torch.stack([c for _, c in readouts])
+
+    def expect(h):          # [.., N, D] -> [.., L, N, 1] raw
+        return scaler.inverse_transform(
+            torch.einsum("...nd,ldc->...lnc", h, w) + b[:, None])
+
+    streams = torch.stack([x_raw[s * STREAM_OFFSET:s * STREAM_OFFSET + span]
+                           for s in range(STREAMS)], 1)  # [span, S, N, 1]
+    ref = enc(scaler.transform(streams[:warm + steps]), graph)
+    out = {}
+    for name, lead in (("1_stream", None), (f"{STREAMS}_streams", STREAMS)):
+        fc = OnlineGESNForecaster(enc, graph, readouts, scaler,
+                                  n_streams=lead, device=device)
+        fc.warm_up(streams[:warm, 0] if lead is None else streams[:warm])
+        singles = [OnlineGESNForecaster(enc, graph, readouts, scaler,
+                                        device=device)
+                   for _ in range(STREAMS if lead else 0)]
+        for i, f in enumerate(singles):
+            f.warm_up(streams[:warm, i])
+        errs, lat, launches = [], [], []
+        for t in range(warm, span):
+            obs = streams[t, 0] if lead is None else streams[t]
+            torch.cuda.synchronize()
+            before = bsr_spmm.launches
+            t0 = time.perf_counter()
+            y = fc.step(obs)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            launches.append(bsr_spmm.launches - before)
+            if t < warm + steps:
+                errs.append(rel_err(y, expect(ref[t, 0] if lead is None
+                                              else ref[t]))[1])
+                errs += [rel_err(y[i], f.step(obs[i]))[1]
+                         for i, f in enumerate(singles)]
+        out[name] = dict(shape=list(y.shape), max_rel_err=max(errs),
+                         k1_launches_per_step=sorted(set(launches)),
+                         step_ms=quartiles(lat[steps:]))
+        print(f"[phase 16] (c) OnlineGESNForecaster {name}: "
+              f"{json.dumps(out[name])}")
+        assert max(errs) <= TOL_F32, out[name]
+        assert set(launches) == {layers}, out[name]
+        assert bool(torch.isfinite(y).all())
+    return out
+
+
+def phase16_wavefront(raw, graph, device) -> dict:
+    """(d) ``reservoir_scan(mode="wavefront")`` against the sequential scan
+    on phase 11's input at sgp_pv.yaml's reservoir (8 x 16), T 640, N
+    5,016: the states within max(1e-5, twice the sequential scan's
+    distance to float64), both walls in turns, and each scan's device
+    activities a step (torch.profiler over 32 steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    from sgp_tpu_torch.encode import encoder_input_array, reservoir_scan
+    cfg, ds, _ = sgp_setup(raw, graph)
+    x = torch.as_tensor(encoder_input_array(ds, cfg["preprocess_exogenous"]),
+                        device=device)
+    res = sgp_encoder(cfg, x.shape[-1], "dense", device).reservoir
+    walls, outs = {"sequential": [], "wavefront": []}, {}
+    for mode in ("sequential", "wavefront", "wavefront", "sequential"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[mode] = reservoir_scan(res.layers, res.activation, x,
+                                    mode=mode)
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3)
+    err = max(by_chunks(x.shape[0], lambda s, e: (
+        outs["wavefront"][s:e] - outs["sequential"][s:e]).abs().max()
+        .item()))
+    # the two orders of summation differ by rounding that the recurrence
+    # (spectral radius 0.99, leak 1.0) carries on: each scan is held within
+    # the larger of TOL_F32 and twice the sequential scan's distance to the
+    # same scan in float64
+    layers64 = [type(p)(p.w_ih.double(), p.w_hh.double(),
+                        None if p.b_ih is None else p.b_ih.double(), p.alpha)
+                for p in res.layers]
+    ref = reservoir_scan(layers64, res.activation, x.double())
+    f64 = {k: max(by_chunks(x.shape[0], lambda s, e: (
+        v[s:e].double() - ref[s:e]).abs().max().item()))
+        for k, v in outs.items()}
+    del outs, ref
+    tol = max(TOL_F32, 2 * f64["sequential"])
+    per_step = {}
+    for mode in walls:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            reservoir_scan(res.layers, res.activation, x[:32], mode=mode)
+            torch.cuda.synchronize()
+        busy = device_busy(prof, 32)
+        per_step[mode] = {k: busy.get(k) for k in (
+            "device_activities", "device_busy_ms")} if busy else \
+            "not measured (no device activity traced)"
+    row = dict(t=x.shape[0], n=x.shape[1], layers=len(res.layers),
+               hidden=res.hidden_size, max_abs_err=err,
+               vs_float64_max_abs_err=f64, tol=tol, wall_ms=walls,
+               per_step=per_step)
+    print(f"[phase 16] (d) wavefront vs sequential scan: {json.dumps(row)}")
+    assert err <= tol and f64["wavefront"] <= tol, row
+    return row
+
+
+def phase16_predictor(raw, graph, device) -> dict:
+    """(e) ``Predictor(compute_dtype="bfloat16")`` against f32 on phase 5's
+    GatedGN slice (K4): step ms in turns and peak memory, K4's launches,
+    the first bf16 loss against the CPU port's; then ``save_state``, a new
+    ``Predictor``, ``load_state`` and two more steps against the
+    uninterrupted run."""
+    import tempfile
+    from sgp_tpu_torch.graph import padded_incoming
+    from sgp_tpu_torch.ops import gn_ell
+    cfg, ds, split = gn_data(raw, graph)
+    src_idx, nmask = padded_incoming(graph)
+    static = {"gn_neigh": (src_idx, nmask)}
+    f32 = gn_predictor(cfg, ds, static, device)
+    init = {k: v.detach().clone() for k, v in f32.model.state_dict().items()}
+    bf16 = gn_predictor(cfg, ds, static, device, init,
+                        compute_dtype="bfloat16")
+    batches = list(loaders(cfg, ds, split, PRED_STEPS)[0])
+    for fn in (gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd):
+        fn.launches = 0
+    first = float(bf16.train_step(batches[0]))
+    launches = {fn.__name__: fn.launches
+                for fn in (gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd)}
+    t0 = time.perf_counter()
+    on_cpu = gn_predictor(cfg, ds, static, torch.device("cpu"),
+                          {k: v.cpu() for k, v in init.items()},
+                          compute_dtype="bfloat16")
+    cpu_first = float(on_cpu.train_step(batches[0]))
+    cpu_s = time.perf_counter() - t0
+    times, peak = {"f32": [], "bf16": []}, {}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        pred = f32 if name == "f32" else bf16
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(pred.train_step(batch))
+            if i >= TIME_DROP:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            assert np.isfinite(loss), (name, loss)
+        peak[name] = max(peak.get(name, 0.0),
+                         torch.cuda.max_memory_allocated() / 2**20)
+    # resume: save after two steps, two more steps, against a new trainer
+    run = gn_predictor(cfg, ds, static, device, init,
+                       compute_dtype="bfloat16")
+    for batch in batches[:2]:
+        run.train_step(batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/state.pt"
+        run.save_state(path, epoch=1, best_metric=first)
+        want = [float(run.train_step(b)) for b in batches[2:4]]
+        resumed = gn_predictor(cfg, ds, static, device,
+                               compute_dtype="bfloat16")
+        extra = resumed.load_state(path)
+        got = [float(resumed.train_step(b)) for b in batches[2:4]]
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    row = dict(first_loss_bf16=first, first_loss_cpu_bf16=cpu_first,
+               cpu_rel_err=abs(first - cpu_first) / abs(cpu_first),
+               cpu_s=cpu_s, k4_launches_first_step=launches,
+               step_ms={k: quartiles(v) for k, v in times.items()},
+               peak_mib=peak, resume_losses=got, uninterrupted_losses=want,
+               resume_rel_err=resume_err, extra_epoch=extra["epoch"])
+    print(f"[phase 16] (e) Predictor compute_dtype: {json.dumps(row)}")
+    assert row["cpu_rel_err"] <= 2e-2, row
+    assert min(launches.values()) >= cfg["gnn_layers"], row
+    assert resume_err <= 1e-6 and extra["epoch"] == 1, row
+    return row
+
+
+def phase16_gesn(raw, graph, device) -> dict:
+    """DynGESN and the rest of A7: (a) the encode through K1, (b) the
+    closed-form runner, (c) GESN serving, (d) the wavefront scan, (e)
+    ``Predictor``'s compute_dtype and save_state."""
+    k1 = phase16_encode(raw, device)
+    torch.cuda.empty_cache()
+    runs = phase16_runner(device)
+    torch.cuda.empty_cache()
+    serve_rows = phase16_serve(raw, device)
+    torch.cuda.empty_cache()
+    wave = phase16_wavefront(raw, graph, device)
+    torch.cuda.empty_cache()
+    pred = phase16_predictor(raw, graph, device)
+    return dict(k1=k1, launches=runs["resident_bsr"]["launches"],
+                runs=runs, serve=serve_rows, wavefront=wave,
+                predictor=pred)
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -3951,6 +4494,7 @@ def main():
     diffusion = timed("phase 13", phase13_diffusion, ds, graph, device)
     traffic = timed("phase 14", phase14_traffic, ds, graph, device)
     strat = timed("phase 15", phase15_stratified, device)
+    gesn = timed("phase 16", phase16_gesn, ds, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -3977,6 +4521,11 @@ def main():
     kernels[0]["stratified"]["eval"] = kernel_entry(
         "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
         "sgp_tpu/ops/bsr_kernel.py:39", strat["launches"], strat["k1"][2048])
+    # the GESN recurrence's hops, F 320 (phase 16); launches from (b)'s
+    # device-resident runner run on BSR (T x L)
+    kernels[0]["gesn"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", gesn["launches"], gesn["k1"])
     # K4's launches from the traffic runner's run (a), K3 forward's from
     # the large-scale runner's run (c); the slices' own counts beside them
     run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]

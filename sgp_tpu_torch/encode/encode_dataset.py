@@ -66,7 +66,8 @@ def rewire_exog_keys(dataset: SpatioTemporalDataset,
 def _encoder_device(encoder, device):
     if device is not None:
         return resolve_device(device)
-    reservoir = getattr(encoder, "reservoir", None)
+    reservoir = getattr(encoder, "reservoir", None) or \
+        getattr(encoder, "gesn", None)
     if reservoir is not None:
         return reservoir.layers[0].w_ih.device
     return resolve_device(None)

@@ -9,8 +9,8 @@ same interface: ``encoder(x [T, N, F], graph) -> [T, N, D]``.
 - :class:`SGPSpatialEncoder` — propagation only (ablation ``space``).
 - :func:`streaming_encode` — the whole-series SGP encode that feeds
   training, streamed over time chunks into one preallocated output.
-
-The graph echo-state encoder (``GESNEncoder``) is not ported yet.
+- :class:`GESNEncoder` — DynGESN, the graph echo-state scan over the
+  self-looped, row-normalized graph.
 """
 from __future__ import annotations
 
@@ -18,10 +18,11 @@ from typing import List, Optional
 
 import torch
 
+from sgp_tpu_torch.encode.graph_reservoir import GraphESN
 from sgp_tpu_torch.encode.reservoir import Reservoir, reservoir_scan
 from sgp_tpu_torch.encode.spatial import (prepare_propagation_graphs,
                                           sgp_spatial_embedding)
-from sgp_tpu_torch.graph.sparse import Graph
+from sgp_tpu_torch.graph.sparse import Graph, add_self_loops, normalize_adj
 from sgp_tpu_torch.ops.spmm import build_operator
 
 
@@ -201,11 +202,47 @@ def streaming_encode(encoder: SGPEncoder, x: torch.Tensor, graph: Graph,
     return out
 
 
+class GESNEncoder:
+    """DynGESN: self-loops, row normalization, the operator of
+    ``operator_mode`` (``"bsr"`` runs the recurrence's products through the
+    block-sparse kernel on the card), then the :class:`GraphESN` scan.
+    ``device`` is where the weights and the operator live (default
+    ``cuda:0``; ``"cpu"`` for the CPU)."""
+
+    def __init__(self, input_size: int, reservoir_size: int = 32,
+                 reservoir_layers: int = 1, leaking_rate: float = 0.9,
+                 spectral_radius: float = 0.9, density: float = 0.9,
+                 input_scaling: float = 1.0, alpha_decay: bool = False,
+                 reservoir_activation: str = "tanh", seed: int = 0,
+                 operator_mode: str = "auto", device=None):
+        self.gesn = GraphESN(
+            input_size=input_size, hidden_size=reservoir_size,
+            input_scaling=input_scaling, num_layers=reservoir_layers,
+            leaking_rate=leaking_rate, spectral_radius=spectral_radius,
+            density=density, activation=reservoir_activation,
+            alpha_decay=alpha_decay, seed=seed, device=device)
+        self.operator_mode = operator_mode
+
+    @property
+    def output_size(self) -> int:
+        return self.gesn.output_size
+
+    @property
+    def device(self) -> torch.device:
+        return self.gesn.layers[0].w_ih.device
+
+    def operator(self, graph: Graph):
+        """The recurrence's operator: ``graph`` with self-loops,
+        row-normalized, built on the encoder's device."""
+        g = normalize_adj(add_self_loops(graph), "row")
+        return build_operator(g, self.operator_mode, device=self.device)
+
+    def __call__(self, x: torch.Tensor, graph: Graph,
+                 out_dtype=None) -> torch.Tensor:
+        return self.gesn(x, self.operator(graph), out_dtype=out_dtype)
+
+
 def get_encoder_class(name: str):
     """Encoder registry, as the JAX package's."""
-    if name == "gesn":
-        raise NotImplementedError(
-            "the graph echo-state encoder (GESNEncoder) is not ported yet "
-            "(ROADMAP A8)")
     return {"sgp": SGPEncoder, "time": SGPTemporalEncoder,
-            "space": SGPSpatialEncoder}[name]
+            "space": SGPSpatialEncoder, "gesn": GESNEncoder}[name]

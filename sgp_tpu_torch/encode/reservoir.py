@@ -10,8 +10,10 @@ concatenated channel-wise, ``[T, N, L*H]``.
 
 Initialization draws from numpy's ``default_rng(seed)`` exactly as the JAX
 package does, so the same seed gives bit-identical weights in both.
-The layer-pipelined ``mode="wavefront"`` scan of the JAX package is not
-ported yet.
+``reservoir_scan(mode="wavefront")`` is the JAX package's layer-pipelined
+scan: layer ``i`` computes time ``t`` at iteration ``t + i``, so the L
+layer updates of one iteration are one pair of batched products; ``auto``
+picks the sequential scan, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -136,27 +138,111 @@ def _reservoir_step(layers, act, h, x_t):
 
 def reservoir_scan(layers, activation: str, x: torch.Tensor, h0=None,
                    return_last_state: bool = False, out_dtype=None,
-                   with_state: bool = False):
-    """The sequential scan of ``sgp_tpu.encode.reservoir.reservoir_scan``:
-    all batch axes are flattened, ``h0`` defaults to zeros of x's dtype,
-    and the output is written step by step into one preallocated
-    ``[T, B, L*H]`` tensor."""
+                   with_state: bool = False, mode: str = "auto"):
+    """The scan of ``sgp_tpu.encode.reservoir.reservoir_scan``: all batch
+    axes are flattened, ``h0`` defaults to zeros of x's dtype, and the
+    output is written into one preallocated ``[T, B, L*H]`` tensor.
+    ``mode``: ``"sequential"`` (the layers one after another at each
+    step), ``"wavefront"`` (:func:`_wavefront_scan`: the same recurrence,
+    the L layer updates of an iteration batched), or ``"auto"``
+    (sequential, as the JAX package picks)."""
     act = _ACTIVATIONS[activation]
     batch_shape = x.shape[1:-1]
     x2 = x.reshape(x.shape[0], -1, x.shape[-1])  # [T, B, F]
     if h0 is None:
         h0 = [torch.zeros((x2.shape[1], p.w_hh.shape[0]), dtype=x.dtype,
                           device=x.device) for p in layers]
-    h = list(h0)
-    out = torch.empty((x2.shape[0], x2.shape[1],
-                       sum(p.w_hh.shape[0] for p in layers)),
-                      dtype=out_dtype or x.dtype, device=x.device)
-    for t in range(x2.shape[0]):
-        h = _reservoir_step(layers, act, h, x2[t])
-        out[t] = torch.cat(h, dim=-1)
+    if mode == "auto":
+        mode = "sequential"
+    if mode == "wavefront":
+        out, h = _wavefront_scan(layers, act, x2, list(h0), out_dtype)
+    elif mode == "sequential":
+        h = list(h0)
+        out = torch.empty((x2.shape[0], x2.shape[1],
+                           sum(p.w_hh.shape[0] for p in layers)),
+                          dtype=out_dtype or x.dtype, device=x.device)
+        for t in range(x2.shape[0]):
+            h = _reservoir_step(layers, act, h, x2[t])
+            out[t] = torch.cat(h, dim=-1)
+    else:
+        raise ValueError(f"unknown scan mode {mode!r}")
     if return_last_state:
         return torch.cat(h, -1).reshape(batch_shape + (-1,))
     out = out.reshape((x.shape[0],) + batch_shape + (out.shape[-1],))
     if with_state:
         return out, h
     return out
+
+
+def _wavefront_scan(layers, act, x2: torch.Tensor, h0, out_dtype,
+                    time_chunk: int = 256):
+    """The layer-pipelined scan of ``x2 [T, B, F]``.
+
+    At iteration ``s`` of a time chunk starting at ``t0``, layer ``i``
+    computes its state for time ``t_i = t0 + s - i`` from its own state
+    and layer ``i-1``'s (which holds ``h_{i-1}(t_i)``, updated the
+    iteration before): one ``[L, B, P] x [L, P, H]`` and one ``[L, B, H] x
+    [L, H, H]`` batched product (P = max(F, H), inputs zero-padded to P).
+    Only the layers with ``t0 <= t_i < t0 + TC`` and ``t_i < T`` keep
+    their update, so after the chunk's ``L - 1`` flush iterations every
+    layer holds its state at the chunk's last step (the carry is aligned
+    at every chunk boundary), and the next chunk refills the pipeline
+    from it. Iteration ``s`` emits every layer's state; layer ``i``'s
+    state at chunk time ``r`` sits at iteration ``r + i``, so L slices
+    realign the chunk into the output. The chunk length TC divides T where
+    a divisor lies near ``time_chunk`` (:func:`_pick_time_chunk`), which
+    bounds the emission buffer to ``O(TC * L * B * H)``."""
+    t_total, b, f = x2.shape
+    l_n = len(layers)
+    h = layers[0].w_hh.shape[0]
+    p_dim = max(f, h)
+    dev = x2.device
+    w_in = torch.zeros((l_n, p_dim, h), dtype=x2.dtype, device=dev)
+    for i, p in enumerate(layers):
+        w_in[i, :p.w_ih.shape[1]] = p.w_ih.T
+    w_hh = torch.stack([p.w_hh.T for p in layers])           # [L, H, H]
+    bias = torch.stack([p.b_ih if p.b_ih is not None
+                        else torch.zeros(h, device=dev)
+                        for p in layers])[:, None, :]        # [L, 1, H]
+    alpha = torch.tensor([p.alpha for p in layers], dtype=torch.float32,
+                         device=dev)[:, None, None]
+    tc = _pick_time_chunk(t_total, time_chunk)
+    out_dtype = out_dtype or x2.dtype
+    out = torch.empty((t_total, b, l_n * h), dtype=out_dtype, device=dev)
+    emitted = torch.empty((tc + l_n - 1, l_n, b, h), dtype=out_dtype,
+                          device=dev)
+    inp = torch.zeros((l_n, b, p_dim), dtype=x2.dtype, device=dev)
+    hcur = torch.stack(h0)                                   # [L, B, H]
+    for t0 in range(0, t_total, tc):
+        n_valid = min(tc, t_total - t0)
+        for s in range(n_valid + l_n - 1):
+            # layers i with t0 <= t0 + s - i < min(t0 + tc, T)
+            lo, hi = max(0, s - n_valid + 1), min(l_n, s + 1)
+            if s < n_valid:
+                inp[0, :, :f] = x2[t0 + s]
+            else:                  # flush: layer 0 is idle from here on
+                inp[0, :, :f] = 0
+            inp[1:, :, :h] = hcur[:-1]
+            pre = torch.baddbmm(torch.baddbmm(bias, inp, w_in), hcur, w_hh)
+            upd = (1.0 - alpha) * hcur + alpha * act(pre)
+            hcur[lo:hi] = upd[lo:hi]
+            emitted[s] = hcur
+        for i in range(l_n):
+            out[t0:t0 + n_valid, :, i * h:(i + 1) * h] = \
+                emitted[i:i + n_valid, i]
+    return out, [hcur[i] for i in range(l_n)]
+
+
+def _pick_time_chunk(t_total: int, target: int) -> int:
+    """A divisor of ``t_total`` near ``target``: searched over [target,
+    target/4], then (target, 4*target]; ``target`` (a ragged last chunk)
+    when none lies there, ``t_total`` when it is at most ``target``."""
+    if t_total <= target:
+        return t_total
+    for d in range(target, max(target // 4, 1) - 1, -1):
+        if t_total % d == 0:
+            return d
+    for d in range(target + 1, min(4 * target, t_total) + 1):
+        if t_total % d == 0:
+            return d
+    return target

@@ -6,17 +6,21 @@ new observation is one reservoir update, K hops of propagation and one
 decoder forward. The online feature assembly is the offline
 ``SGPEncoder``'s, so a decoder trained offline serves online unchanged.
 
-``export_forecaster``, ``load_forecaster`` and ``OnlineGESNForecaster`` are
-not ported yet.
+:class:`OnlineGESNForecaster` serves DynGESN the same way: one graph
+echo-state update and the stacked per-lag ridge readouts a step.
+
+``export_forecaster`` and ``load_forecaster`` are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sgp_tpu_torch.data.scalers import ScalerParams
-from sgp_tpu_torch.encode.encoders import SGPEncoder, build_streaming_ops
+from sgp_tpu_torch.encode.encoders import (GESNEncoder, SGPEncoder,
+                                           build_streaming_ops)
 from sgp_tpu_torch.graph.sparse import Graph
 from sgp_tpu_torch.utils.device import resolve_device
 
@@ -122,3 +126,75 @@ class OnlineForecaster:
         _, h = self._res(x, h0=h0, with_state=True)
         self.state = [hn.reshape(hs.shape)
                       for hn, hs in zip(h, self.state)]
+
+
+class OnlineGESNForecaster:
+    """Online DynGESN serving: the graph echo-state update and the per-lag
+    closed-form ridge readouts, one update per observation.
+
+    Args:
+        encoder: the :class:`GESNEncoder` used offline (its layers and
+            ``operator_mode``; ``"bsr"`` runs each layer-step's product
+            over the nodes through the block-sparse kernel).
+        graph: the sensor graph; its operator built once by
+            :meth:`GESNEncoder.operator`, where the encoder's layers live.
+        readouts: one ``(W [D, C], b [C])`` a horizon lag, as
+            ``train.ridge.closed_form_readout`` returns them (tensors or
+            numpy arrays); stacked into ``[L, D, C]`` and ``[L, C]``.
+        scaler: the dataset scaler; observations and forecasts are raw.
+        n_streams: serve ``S`` independent streams in one update: the
+            states stack on a leading stream axis (one product at
+            F = S * H under BSR) and ``step`` takes and returns
+            ``[S, N, C]`` / ``[S, L, N, C]``.
+        device: where the state and readouts live (default ``cuda:0``;
+            ``"cpu"`` for the CPU); the encoder's layers and the scaler
+            must be there.
+    """
+
+    def __init__(self, encoder: GESNEncoder, graph: Graph, readouts,
+                 scaler: ScalerParams, n_streams: Optional[int] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.scaler = scaler
+        self._gesn = encoder.gesn
+        self._op = encoder.operator(graph)
+
+        def dev(a):
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.array(a, np.float32))
+            return a.to(device=self.device, dtype=torch.float32)
+        self._w = torch.stack([dev(w) for w, _ in readouts])   # [L, D, C]
+        self._b = torch.stack([dev(b) for _, b in readouts])   # [L, C]
+        self.n_streams = n_streams
+        lead = () if n_streams is None else (n_streams,)
+        self.state = [torch.zeros(lead + (graph.num_nodes, p.w_hh.shape[0]),
+                                  dtype=torch.float32, device=self.device)
+                      for p in self._gesn.layers]
+
+    @torch.no_grad()
+    def step(self, x_raw):
+        """One raw observation ``[N, C]`` (``[S, N, C]`` with
+        ``n_streams``) -> the forecasts of every lag ``[L, N, C]``
+        (``[S, L, N, C]``) in raw units."""
+        x_raw = torch.as_tensor(x_raw, dtype=torch.float32,
+                                device=self.device)
+        x_t = self.scaler.transform(x_raw).reshape(x_raw.shape)
+        self.state = self._gesn.step(self.state, self._op, x_t)
+        hc = torch.cat(self.state, -1)                 # [(S,) N, D]
+        # b [L, C] -> [L, 1, C] broadcasts over the nodes
+        y = torch.einsum("...nd,ldc->...lnc", hc, self._w) + self._b[:, None]
+        return self.scaler.inverse_transform(y)
+
+    def reset(self):
+        """Zero the GESN state (a new stream)."""
+        self.state = [torch.zeros_like(h) for h in self.state]
+
+    @torch.no_grad()
+    def warm_up(self, x_history):
+        """Condition the state on a raw history ``[T, N, C]`` (``[T, S, N,
+        C]`` with ``n_streams``) through the scan."""
+        x_history = torch.as_tensor(x_history, dtype=torch.float32,
+                                    device=self.device)
+        x = self.scaler.transform(x_history).reshape(x_history.shape)
+        _, self.state = self._gesn(x, self._op, h0=self.state,
+                                   with_state=True)

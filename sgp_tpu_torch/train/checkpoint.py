@@ -65,6 +65,14 @@ def _default_rng(model) -> dict:
                      if device.type == "cuda" else None)}
 
 
+def _set_default_rng(states: dict, model):
+    """Restore what :func:`_default_rng` took."""
+    torch.set_rng_state(states["cpu"])
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        torch.cuda.set_rng_state(states["cuda"], device)
+
+
 def run_state(model, optimizer, generator: torch.Generator, epoch: int,
               best_loss: float, best_state: dict, elapsed_s: float = 0.0,
               train_config: Optional[Dict] = None) -> dict:
@@ -163,10 +171,8 @@ def restore_run_state(path: str, model, optimizer, generator,
     model.load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])
     generator.set_state(state["rng"])
+    _set_default_rng(state["default_rng"], model)
     device = next(model.parameters()).device
-    torch.set_rng_state(state["default_rng"]["cpu"])
-    if device.type == "cuda":
-        torch.cuda.set_rng_state(state["default_rng"]["cuda"], device)
     best_state = {k: v.to(device) for k, v in state["best_state"].items()}
     return (state["epoch"] + 1, state["best_loss"], best_state,
             state.get("elapsed_s", 0.0))

@@ -29,7 +29,7 @@ from sgp_tpu_torch.data.scalers import ScalerParams
 from sgp_tpu_torch.data.spatiotemporal import SpatioTemporalDataset
 from sgp_tpu_torch.ops.spmm import DenseOperator, GlobalMeanOperator
 from sgp_tpu_torch.train.metrics import _METRIC_FNS, _masked_reduce
-from sgp_tpu_torch.train.predictor import clip_by_global_norm_
+from sgp_tpu_torch.train.predictor import _cast_floats, clip_by_global_norm_
 from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -103,14 +103,6 @@ def _packed_dtype_ok(encoded) -> bool:
                 "its precision to bf16); using the unpacked gather path",
                 encoded.dtype)
     return False
-
-
-def _cast_floats(params: dict, dtype) -> dict:
-    """Every f32 tensor of ``params`` in ``dtype`` (mixed precision: f32
-    master weights, the forward and backward in ``dtype``; the gradient of
-    the cast accumulates in f32)."""
-    return {k: v.to(dtype) if v.dtype == torch.float32 else v
-            for k, v in params.items()}
 
 
 def _build_iid_sample_and_loss(model, encoded, target, mask,

@@ -3,13 +3,15 @@
 Counterpart of ``sgp_tpu/train/metrics.py``: each metric accumulates a
 masked ``(sum, count)`` state across batches as two scalar tensors on the
 batch's device, and ``compute`` divides once at the end. ``at=k``
-restricts a metric to horizon step ``k``.
+restricts a metric to horizon step ``k``. The ``numpy_*`` twins take
+arrays (the closed-form path's) and return floats.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -68,6 +70,27 @@ def masked_mre(y_hat, y, mask=None):
     v, _ = _masked_reduce(_abs_err, y_hat, y, mask)
     tot, _ = _masked_reduce(lambda a, b: b.abs(), y_hat, y, mask)
     return v / torch.clamp(tot, min=1e-12)
+
+
+def numpy_metric(fn, y_hat, y, mask=None) -> float:
+    """A one-shot metric ``fn`` of arrays, in f32 on the CPU (the JAX
+    package's metrics take numpy arrays as f32)."""
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32))
+    return float(fn(f32(y_hat), f32(y), None if mask is None
+                    else torch.as_tensor(np.asarray(mask, bool))))
+
+
+def numpy_masked_mae(y_hat, y, mask=None) -> float:
+    return numpy_metric(masked_mae, y_hat, y, mask)
+
+
+def numpy_masked_rmse(y_hat, y, mask=None) -> float:
+    return numpy_metric(masked_rmse, y_hat, y, mask)
+
+
+def numpy_masked_mre(y_hat, y, mask=None) -> float:
+    return numpy_metric(masked_mre, y_hat, y, mask)
 
 
 @dataclasses.dataclass(frozen=True)

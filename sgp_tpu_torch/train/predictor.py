@@ -17,8 +17,11 @@ jitted step; the optimizer updates the model's parameters in place, so
 :meth:`init` from a ``torch.Generator`` seeded with ``seed`` (flax's
 distributions, not its bits — the tests carry flax weights across with
 ``models/bridge.py``); :meth:`save` writes the weights as a ``state_dict``
-(``torch.save``), not msgpack. Data-parallel meshes, ``compute_dtype`` and
-the restartable ``save_state`` are not ported yet.
+(``torch.save``), not msgpack, and :meth:`save_state` the restartable
+state through ``train/checkpoint.py``. ``compute_dtype`` runs the forward
+and backward with the parameters and the float batch tensors cast (through
+``torch.func.functional_call``), as the JAX trainer casts them.
+Data-parallel meshes are not ported yet.
 
 Subgraph batches (``data/subgraph.py``) carry ``target_nodes``, the roots'
 positions: the training loss and :meth:`evaluate` read those nodes only.
@@ -36,6 +39,10 @@ import torch
 
 from sgp_tpu_torch.data.scalers import Scaler, ScalerParams
 from sgp_tpu_torch.obs.run_logger import RunLogger
+from sgp_tpu_torch.train.checkpoint import (_default_rng, _map_tensors,
+                                            _set_default_rng,
+                                            check_model_config, model_config,
+                                            write_state)
 from sgp_tpu_torch.train.metrics import (_METRIC_FNS, MaskedMetrics,
                                          _masked_reduce)
 from sgp_tpu_torch.utils.device import resolve_device
@@ -86,6 +93,21 @@ def apply_gradients(model: torch.nn.Module, optimizer, grad_clip: float,
         scheduler.step()
 
 
+def _cast_floats(v, dtype):
+    """Every f32 tensor of ``v`` (a tensor, or parameters or a call's
+    arguments in dicts, tuples and lists) in ``dtype``; everything else
+    (integer and bool tensors, scaler parameters, operators) as it is.
+    Mixed precision: f32 master weights, the forward and backward in
+    ``dtype``; the gradient of the cast accumulates in f32."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype) if v.dtype == torch.float32 else v
+    if isinstance(v, dict):
+        return {k: _cast_floats(x, dtype) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_cast_floats(x, dtype) for x in v)
+    return v
+
+
 def _to_device(v, device):
     if isinstance(v, np.ndarray):
         return torch.as_tensor(v).to(device)
@@ -112,13 +134,20 @@ class Predictor:
                  batch_to_call: Optional[Callable] = None,
                  seed: int = 0,
                  static_batch: Optional[dict] = None,
+                 compute_dtype: Optional[str] = None,
                  device=None):
         """``static_batch``: per-run graph state (ELL neighbour tables,
         edge lists) merged into every batch, moved to the device once.
-        Keys already present in a batch win. ``device``: where the model
-        and the batches live (default ``cuda:0``; ``"cpu"`` for the CPU)."""
+        Keys already present in a batch win. ``compute_dtype``
+        (``"bfloat16"``): mixed-precision steps, the forward and backward
+        with the f32 parameters and float batch tensors cast to it and the
+        output cast back to f32; the master weights, Adam, the loss and the
+        metrics stay f32. ``device``: where the model and the batches live
+        (default ``cuda:0``; ``"cpu"`` for the CPU)."""
         self.model = model
         self.device = resolve_device(device)
+        self.compute_dtype = None if compute_dtype is None else \
+            getattr(torch, str(compute_dtype).replace("torch.", ""))
         self.static_batch = {k: _to_device(v, self.device)
                              for k, v in (static_batch or {}).items()}
         self.loss_kind = loss
@@ -175,7 +204,13 @@ class Predictor:
     def _forward(self, batch, training: bool):
         args, kwargs = self.batch_to_call(batch, training)
         self.model.train(training)
-        return self.model(*args, **kwargs)
+        cdt = self.compute_dtype
+        if cdt is None:
+            return self.model(*args, **kwargs)
+        return torch.func.functional_call(
+            self.model, _cast_floats(dict(self.model.named_parameters()), cdt),
+            _cast_floats(tuple(args), cdt), _cast_floats(kwargs, cdt)
+        ).float()
 
     @staticmethod
     def _slice_targets(batch, y_hat):
@@ -307,6 +342,39 @@ class Predictor:
     def _state_copy(self) -> dict:
         return {k: v.detach().clone()
                 for k, v in self.model.state_dict().items()}
+
+    # -- checkpoint --------------------------------------------------------
+    def save_state(self, path: str, epoch: int = 0,
+                   best_metric: float = float("inf")):
+        """The restartable state in one file (``train/checkpoint.py``'s
+        atomic write): the weights, the optimizer's and the learning-rate
+        schedule's state, torch's default generators (dropout draws from
+        them) and ``extra``: the epoch, the best metric and the model's
+        config."""
+        assert self.optimizer is not None, "call init() first"
+        write_state(path, _map_tensors(lambda t: t.detach().clone(), {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "default_rng": _default_rng(self.model),
+            "extra": {"epoch": int(epoch), "best_metric": float(best_metric),
+                      "model_config": model_config(self.model)}}))
+
+    def load_state(self, path: str) -> dict:
+        """Restore what :meth:`save_state` wrote, after :meth:`init`;
+        raises ``ValueError`` naming the fields where the stored model
+        config differs from the live model's. Returns ``extra``."""
+        if self.optimizer is None:
+            raise RuntimeError("call init() before load_state()")
+        state = torch.load(path, map_location="cpu", weights_only=False)
+        extra = state["extra"]
+        if "model_config" in extra:
+            check_model_config(extra["model_config"], self.model)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        _set_default_rng(state["default_rng"], self.model)
+        return extra
 
     # -- weights -----------------------------------------------------------
     def save(self, path: str):

@@ -71,6 +71,13 @@ TRAFFIC_SGP = (
     "sgp_tpu_torch.exp.run_traffic_sgp")
 
 
+# DynGESN: the graph reservoir, the ridge readouts, the closed-form runner
+# and its online forecaster
+GESN = (
+    "sgp_tpu_torch.encode.graph_reservoir", "sgp_tpu_torch.train.ridge",
+    "sgp_tpu_torch.exp.run_closed_form", "sgp_tpu_torch.serve")
+
+
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
@@ -85,6 +92,7 @@ def test_port_never_imports_jax():
     assert set(BASELINES) <= set(words[2:])
     assert set(DIFFUSION) <= set(words[2:])
     assert set(TRAFFIC_SGP) <= set(words[2:])
+    assert set(GESN) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

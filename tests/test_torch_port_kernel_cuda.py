@@ -1064,3 +1064,37 @@ def test_support_operators_on_the_card_match_cpu(cuda):
     ref = apply_support(torch.as_tensor(x), cpu_ops)
     err = (got.cpu() - ref).abs().max() / ref.abs().max()
     assert got.shape == (8, 2, 700, 24 * 6) and err <= 1e-5, err
+
+
+@pytest.mark.parametrize("streams", [None, 3])
+def test_gesn_encode_on_bsr_matches_dense_and_cpu(cuda, streams):
+    """The DynGESN encode (``GESNEncoder``, 3 layers x 32 units on 700
+    nodes, 24 steps) with ``operator_mode="bsr"``: one K1 launch a
+    layer-step (T x L), none on the dense route; the states within 1e-5 of
+    the largest value of the dense operator's on the card and of the CPU
+    port's (K1's plain version). With ``streams``, a ``[T, S, N, F]``
+    series: each layer-step is still one launch, at F = S x 32."""
+    from sgp_tpu_torch.encode import GESNEncoder
+    rng = np.random.default_rng(4)
+    g = coalesce(Graph(rng.integers(0, 700, 7000),
+                       rng.integers(0, 700, 7000),
+                       rng.random(7000).astype(np.float32), 700))
+    t, lead = 24, (() if streams is None else (streams,))
+    x = rng.standard_normal((t,) + lead + (700, 3)).astype(np.float32)
+    kw = dict(input_size=3, reservoir_size=32, reservoir_layers=3,
+              alpha_decay=True, density=1.0, seed=2)
+    out = {}
+    for mode, dev in (("bsr", cuda), ("dense", cuda), ("bsr", "cpu")):
+        enc = GESNEncoder(**kw, operator_mode=mode, device=dev)
+        before = bsr_spmm.launches
+        out[mode, str(dev)] = enc(torch.as_tensor(x, device=dev), g).cpu()
+        torch.cuda.synchronize()
+        launches = bsr_spmm.launches - before
+        assert launches == (t * 3 if (mode, dev) == ("bsr", cuda) else 0), \
+            (mode, dev, launches)
+    got = out["bsr", str(cuda)]
+    assert got.shape == (t,) + lead + (700, 96)
+    for key in (("dense", str(cuda)), ("bsr", "cpu")):
+        ref = out[key]
+        err = (got - ref).abs().max() / ref.abs().max()
+        assert err <= 1e-5, (key, float(err))

@@ -92,3 +92,48 @@ def test_scan_with_state_chunks_and_out_dtype(rng):
         h = tr.step(h, torch.as_tensor(x[t]))
     for a, b in zip(h, th):
         _close(a, b)
+
+
+@pytest.mark.parametrize("t", [7, 255, 256, 257, 300])
+def test_wavefront_scan_matches_jax_and_sequential(rng, t):
+    """``mode="wavefront"`` against JAX's wavefront scan and the port's
+    sequential one (atol 1e-5, as ``tests/test_encode.py``), whole, split
+    with the state carried, and its last state. T 255 / 257 / 300 take a
+    ragged last chunk or a divisor chunk of the 256-step target."""
+    jr, tr = JReservoir(input_size=5, hidden_size=16, num_layers=3,
+                        seed=3), \
+        Reservoir(input_size=5, hidden_size=16, num_layers=3, seed=3,
+                  device="cpu")
+    x = rng.standard_normal((t, 4, 5)).astype(np.float32)
+    tx = torch.as_tensor(x)
+    seq = reservoir_scan(tr.layers, "tanh", tx, mode="sequential")
+    wav = reservoir_scan(tr.layers, "tanh", tx, mode="wavefront")
+    want = j_scan(tuple(jr.layers), "tanh", jnp.asarray(x), mode="wavefront")
+    np.testing.assert_allclose(wav.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(wav.numpy(), seq.numpy(), atol=1e-5)
+    s1, h1 = reservoir_scan(tr.layers, "tanh", tx[:t // 2], with_state=True,
+                            mode="wavefront")
+    s2, h2 = reservoir_scan(tr.layers, "tanh", tx[t // 2:], h0=h1,
+                            with_state=True, mode="wavefront")
+    np.testing.assert_allclose(torch.cat([s1, s2]).numpy(), seq.numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(torch.cat(h2, -1).numpy(), seq[-1].numpy(),
+                               atol=1e-5)
+    last = reservoir_scan(tr.layers, "tanh", tx, return_last_state=True,
+                          mode="wavefront")
+    np.testing.assert_allclose(last.numpy(), seq[-1].numpy(), atol=1e-5)
+
+
+def test_wavefront_scan_out_dtype_and_wide_input(rng):
+    """An input wider than the state (F > H: the layers' inputs padded to
+    F), no bias, and a bf16 output rounded from the f32 states."""
+    tr = Reservoir(input_size=12, hidden_size=6, num_layers=2, bias=False,
+                   seed=1, device="cpu")
+    x = torch.as_tensor(rng.standard_normal((40, 5, 12)).astype(np.float32))
+    seq = reservoir_scan(tr.layers, "tanh", x)
+    wav = reservoir_scan(tr.layers, "tanh", x, mode="wavefront",
+                         out_dtype=torch.bfloat16)
+    assert wav.dtype == torch.bfloat16
+    np.testing.assert_allclose(wav.float().numpy(), seq.numpy(), atol=1e-2)
+    with pytest.raises(ValueError, match="unknown scan mode"):
+        reservoir_scan(tr.layers, "tanh", x, mode="pipelined")

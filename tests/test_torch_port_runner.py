@@ -182,9 +182,10 @@ def _bsr_supports(args):
 @pytest.mark.parametrize("extra,run_fn", [
     ([], None), (["--packed-gather", "false"], None),
     (["--iid-stratified", "true"], None),
-    (["--iid-stratified", "true"], _bsr_supports)],
+    (["--iid-stratified", "true"], _bsr_supports),
+    (["--encoder-name", "gesn"], None)],
     ids=["streaming-packed", "encode_dataset", "stratified",
-         "stratified-bsr"])
+         "stratified-bsr", "gesn-encode_dataset"])
 def test_runner_matches_jax_runner(monkeypatch, extra, run_fn):
     argv = BASE + RUN + extra
     want = _jax(argv)
@@ -395,7 +396,6 @@ def test_experiment_flag_beats_config_beats_default(monkeypatch):
     (["--search-lr", "0.01", "--checkpoint-every", "1"], "not supported"),
     (["--data-sharding", "nodes"], "A10"),
     (["--num-processes", "2"], "A10"),
-    (["--encoder-name", "gesn"], "A8"),
     (["--dataset-name", "pv"], "not in the repository"),
 ])
 def test_unported_branches_raise(flags, match):

@@ -16,13 +16,16 @@ import sgp_tpu.graph as jg
 from sgp_tpu.data import ScalerParams as JScaler
 from sgp_tpu.encode import SGPEncoder as JEncoder
 from sgp_tpu.models import SGPModel as JModel
+from sgp_tpu.encode import GESNEncoder as JGESNEncoder
 from sgp_tpu.serve import OnlineForecaster as JForecaster
+from sgp_tpu.serve import OnlineGESNForecaster as JGESNForecaster
+from sgp_tpu.train import closed_form_readout as j_readout
 
 import sgp_tpu_torch.graph as tg
 from sgp_tpu_torch.data import ScalerParams
-from sgp_tpu_torch.encode import SGPEncoder
+from sgp_tpu_torch.encode import GESNEncoder, SGPEncoder
 from sgp_tpu_torch.models import SGPModel, flax_to_torch
-from sgp_tpu_torch.serve import OnlineForecaster
+from sgp_tpu_torch.serve import OnlineForecaster, OnlineGESNForecaster
 
 torch.set_num_threads(1)
 
@@ -97,3 +100,73 @@ def test_online_forecaster_matches_jax(rng, mode, n_streams, store, with_u):
                 <= 1e-2 * np.abs(ref).max(), f"t={t}"
     tfc.reset()
     assert not any(h.any() for h in tfc.state)
+
+
+
+def _gesn_setup(rng, mode):
+    """Both packages' GESN encoders on the same graph and layers (the same
+    seed), the scaler, and JAX's per-lag closed-form readouts fitted on its
+    own encoding, carried across as numpy ``(W, b)``."""
+    src, dst = rng.integers(0, N, 4 * N), rng.integers(0, N, 4 * N)
+    w = rng.random(4 * N).astype(np.float32)
+    jgr = jg.coalesce(jg.Graph(src, dst, w, N))
+    tgr = tg.coalesce(tg.Graph(src, dst, w, N))
+    kw = dict(input_size=C, reservoir_size=5, reservoir_layers=2,
+              alpha_decay=True, seed=4, operator_mode=mode)
+    je, te = JGESNEncoder(**kw), GESNEncoder(**kw, device="cpu")
+    bias, scale = np.full((1, 1, C), -0.5, np.float32), \
+        np.full((1, 1, C), 2.0, np.float32)
+    xs = (rng.standard_normal((30, N, C)) - bias) / scale
+    enc = np.asarray(je(jnp.asarray(xs, jnp.float32), jgr))
+    d, lags = enc.shape[-1], 3
+    tr = np.arange(30 - lags)
+    readouts = [(np.asarray(a), np.asarray(b)) for a, b in j_readout(
+        enc[tr].reshape(-1, d), [xs[tr + 1 + lag].reshape(-1, C)
+                                 for lag in range(lags)], alpha=0.3)]
+    return (je, jgr, JScaler(jnp.asarray(bias), jnp.asarray(scale))), \
+        (te, tgr, ScalerParams(torch.as_tensor(bias),
+                               torch.as_tensor(scale))), readouts
+
+
+@pytest.mark.parametrize("mode,n_streams", [("dense", None), ("bsr", None),
+                                            ("bsr", 3), ("dense", 3)])
+def test_online_gesn_forecaster_matches_jax(rng, mode, n_streams):
+    """``warm_up``, single steps (``[L, N, C]``, or ``[S, L, N, C]`` with
+    ``n_streams``) and ``reset`` against JAX's forecaster (f32, rtol/atol
+    2e-5 as ``tests/test_serve.py``; BSR on the JAX side through its Pallas
+    kernel, interpreted); with streams, each stream also against a
+    single-stream forecaster of its own."""
+    (je, jgr, jsc), (te, tgr, tsc), readouts = _gesn_setup(rng, mode)
+    jfc = JGESNForecaster(je, jgr, readouts, jsc, n_streams=n_streams)
+    if mode == "bsr":
+        jfc._op._variant = "pallas"
+    tfc = OnlineGESNForecaster(te, tgr, readouts, tsc, n_streams=n_streams,
+                               device="cpu")
+    lead = () if n_streams is None else (n_streams,)
+    hist = (rng.standard_normal((T_WARM,) + lead + (N, C)) * 2 - 0.5
+            ).astype(np.float32)
+    obs = (rng.standard_normal((T_STEP,) + lead + (N, C)) * 2 - 0.5
+           ).astype(np.float32)
+    jfc.warm_up(hist)
+    tfc.warm_up(hist)
+    for a, b in zip(jfc.state, tfc.state):
+        assert b.shape == lead + (N, 5)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=1e-6)
+    singles = [OnlineGESNForecaster(te, tgr, readouts, tsc, device="cpu")
+               for _ in range(n_streams or 0)]
+    for i, fc in enumerate(singles):
+        fc.warm_up(hist[:, i])
+    for t in range(T_STEP):
+        ref = np.asarray(jfc.step(obs[t]))
+        got = tfc.step(obs[t])
+        assert got.shape == ref.shape == lead + (3, N, C)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5,
+                                   err_msg=f"t={t}")
+        for i, fc in enumerate(singles):
+            np.testing.assert_allclose(fc.step(obs[t, i]).numpy(),
+                                       got[i].numpy(), rtol=2e-5, atol=2e-5,
+                                       err_msg=f"t={t} stream={i}")
+    tfc.reset()
+    assert not any(h.any() for h in tfc.state)
+    assert [h.shape for h in tfc.state] == [lead + (N, 5)] * 2

@@ -28,8 +28,9 @@ import sgp_tpu_torch.graph as tg
 from sgp_tpu_torch.data import (RobustScaler, SpatioTemporalDataset,
                                 Windowing)
 from sgp_tpu_torch.data.datasets import SyntheticDiffusion
-from sgp_tpu_torch.encode import (SGPEncoder, SGPSpatialEncoder,
-                                  SGPTemporalEncoder, build_streaming_ops,
+from sgp_tpu_torch.encode import (GESNEncoder, SGPEncoder,
+                                  SGPSpatialEncoder, SGPTemporalEncoder,
+                                  build_streaming_ops,
                                   encode_dataset, get_encoder_class,
                                   streaming_encode)
 from sgp_tpu_torch.ops import build_operator
@@ -199,8 +200,7 @@ def test_temporal_encoder_and_registry(rng):
     assert get_encoder_class("sgp") is SGPEncoder
     assert get_encoder_class("time") is SGPTemporalEncoder
     assert get_encoder_class("space") is SGPSpatialEncoder
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_encoder_class("gesn")
+    assert get_encoder_class("gesn") is GESNEncoder
 
 
 def _datasets():

@@ -549,3 +549,132 @@ def test_save_load_and_metric_stream(pipelines, tmp_path):
         recs = [json.loads(line) for line in fp]
     assert [r["_step"] for r in recs] == [0, 1]
     assert all(set(r) == {"train_loss", "_time", "_step"} for r in recs)
+
+
+def _bf16_predictors(batch, clip):
+    kw = dict(input_size=SGP_D, order=4, n_nodes=SGP_N, hidden_size=14,
+              mlp_size=8, output_size=1, n_layers=2, horizon=SGP_H,
+              resnet=True)
+    jpred = JPredictor(JSGPModel(**kw), lr=1e-3, grad_clip=clip, seed=0,
+                       compute_dtype="bfloat16")
+    jpred.init(batch, JScalerParams(jnp.full((1,), 2.0), jnp.full((1,), 3.0)))
+    tpred = Predictor(SGPModel(**kw), lr=1e-3, grad_clip=clip, seed=0,
+                      compute_dtype="bfloat16", device="cpu")
+    tpred.init(batch, ScalerParams(torch.full((1,), 2.0),
+                                   torch.full((1,), 3.0)))
+    flax_to_torch(jax.tree.map(np.asarray, jpred.params), tpred.model)
+    return jpred, tpred
+
+
+def test_bf16_compute_dtype_matches_jax(rng):
+    """``Predictor(compute_dtype="bfloat16")`` against the JAX trainer's on
+    the same flax weights: the model sees bf16 inputs, the parameters and
+    their gradients stay f32, the loss is f32. Both packages round every
+    product to bf16, not at the same places, so (as
+    ``tests/test_torch_port_iid.py::test_bf16_compute_matches_jax``): the
+    first loss within 2e-3, the gradients within 5e-2 of the largest, the
+    first step's weights within 1e-5 where the gradient lies beyond 5e-2
+    of the largest (Adam moves a weight by lr times its gradient's sign),
+    then 5 more steps' losses within 5e-3; evaluation within 5e-3."""
+    clip = 5.0
+    batches = [_sgp_batch(rng, False) for _ in range(6)]
+    jpred, tpred = _bf16_predictors(batches[0], clip)
+    jdev = {k: jnp.asarray(v) for k, v in batches[0].items()}
+
+    def loss_j(params):
+        cast = lambda t: jax.tree.map(  # noqa: E731
+            lambda a: a.astype(jnp.bfloat16)
+            if getattr(a, "dtype", None) == jnp.float32 else a, t)
+        args, kwargs = jpred.batch_to_call(jdev, True)
+        out = jpred.model.apply(cast(params), *cast(args),
+                                **cast(kwargs)).astype(jnp.float32)
+        v, n = jmetrics._masked_reduce(jmetrics._abs_err, out * 3.0 + 2.0,
+                                       jdev["y"], jdev["mask"])
+        return v / jnp.maximum(n, 1.0)
+
+    jgrad = jax.tree.map(np.asarray, jax.grad(loss_j)(jpred.params))
+    seen = []
+    tpred.model.encoder.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].dtype))
+    loss = tpred.compute_loss(tpred._place(batches[0]))
+    loss.backward()
+    assert seen == [torch.bfloat16] and loss.dtype == torch.float32
+    named = targets(tpred.model)
+    for path, (param, transpose) in named.items():
+        want = jgrad["params"]
+        for k in path:
+            want = want[k]
+        assert param.dtype == param.grad.dtype == torch.float32
+        _rel_close(param.grad.numpy(), want.T if transpose else want, 5e-2,
+                   "/".join(path))
+    params, opt_state, jloss = jpred._train_step(
+        jpred.params, jpred.opt_state, jdev, jax.random.PRNGKey(0))
+    tloss = tpred.train_step(batches[0])
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=2e-3)
+    jp = jax.tree.map(np.asarray, params)["params"]
+    for path, (param, transpose) in named.items():
+        g, w = jgrad["params"], jp
+        for k in path:
+            g, w = g[k], w[k]
+        g, w = (g.T, w.T) if transpose else (g, w)
+        sure = np.abs(g) > 5e-2 * np.abs(g).max()
+        diff = np.abs(param.detach().numpy() - w)
+        assert diff[sure].max(initial=0) <= 1e-5, "/".join(path)
+        assert diff.max() <= 2e-3 + 1e-5, "/".join(path)
+    jpred.params, jpred.opt_state = params, opt_state
+    for b in batches[1:]:
+        jl = jpred._train_step(jpred.params, jpred.opt_state,
+                               {k: jnp.asarray(v) for k, v in b.items()},
+                               jax.random.PRNGKey(1))
+        jpred.params, jpred.opt_state = jl[0], jl[1]
+        np.testing.assert_allclose(float(tpred.train_step(b)), float(jl[2]),
+                                   rtol=5e-3)
+    want = jpred.evaluate(batches[:2])
+    got = tpred.evaluate(batches[:2])
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=5e-3, err_msg=k)
+
+
+def _stateful_predictor(seed=0, **over):
+    """SGPModel with dropout (so the default generators matter) and a
+    learning-rate milestone inside the run (so the schedule's state does)."""
+    model = SGPModel(**{**dict(input_size=SGP_D, order=4, n_nodes=SGP_N,
+                               hidden_size=14, mlp_size=8, output_size=1,
+                               n_layers=2, horizon=SGP_H, resnet=True,
+                               dropout=0.3), **over})
+    pred = Predictor(model, lr=1e-2, grad_clip=5.0, lr_milestones=[1],
+                     lr_gamma=0.1, steps_per_epoch=3, seed=seed,
+                     device="cpu")
+    return pred
+
+
+def test_save_state_and_load_state_resume_the_run(rng, tmp_path):
+    """``save_state`` -> a new ``Predictor`` -> ``load_state`` -> two more
+    steps give the uninterrupted run's losses (within 1e-6) and weights;
+    ``extra`` comes back; a changed hyperparameter raises ``ValueError``
+    naming the field; ``load_state`` before ``init`` raises."""
+    batches = [_sgp_batch(rng, False) for _ in range(4)]
+    sc = ScalerParams(torch.full((1,), 2.0), torch.full((1,), 3.0))
+    torch.manual_seed(11)
+    run = _stateful_predictor().init(batches[0], sc)
+    for b in batches[:2]:
+        run.train_step(b)
+    path = str(tmp_path / "ck" / "state.pt")
+    run.save_state(path, epoch=3, best_metric=1.25)
+    want = [float(run.train_step(b)) for b in batches[2:]]
+    torch.manual_seed(99)                  # other dropout draws until load
+    resumed = _stateful_predictor(seed=5)
+    with pytest.raises(RuntimeError, match="init"):
+        resumed.load_state(path)
+    resumed.init(batches[0], sc)
+    extra = resumed.load_state(path)
+    assert (extra["epoch"], extra["best_metric"]) == (3, 1.25)
+    got = [float(resumed.train_step(b)) for b in batches[2:]]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    for (k, a), b in zip(run.model.state_dict().items(),
+                         resumed.model.state_dict().values()):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-6,
+                                   err_msg=k)
+    other = _stateful_predictor(horizon=SGP_H + 1).init(batches[0], sc)
+    with pytest.raises(ValueError, match="'horizon'"):
+        other.load_state(path)
