@@ -30,8 +30,10 @@ in-step supports, and its trial search; and DynGESN, the graph echo-state
 encoder with K1 under its recurrence, the closed-form runner
 (``exp/run_closed_form.py``) and its online forecaster, beside the
 wavefront reservoir scan and ``Predictor``'s bf16 steps and restartable
-state. In phases; any failure raises
-and the exit code is not 0:
+state; and the forecaster export (``torch.export`` with K1 as the custom
+op ``sgp::bsr_spmm`` inside the loaded programs) and the imputation runner
+(GRIN with K1 under its diffusion hops, the RNN imputers). In phases; any
+failure raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
 1. build the four kernels, one ``nvcc`` each, in parallel
@@ -215,7 +217,28 @@ and the exit code is not 0:
    step; (e) ``Predictor(compute_dtype="bfloat16")`` against f32 on phase
    5's GatedGN slice (K4): step ms, peak memory, the first loss against
    the CPU port (2e-2), then ``save_state``, a new ``Predictor``,
-   ``load_state`` and two steps against the uninterrupted run.
+   ``load_state`` and two steps against the uninterrupted run;
+17. the forecaster export and the imputation slice (every cut is in the
+   ``EXPORT_*``, ``GRIN_*`` and ``IMP_*`` constants): (a)
+   ``export_forecaster`` / ``load_forecaster`` of ``OnlineForecaster`` at
+   sgp_pv.yaml's widths on the 100-nn graph (BSR) and of
+   ``OnlineGESNForecaster`` at gesn_la.yaml's widths on the runner's graph
+   (BSR; readouts drawn from the seed), 1 and 4 streams each: 50 steps of
+   the loaded program against the live forecaster (1e-5 of the largest
+   forecast), both step latencies, K1's launches inside the loaded program
+   (more than 0 a step), the artifact's bytes; (b) GRIN at its published
+   widths (hidden 64, ff 64, window 24; batch 32 unless the reckoned peak
+   forces a cut, printed) on phase 5's series: one train step on BSR
+   supports (K1 under every hop, forward and backward) against the dense
+   supports from the same weights and whitening mask (the loss within
+   1e-5, every gradient within 1e-4 of its parameter's largest), K1's
+   launches (2 x 24 x 10 forward), steps in turns with peak memory, a
+   profiled step's device busy and idle share, K1 at the cell's and the
+   other hops' widths against its plain version, the bound, cuSPARSE and
+   the dense matmul; (c) ``exp/run_imputation.py`` through
+   ``Experiment(...).run(argv)`` for ``grin``, ``rnni`` and ``birnni`` on
+   5,016 nodes x 640 steps, one epoch of 2 batches: test metrics, ms a
+   batch, peak memory.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -228,7 +251,9 @@ from run (a), K3 forward's from run (c), each slice's own count beside
 them; K1's ``diffconv`` sub-entry from phase 13, its ``support``
 sub-entry from phase 14, its ``stratified`` sub-entry, with the
 evaluation's width under ``eval``, from phase 15; its ``gesn``
-sub-entry, F 320, from phase 16); the last is ``{"ok":
+sub-entry, F 320, from phase 16; its ``export`` sub-entry, launches
+inside the loaded artifacts, and ``grin`` sub-entry, GRIN's hop widths,
+from phase 17); the last is ``{"ok":
 true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -780,7 +805,7 @@ def bsr_gradient_check(g, f: int, precision: str, tol: float, rng, device):
     K2 (the tiles' gradient); both are held against the plain versions on
     the same inputs, and timed beside them."""
     from sgp_tpu_torch.ops import BSROperator, bsr_spmm, build_operator, sddmm
-    from sgp_tpu_torch.ops.bsr_kernel import bsr_spmm_plain
+    from sgp_tpu_torch.ops.bsr_kernel import bsr_spmm_plain, kept_transpose
     op = build_operator(g, "bsr", precision=precision, device=device)
     tiles = op.blocks.clone().requires_grad_()
     trainable = BSROperator(tiles, op.block_cols, op.row_ptr, op.block_rows,
@@ -799,7 +824,7 @@ def bsr_gradient_check(g, f: int, precision: str, tol: float, rng, device):
     # the plain versions on the same inputs: A^T w over the transposed
     # tiles, and the SDDMM of w with x as the forward read it
     nbr = op.row_ptr.numel() - 1
-    perm, t_cols, _, t_rows = trainable._transpose.index(
+    perm, t_cols, _, t_rows = kept_transpose(op.block_cols).index(
         op.block_cols, op.block_rows, nbr)
 
     def plain():
@@ -4439,6 +4464,392 @@ def phase16_gesn(raw, graph, device) -> dict:
                 predictor=pred)
 
 
+# phase 17, the forecaster export and the imputation runner (every cut is
+# in these constants)
+EXPORT_STEPS = 50       # (a) steps of each loaded artifact held to the live
+TOL_EXPORT = 1e-5       # (a) loaded vs live forecast, of the largest value
+GRIN_WINDOW = 24        # (b) GRIN's published widths: window 24, batch 32,
+GRIN_BATCH = 32         # hidden 64, ff 64, 1 layer, kernel_size 2,
+GRIN_HIDDEN = 64        # decoder_order 1
+GRIN_FF = 64
+# (b) autograd's saved bytes a (window x node) of one GRIN train step at
+# hidden 64, window 24 (counted on the CPU, 500 nodes x 4 windows, through
+# saved_tensors_hooks): the BSR route also keeps each hop's folded input
+GRIN_SAVED_BYTES = {"dense": 386146, "bsr": 511808}
+MEM_SHARE = 0.85        # (b) the share of the card a reckoned peak may take
+GRIN_TIME_ORDER = ("bsr", "dense", "dense", "bsr")   # (b) timed steps
+TOL_GRIN_LOSS = 1e-5    # (b) BSR vs dense supports: the loss, relative
+TOL_GRIN_GRAD = 1e-4    # (b) each gradient, of its parameter's largest
+IMP_STEPS = 640         # (c) the runner's series: T cut from PV-US's 8,868
+                        # (at 320 the temporal split leaves no validation
+                        # window of 24 steps)
+IMP_RUN = ["--epochs", "1", "--batches-epoch", "2"]
+
+
+def phase17_export_round(name, fc, device, obs) -> dict:
+    """Export ``fc``, load it, and step both ``EXPORT_STEPS`` times on the
+    raw observations ``obs``: the loaded forecasts against the live ones,
+    both step latencies (synchronized), K1's launches inside the loaded
+    program, the artifact's bytes and the export's wall."""
+    import tempfile
+    from sgp_tpu_torch.ops import bsr_spmm
+    from sgp_tpu_torch.serve import export_forecaster, load_forecaster
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        size = export_forecaster(fc, f"{tmp}/fc.pt2")
+        export_s = time.perf_counter() - t0
+        loaded = load_forecaster(f"{tmp}/fc.pt2")
+    errs, lat, launches = [], {"live": [], "loaded": []}, []
+    for t in range(EXPORT_STEPS):
+        x = torch.as_tensor(obs[t], device=device)
+        ys = {}
+        for which, f in (("live", fc), ("loaded", loaded)):
+            torch.cuda.synchronize()
+            before = bsr_spmm.launches
+            t0 = time.perf_counter()
+            ys[which] = f.step(x)
+            torch.cuda.synchronize()
+            lat[which].append((time.perf_counter() - t0) * 1e3)
+            if which == "loaded":
+                launches.append(bsr_spmm.launches - before)
+        errs.append(rel_err(ys["loaded"], ys["live"])[1])
+        assert bool(torch.isfinite(ys["loaded"]).all()), (name, t)
+    row = dict(case=name, shape=list(ys["loaded"].shape),
+               artifact_bytes=size, export_s=export_s,
+               max_rel_err=max(errs), tol=TOL_EXPORT,
+               k1_launches_per_loaded_step=sorted(set(launches)),
+               k1_launches=sum(launches),
+               step_ms={k: quartiles(v[2:]) for k, v in lat.items()})
+    print(f"[phase 17] (a) exported {name}: {json.dumps(row)}")
+    assert max(errs) <= TOL_EXPORT, row
+    assert min(launches) > 0, row
+    return row
+
+
+def phase17_export(ds, graph, scaler, device) -> dict:
+    """(a) ``export_forecaster`` / ``load_forecaster``: ``OnlineForecaster``
+    at sgp_pv.yaml's widths on the 100-nn graph (``operator_mode="bsr"``),
+    1 and 4 streams, and ``OnlineGESNForecaster`` at gesn_la.yaml's widths
+    on the runner's similarity graph (BSR; readouts drawn from the seed),
+    1 and 4 streams."""
+    from sgp_tpu_torch.ops import bsr_spmm
+    from sgp_tpu_torch.serve import OnlineForecaster, OnlineGESNForecaster
+    target = ds.target                                     # [T, N, 1]
+    streams = np.stack([target[s * STREAM_OFFSET:s * STREAM_OFFSET
+                               + EXPORT_STEPS] for s in range(STREAMS)], 1)
+    enc, model, sp = build_slice(graph, scaler, "bsr", device, N_NODES)
+    cfg = read_flat_yaml(GESN_CONFIG)
+    g_graph = ds.get_connectivity(threshold=0.1, knn=None,
+                                  include_self=False)
+    g_enc = gesn_encoder(cfg, 1, "bsr", device)
+    gen = torch.Generator().manual_seed(SEED)
+    width = g_enc.output_size
+    readouts = [(torch.randn(width, 1, generator=gen) / width ** 0.5,
+                 torch.zeros(1)) for _ in range(cfg["horizon"])]
+    cases = {}
+    for lead in (None, STREAMS):
+        cases[f"OnlineForecaster {lead or 1} stream(s)"] = OnlineForecaster(
+            enc, graph, model, sp, n_streams=lead, device=device)
+        cases[f"OnlineGESNForecaster {lead or 1} stream(s)"] = \
+            OnlineGESNForecaster(g_enc, g_graph, readouts, sp,
+                                 n_streams=lead, device=device)
+    overhead = op_dispatch_us(enc, graph, device)
+    bsr_spmm.launches = 0                 # the main path: the loaded steps
+    rows = {name: phase17_export_round(
+        name, fc, device, streams[:, 0] if fc.n_streams is None else streams)
+        for name, fc in cases.items()}
+    return dict(rows=rows, op_dispatch=overhead,
+                launches=sum(r["k1_launches"] for r in rows.values()))
+
+
+def op_dispatch_us(enc, graph, device, calls: int = 100,
+                   rounds: int = 5) -> dict:
+    """The host's cost of a K1 call through the custom op ``sgp::bsr_spmm``
+    (``bsr_spmm``: the dispatcher, the autograd layer, the fake-free CUDA
+    kernel) against the same launcher called directly (``_launch``), at
+    the serving hop's shape: host us a call to enqueue ``calls`` calls
+    (no synchronize inside), in turns op, direct, direct, op."""
+    from sgp_tpu_torch.ops import build_operator, bsr_kernel
+    op = build_operator(graph, "bsr", device=device)
+    args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+    x = torch.randn(graph.num_nodes, enc.reservoir.output_size,
+                    device=device)
+    fns = {"op": lambda: bsr_kernel.bsr_spmm(*args, x),
+           "direct": lambda: bsr_kernel._launch(*args, x)}
+    us = {k: [] for k in fns}
+    with torch.no_grad():
+        for _ in range(rounds):
+            for name in ("op", "direct", "direct", "op"):
+                fns[name]()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fns[name]()
+                us[name].append((time.perf_counter() - t0) * 1e6 / calls)
+                torch.cuda.synchronize()
+    row = {k: quartiles(v) for k, v in us.items()}
+    row["f"] = x.shape[1]
+    print(f"[phase 17] (a) host us a K1 call, op vs direct: "
+          f"{json.dumps(row)}")
+    return row
+
+
+def phase17_data(ds, graph, device, batch: int):
+    """The imputation runner's batch at GRIN's window on phase 5's series:
+    ``ImputationDataset`` with ``add_missing_values`` at the runner's
+    defaults, ``StandardScaler`` on the training mask, the first ``batch``
+    windows scaled, on the card."""
+    from sgp_tpu_torch.data import StandardScaler, Windowing
+    from sgp_tpu_torch.data.imputation import (ImputationDataset,
+                                               add_missing_values)
+    imp = ImputationDataset(ds.target, mask=ds.mask, graph=graph,
+                            windowing=Windowing(window=GRIN_WINDOW,
+                                                horizon=1))
+    add_missing_values(imp)
+    ev = imp.covariates["eval_mask"].value.astype(bool)
+    sc = StandardScaler(axis=(0, 1)).fit(imp.target, mask=imp.mask & ~ev)
+    sp = sc.params(device=device)
+    b = imp.gather_batch(np.arange(batch))
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(a).to(device=device, dtype=dtype)
+    return {"x": sp.transform(dev(b["x"])), "y": sp.transform(dev(b["y"])),
+            "mask": dev(b["mask"], torch.bool),
+            "eval_mask": dev(b["eval_mask"], torch.bool)}
+
+
+def grin_batch(route: str, n_nodes: int, device) -> dict:
+    """The largest batch of 32, 16, 8, .. whose reckoned peak (autograd's
+    saved bytes of a step, ``GRIN_SAVED_BYTES``, the two dense supports
+    and what the earlier phases hold) fits ``MEM_SHARE`` of the card."""
+    total = torch.cuda.get_device_properties(device).total_memory
+    held = torch.cuda.memory_allocated(device)
+    supports = 2 * n_nodes * n_nodes * 4
+    batch = GRIN_BATCH
+    while True:
+        peak = GRIN_SAVED_BYTES[route] * batch * n_nodes * GRIN_WINDOW / 24 \
+            + supports + held
+        if peak <= MEM_SHARE * total or batch == 1:
+            break
+        batch //= 2
+    row = dict(route=route, batch=batch, reckoned_peak_gib=peak / 2**30,
+               held_gib=held / 2**30, card_gib=total / 2**30,
+               cut=batch != GRIN_BATCH)
+    print(f"[phase 17] GRIN's reckoned peak: {json.dumps(row)}"
+          + (f" (batch cut from {GRIN_BATCH}: the reckoned peak at "
+             f"{GRIN_BATCH} passes {MEM_SHARE:.0%} of the card)"
+             if row["cut"] else ""))
+    return row
+
+
+def grin_model(device):
+    from sgp_tpu_torch.models import GRINModel
+    return GRINModel(1, GRIN_HIDDEN, n_nodes=N_NODES, kernel_size=2,
+                     decoder_order=1, ff_size=GRIN_FF,
+                     generator=torch.Generator().manual_seed(SEED)).to(device)
+
+
+def phase17_grin(ds, graph, device) -> dict:
+    """(b) One GRIN train step (``train/imputer.py``; the whitening mask
+    drawn once and handed to both) on ``diff_conv_support(g,
+    operator_mode="bsr")`` (K1 under every hop, forward and backward)
+    against the same step on the dense supports, from the same weights:
+    the loss and every gradient; K1's launches; then steps in turns (ms,
+    peak memory), a profiled BSR step (device busy, idle share), and K1 at
+    the cell's and the decoder's hop widths against its plain version, the
+    bound, cuSPARSE and the dense matmul."""
+    from torch.profiler import ProfilerActivity, profile
+    from sgp_tpu_torch.models import diff_conv_support
+    from sgp_tpu_torch.ops import bsr_spmm
+    from sgp_tpu_torch.train.imputer import (draw_keep, imputer_loss,
+                                             make_imputer_train_step)
+    from sgp_tpu_torch.train.predictor import make_optimizer
+    mem = grin_batch("bsr", N_NODES, device)
+    batch = phase17_data(ds, graph, device, mem["batch"])
+    keep = draw_keep(batch["mask"], 0.05,
+                     torch.Generator(device=device).manual_seed(SEED))
+    sup = {m: diff_conv_support(graph, operator_mode=m, device=device)
+           for m in ("bsr", "dense")}
+    base = grin_model(device)
+    first = {}
+    for route in ("bsr", "dense"):
+        model = copy.deepcopy(base)
+
+        def call(b, training, s=sup[route]):
+            return (b["x"], s), {"mask": b["mask"], "training": training}
+        torch.cuda.synchronize()
+        bsr_spmm.launches = 0             # the main path: the BSR step
+        loss = imputer_loss(model, batch, call, keep)
+        torch.cuda.synchronize()
+        fwd = bsr_spmm.launches
+        loss.backward()
+        torch.cuda.synchronize()
+        first[route] = dict(loss=float(loss.detach()), k1_fwd=fwd,
+                            k1_step=bsr_spmm.launches,
+                            grads={k: p.grad.detach().clone() for k, p in
+                                   model.named_parameters()})
+        del loss, model
+        torch.cuda.empty_cache()
+    hops = 2 * GRIN_WINDOW * 10
+    grad_err = max(
+        (first["bsr"]["grads"][k] - g).abs().max().item()
+        / max(g.abs().max().item(), 1e-6)
+        for k, g in first["dense"]["grads"].items())
+    loss_err = abs(first["bsr"]["loss"] - first["dense"]["loss"]) \
+        / abs(first["dense"]["loss"])
+    row = dict(batch=mem["batch"], window=GRIN_WINDOW, hidden=GRIN_HIDDEN,
+               loss={r: first[r]["loss"] for r in first},
+               loss_rel_err=loss_err, grad_rel_err=grad_err,
+               tol_loss=TOL_GRIN_LOSS, tol_grad=TOL_GRIN_GRAD,
+               k1_launches_fwd=first["bsr"]["k1_fwd"],
+               k1_launches_step=first["bsr"]["k1_step"],
+               k1_launches_dense_route=first["dense"]["k1_step"],
+               hops_fwd=hops)
+    # the gate: the routes sum every hop in another order (K1's tiles, the
+    # SGEMM's k-split) and carry it through 24 recurrent steps, forward and
+    # back; the CPU port against the JAX package, the same kind of gap,
+    # measured 1.1e-5 of a parameter's largest gradient: 1e-4 leaves 9x
+    print(f"[phase 17] (b) GRIN step, BSR vs dense supports: "
+          f"{json.dumps(row)}")
+    assert loss_err <= TOL_GRIN_LOSS and grad_err <= TOL_GRIN_GRAD, row
+    assert first["bsr"]["k1_fwd"] == hops, row
+    assert first["bsr"]["k1_step"] == 2 * hops - 2 * 8, row
+    assert first["dense"]["k1_step"] == 0, row
+    del first
+    steps, times, peak = {}, {"bsr": [], "dense": []}, {}
+    for route in ("bsr", "dense"):
+        model = copy.deepcopy(base)
+        opt, sched = make_optimizer(list(model.parameters()), 1e-3)
+        steps[route] = make_imputer_train_step(
+            model, opt, lambda b, tr, s=sup[route]: (
+                (b["x"], s), {"mask": b["mask"], "training": tr}),
+            grad_clip=GRAD_CLIP, scheduler=sched,
+            generator=torch.Generator(device=device).manual_seed(SEED))
+    for route in GRIN_TIME_ORDER:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(steps[route](batch))
+        times[route].append((time.perf_counter() - t0) * 1e3)
+        peak[route] = max(peak.get(route, 0.0),
+                          torch.cuda.max_memory_allocated() / 2**20)
+        assert np.isfinite(loss), (route, loss)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps["bsr"](batch)
+        torch.cuda.synchronize()
+    busy = device_busy(prof, 1)
+    step_ms = {k: quartiles(v) for k, v in times.items()}
+    row.update(step_ms=step_ms, peak_mib=peak)
+    if busy:
+        row.update(device_busy_ms=busy["device_busy_ms"],
+                   device_activities=busy["device_activities"],
+                   idle_share=1.0 - busy["device_busy_ms"]
+                   / step_ms["bsr"]["median"],
+                   device_ms_by_name=busy["device_ms_by_name"])
+    else:
+        row["idle_share"] = "not measured (no device activity traced)"
+    print(f"[phase 17] (b) GRIN step times: {json.dumps(row)}")
+    del steps, prof
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    k1 = {}
+    # a time step and direction: the cell's 4 hops of [x, m, h], its 4 of
+    # r * h and the decoder's 2, each once forward and once backward (dx),
+    # but for the last step's cell, whose state reaches no loss
+    w = GRIN_WINDOW
+    for width, launches, case in (
+            (2 + GRIN_HIDDEN, 2 * 4 * (2 * w - 1),
+             "GRIN cell hop of [x, m, h]"),
+            (GRIN_HIDDEN, 2 * (4 * (2 * w - 1) + 2 * 2 * w),
+             "GRIN hops of r * h and the decoder's")):
+        x = torch.as_tensor(rng.standard_normal(
+            (mem["batch"], N_NODES, width)).astype(np.float32), device=device)
+        k1[width] = k1_at_support_width(sup["bsr"][0], sup["dense"][0], x,
+                                        "phase 17", case)
+        k1[width]["launches_per_step"] = launches
+        del x
+    return dict(step=row, k1=k1, launches=row["k1_launches_step"])
+
+
+class ImputationRecorder:
+    """Times each train step of ``run_imputation`` (synchronized) through
+    a wrapper of its ``make_imputer_train_step``, and K1's launches."""
+
+    def __init__(self):
+        self.ms = []
+
+    @contextlib.contextmanager
+    def active(self):
+        from sgp_tpu_torch.exp import run_imputation
+        make = run_imputation.make_imputer_train_step
+
+        def wrapped(*a, **k):
+            step = make(*a, **k)
+
+            def timed_step(batch, keep=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step(batch, keep)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return loss
+            return timed_step
+        run_imputation.make_imputer_train_step = wrapped
+        try:
+            yield self
+        finally:
+            run_imputation.make_imputer_train_step = make
+
+
+def phase17_runners(device) -> dict:
+    """(c) ``exp/run_imputation.py`` through ``Experiment(...).run(argv)``
+    for ``grin``, ``rnni`` and ``birnni`` at GRIN's widths on
+    ``SyntheticDiffusion(5016, IMP_STEPS)`` (the runner's graph: the
+    similarity graph at threshold 0.1, dense supports by ``auto``), one
+    epoch of 2 batches: test MAE and MRE, ms a batch, the run's wall."""
+    from sgp_tpu_torch.exp import run_imputation
+    from sgp_tpu_torch.exp.common import Experiment
+    batch = grin_batch("dense", N_NODES, device)["batch"]
+    out = {}
+    for name in ("grin", "rnni", "birnni"):
+        argv = ["--model-name", name, "--dataset-name", "synthetic",
+                "--synthetic-nodes", str(N_NODES), "--synthetic-steps",
+                str(IMP_STEPS), "--window", str(GRIN_WINDOW),
+                "--batch-size", str(batch), "--hidden-size",
+                str(GRIN_HIDDEN), "--ff-size", str(GRIN_FF), "--seed",
+                str(SEED), "--device", str(device), *IMP_RUN]
+        rec = ImputationRecorder()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with rec.active():
+            res = Experiment(run_imputation.run_experiment,
+                             run_imputation.configure_parser()).run(argv)
+        out[name] = dict(batch=batch, wall_s=time.perf_counter() - t0,
+                         step_ms=rec.ms,
+                         peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                         **res)
+        print(f"[phase 17] (c) run_imputation {name}: "
+              f"{json.dumps(out[name])}")
+        assert all(np.isfinite(res[k]) for k in (
+            "test_mae", "test_mse", "test_mre", "val_mae")), out[name]
+        assert res["val_mae"] > 0, out[name]     # validation scored points
+        assert len(rec.ms) == 2, out[name]
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase17_export_and_imputation(ds, graph, scaler, device) -> dict:
+    """The forecaster export (a) and the imputation slice: GRIN's step on
+    BSR against dense supports (b) and the runner (c)."""
+    export = phase17_export(ds, graph, scaler, device)
+    torch.cuda.empty_cache()
+    grin = phase17_grin(ds, graph, device)
+    torch.cuda.empty_cache()
+    runs = phase17_runners(device)
+    return dict(export=export, grin=grin, runs=runs)
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -4495,6 +4906,8 @@ def main():
     traffic = timed("phase 14", phase14_traffic, ds, graph, device)
     strat = timed("phase 15", phase15_stratified, device)
     gesn = timed("phase 16", phase16_gesn, ds, graph, device)
+    p17 = timed("phase 17", phase17_export_and_imputation, ds, graph, scaler,
+                device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -4526,6 +4939,22 @@ def main():
     kernels[0]["gesn"] = kernel_entry(
         "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
         "sgp_tpu/ops/bsr_kernel.py:39", gesn["launches"], gesn["k1"])
+    # the exported forecasters' loaded programs (phase 17 (a)): K1 at the
+    # serving hop's width, phase 2's row; GRIN's step on BSR supports
+    # (phase 17 (b)): the cell's hop width, and the other hops' under
+    # ``decoder``
+    kernels[0]["export"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", p17["export"]["launches"], k1)
+    w_cell, w_hid = 2 + GRIN_HIDDEN, GRIN_HIDDEN
+    kernels[0]["grin"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", p17["grin"]["launches"],
+        p17["grin"]["k1"][w_cell])
+    kernels[0]["grin"]["decoder"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", p17["grin"]["launches"],
+        p17["grin"]["k1"][w_hid])
     # K4's launches from the traffic runner's run (a), K3 forward's from
     # the large-scale runner's run (c); the slices' own counts beside them
     run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]

@@ -1,3 +1,5 @@
+from sgp_tpu_torch.data.imputation import (ImputationDataset,
+                                           add_missing_values, sample_mask)
 from sgp_tpu_torch.data.loader import IIDLoader, WindowedLoader
 from sgp_tpu_torch.data.scalers import (RobustScaler, Scaler, ScalerParams,
                                         StandardScaler)
@@ -8,7 +10,8 @@ from sgp_tpu_torch.data.subgraph import (SubgraphLoader, SubsetLoader,
                                         cap_edges)
 from sgp_tpu_torch.data.windowing import Windowing
 
-__all__ = ["Batch", "IIDLoader", "RobustScaler", "Scaler", "ScalerParams", "Split",
+__all__ = ["Batch", "IIDLoader", "ImputationDataset", "add_missing_values",
+           "sample_mask", "RobustScaler", "Scaler", "ScalerParams", "Split",
            "Splitter", "SpatioTemporalDataset", "StandardScaler",
            "SubgraphLoader", "SubsetLoader", "TemporalSplitter",
            "WindowedLoader", "Windowing", "cap_edges", "datetime_encoded"]

@@ -16,6 +16,7 @@ from sgp_tpu_torch.models.gated_gn import (CNNResidual, Conv1dResidual,
                                            GatedGraphNetworkConvModel,
                                            GatedGraphNetworkMLPModel,
                                            full_graph_edges)
+from sgp_tpu_torch.models.grin import GRIL, GRINModel, SpatialDecoder
 from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
                                                GATConv, GatedGraphNetwork,
                                                GraphConv,
@@ -25,6 +26,7 @@ from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
 from sgp_tpu_torch.models.gwnet import (DenseSpatialConvOrderK,
                                         GraphWaveNetModel)
 from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel
+from sgp_tpu_torch.models.rnni import BiRNNImputerModel, RNNImputerModel
 from sgp_tpu_torch.models.sgp import SGPModel, SGPOnlineModel
 from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
                                       TemporalConvNet)
@@ -36,15 +38,18 @@ _NOT_PORTED = {"stcn": "A9", "rnn2gcn": "A9"}
 
 def get_model_class(name: str):
     """The model registry of ``sgp_tpu/models/__init__.py``: the ported
-    classes by name; a model of the JAX registry not ported yet raises
-    ``NotImplementedError`` naming its ROADMAP item, an unknown name
-    ``KeyError``."""
+    classes by name, and the imputers of ``exp/run_imputation.py``
+    (``grin``, ``rnni``, ``birnni``); a model of the JAX registry not
+    ported yet raises ``NotImplementedError`` naming its ROADMAP item, an
+    unknown name ``KeyError``."""
     ported = {"sgp": SGPModel, "online_sgp": SGPOnlineModel,
               "esn": ESNModel, "gatedgn": GatedGraphNetworkMLPModel,
               "gatedgn_conv": GatedGraphNetworkConvModel,
               "transformer": TransformerModel, "rnn": RNNModel,
               "fc_rnn": FCRNNModel, "dcrnn": DCRNNModel,
-              "gwnet": GraphWaveNetModel, "tcn": TCNModel}
+              "gwnet": GraphWaveNetModel, "tcn": TCNModel,
+              "grin": GRINModel, "rnni": RNNImputerModel,
+              "birnni": BiRNNImputerModel}
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
@@ -63,4 +68,6 @@ __all__ = ["MLP", "Dense", "GroupedLinear", "LinearReadout", "ResidualMLP",
            "DCRNNCell", "DCRNNModel", "ConditionalBlock", "DiffConv",
            "GraphConv", "diff_conv_support", "diff_conv_support_from_arrays",
            "DenseSpatialConvOrderK", "GraphWaveNetModel", "FCRNNModel",
-           "RNNModel", "Norm", "TCNModel", "TemporalConv", "TemporalConvNet"]
+           "RNNModel", "Norm", "TCNModel", "TemporalConv", "TemporalConvNet",
+           "GRIL", "GRINModel", "SpatialDecoder", "RNNImputerModel",
+           "BiRNNImputerModel"]

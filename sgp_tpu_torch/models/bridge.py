@@ -29,6 +29,11 @@ its rows of ``nn.GRU``'s / ``nn.LSTM``'s stacked weights and biases (the
 biases flax lacks stay 0). GraphWaveNet's layers lie under
 ``_GWNetBlock_i`` or, scanned, stacked along a leading block axis under
 ``ScanCheckpoint_GWNetBlock_0`` (``GraphWaveNetModel.flax_blocks``).
+
+The imputers: ``GRINModel`` (``GRIL_0`` forward, ``GRIL_1`` backward,
+``MLP_0`` the merge; see :func:`_gril`), ``RNNImputerModel``
+(``rnn_cell``, ``readout``) and ``BiRNNImputerModel`` (``fwd_rnn``,
+``bwd_rnn``, ``Dense_0``).
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from sgp_tpu_torch.models.esn import ESNModel
 from sgp_tpu_torch.models.gated_gn import (CNNResidual,
                                            GatedGraphNetworkConvModel,
                                            GatedGraphNetworkMLPModel)
+from sgp_tpu_torch.models.grin import GRIL, GRINModel, SpatialDecoder
 from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
                                                GATConv, GatedGraphNetwork,
                                                GraphConv,
@@ -58,6 +64,8 @@ from sgp_tpu_torch.models.graph_layers import (ConditionalBlock, DiffConv,
 from sgp_tpu_torch.models.gwnet import (DenseSpatialConvOrderK, GWNetLayer,
                                         GraphWaveNetModel)
 from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel, RNNStack
+from sgp_tpu_torch.models.rnni import (BiRNNImputerModel, FlaxRNNCell,
+                                       RNNImputerModel)
 from sgp_tpu_torch.models.sgp import SGPModel, SGPOnlineModel
 from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
                                       TemporalConvNet)
@@ -414,6 +422,70 @@ def _tcn_model(out: dict, scope: Path, m: TCNModel):
     _mlp_decoder(out, scope + ("MLPDecoder_0",), m.decoder)
 
 
+def _spatial_decoder(out: dict, scope: Path, m: SpatialDecoder):
+    _linear(out, scope + ("Dense_0",), m.lin_in)
+    _diff_conv(out, scope + ("DiffConv_0",), m.conv)
+    out[scope + ("prelu_slope",)] = (m.prelu_slope, False)
+    _linear(out, scope + ("Dense_1",), m.lin_out)
+    _linear(out, scope + ("Dense_2",), m.readout)
+
+
+def _gril(out: dict, scope: Path, m: GRIL):
+    """``DCRNNCell_i`` (``DiffConv_0..2``: r, u, c), ``LayerNorm_i``,
+    ``Dense_0`` (the first stage), ``SpatialDecoder_0`` and
+    ``StaticGraphEmbedding_i``."""
+    for i, (cell, norm) in enumerate(zip(m.cells, m.norms)):
+        for k, conv in enumerate((cell.r, cell.u, cell.c)):
+            _diff_conv(out, scope + (f"DCRNNCell_{i}", f"DiffConv_{k}"),
+                       conv)
+        if isinstance(norm, nn.LayerNorm):
+            _layer_norm(out, scope + (f"LayerNorm_{i}",), norm)
+    _linear(out, scope + ("Dense_0",), m.first_stage)
+    _spatial_decoder(out, scope + ("SpatialDecoder_0",), m.decoder)
+    for i, emb in enumerate(m.h0 or ()):
+        out[scope + (f"StaticGraphEmbedding_{i}", "emb")] = (emb.emb, False)
+
+
+def _grin_model(out: dict, scope: Path, m: GRINModel):
+    _gril(out, scope + ("GRIL_0",), m.fwd)
+    _gril(out, scope + ("GRIL_1",), m.bwd)
+    if m.merge is not None:
+        _trunk(out, scope + ("MLP_0",), m.merge)
+
+
+def _flax_cell(out: dict, scope: Path, m: FlaxRNNCell):
+    """Each gate's Dense of flax's ``GRUCell`` (``ir``, ``iz``, ``in``,
+    ``hr``, ``hz``, ``hn``) or ``OptimizedLSTMCell`` (``ii`` .. ``ho``)
+    into its rows of the stacked weights and biases."""
+    h = m.hidden_size
+    gru = m.cell == "gru"
+    for g, gate in enumerate("rzn" if gru else "ifgo"):
+        rows = slice(g * h, (g + 1) * h)
+        out[scope + (f"i{gate}", "kernel")] = (m.weight_ih.detach()[rows],
+                                               True)
+        out[scope + (f"h{gate}", "kernel")] = (m.weight_hh.detach()[rows],
+                                               True)
+        if gru:
+            out[scope + (f"i{gate}", "bias")] = (m.bias_ih.detach()[rows],
+                                                 False)
+        else:
+            out[scope + (f"h{gate}", "bias")] = (m.bias_hh.detach()[rows],
+                                                 False)
+    if gru:
+        out[scope + ("hn", "bias")] = (m.bias_hn, False)
+
+
+def _rnn_imputer(out: dict, scope: Path, m: RNNImputerModel):
+    _flax_cell(out, scope + ("rnn_cell",), m.rnn_cell)
+    _linear(out, scope + ("readout",), m.readout)
+
+
+def _birnn_imputer(out: dict, scope: Path, m: BiRNNImputerModel):
+    _rnn_imputer(out, scope + ("fwd_rnn",), m.fwd_rnn)
+    _rnn_imputer(out, scope + ("bwd_rnn",), m.bwd_rnn)
+    _linear(out, scope + ("Dense_0",), m.readout)
+
+
 # model class -> the function that lists its flax paths
 _TREES = {
     SGPOnlineModel: _sgp_online,
@@ -423,6 +495,11 @@ _TREES = {
     RNNModel: _rnn_model,
     FCRNNModel: _rnn_model,
     TCNModel: _tcn_model,
+    GRINModel: _grin_model,
+    GRIL: _gril,
+    SpatialDecoder: _spatial_decoder,
+    RNNImputerModel: _rnn_imputer,
+    BiRNNImputerModel: _birnn_imputer,
     MLPDecoder: _mlp_decoder,
     DiffConv: _diff_conv,
     ConditionalBlock: _conditional_block,

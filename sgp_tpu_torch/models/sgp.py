@@ -40,6 +40,7 @@ class SGPModel(nn.Module):
         super().__init__()
         self.horizon = horizon
         self.activation = activation
+        self.exog_size = exog_size
         if fully_connected:
             h_size = hidden_size
             self.encoder = nn.Linear(input_size, h_size)

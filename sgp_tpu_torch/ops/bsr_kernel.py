@@ -6,15 +6,18 @@ dense 128x128 tiles at its nonzero block positions (``Graph.to_bsr``):
 [n_block_rows + 1]``. Each output row accumulates over its block row's
 tiles in f32; block rows without tiles give zeros.
 
-- :func:`bsr_spmm` is the entry, differentiable in the tiles and in x. On
-  a CUDA tensor it launches the kernel in ``csrc/bsr_spmm.cu`` (CUDA C++
-  for ``sm_90a``, built with ``nvcc`` at first use into the repository's
+- :func:`bsr_spmm` is the entry, differentiable in the tiles and in x. It
+  calls the custom op ``sgp::bsr_spmm`` (``torch.library``), so
+  ``torch.export`` and ``torch.compile`` trace it as one node. On a CUDA
+  tensor the op launches the kernel in ``csrc/bsr_spmm.cu`` (CUDA C++ for
+  ``sm_90a``, built with ``nvcc`` at first use into the repository's
   ``build/`` directory, keyed on a hash of the source, and loaded with
   ``ctypes``) or raises; on a CPU tensor it runs :func:`bsr_spmm_plain`.
   There is no other fallback. Its backward runs on the same routes:
   ``dx = A^T @ g`` is the block SpMM over the transposed block structure
-  (:class:`BlockTranspose`), ``d_blocks`` the SDDMM of ``g`` and ``x`` at
-  the stored blocks (``ops/sddmm.py``, K2 on the card).
+  (:class:`BlockTranspose`, kept per structure by :func:`kept_transpose`),
+  ``d_blocks`` the SDDMM of ``g`` and ``x`` at the stored blocks
+  (``ops/sddmm.py``, K2 on the card).
 - :func:`bsr_spmm_plain` mirrors ``bsr_spmm_xla``: a tile gather, one
   ``torch.bmm`` and an ``index_add_`` over the block rows. It is what the
   CPU tests run, and the kernel's oracle on the card.
@@ -33,6 +36,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from sgp_tpu_torch.ops import _build
 
@@ -63,14 +67,11 @@ def _compute_dtype(blocks: torch.Tensor) -> torch.dtype:
 
 def bsr_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
              row_ptr: torch.Tensor, block_rows: torch.Tensor,
-             x: torch.Tensor, transpose: "BlockTranspose | None" = None
-             ) -> torch.Tensor:
+             x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for ``x [N, F]`` with ``N <= n_block_rows * 128``; returns
     ``[N, F]`` in x's dtype. ``block_rows [nnzb]`` (the block row of each
     tile, sorted) feeds the plain version; the kernel walks ``row_ptr``.
-    Differentiable in ``blocks`` and ``x``; ``transpose`` keeps the
-    transposed structure the backward needs across calls (a new one is
-    built for each backward without it).
+    Differentiable in ``blocks`` and ``x``.
 
     The index arrays are trusted: :meth:`BSROperator.from_bsr` validates
     them on the host once."""
@@ -79,21 +80,30 @@ def bsr_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
     if x.ndim != 2 or x.shape[0] > n_block_rows * BLOCK:
         raise ValueError(f"x must be [N, F] with N <= {n_block_rows * BLOCK},"
                          f" got {tuple(x.shape)}")
-    if torch.is_grad_enabled() and (x.requires_grad or blocks.requires_grad):
-        return _BSRSpmm.apply(blocks, x, block_cols, row_ptr, block_rows,
-                              transpose or BlockTranspose())
     return _spmm(blocks, block_cols, row_ptr, block_rows, x)
 
 
-def _spmm(blocks, block_cols, row_ptr, block_rows, x):
-    """The forward of :func:`bsr_spmm` (no autograd): the plain version on
-    a CPU tensor, the kernel on a CUDA one."""
+bsr_spmm.launches = 0  # kernel launches since the last reset to 0
+
+
+@torch.library.custom_op("sgp::bsr_spmm", mutates_args=(),
+                         device_types="cpu")
+def _spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
+          row_ptr: torch.Tensor, block_rows: torch.Tensor,
+          x: torch.Tensor) -> torch.Tensor:
+    """The op ``sgp::bsr_spmm``: the plain version on CPU tensors, the
+    kernel on CUDA ones (:func:`_launch`)."""
+    return bsr_spmm_plain(blocks, block_cols, block_rows,
+                          row_ptr.numel() - 1, x)
+
+
+@_spmm.register_kernel("cuda")
+def _launch(blocks, block_cols, row_ptr, block_rows, x):
+    """Check what the kernel reads, size its workspace and launch it on
+    the current stream; each launch adds one to ``bsr_spmm.launches``,
+    from eager code and from an exported program alike."""
     cdt = _compute_dtype(blocks)
     n_block_rows = row_ptr.numel() - 1
-    if x.device.type == "cpu":
-        return bsr_spmm_plain(blocks, block_cols, block_rows, n_block_rows, x)
-    if not x.is_cuda:
-        raise ValueError(f"bsr_spmm runs on CPU or CUDA, not {x.device}")
     for name, t, dt in (("blocks", blocks, cdt), ("block_cols", block_cols,
                         torch.int32), ("row_ptr", row_ptr, torch.int32)):
         if t.device != x.device or t.dtype != dt or not t.is_contiguous():
@@ -136,16 +146,19 @@ def _spmm(blocks, block_cols, row_ptr, block_rows, x):
     return out.to(x.dtype)
 
 
-bsr_spmm.launches = 0  # kernel launches since the last reset to 0
+@_spmm.register_fake
+def _(blocks, block_cols, row_ptr, block_rows, x):
+    return x.new_empty(x.shape)
 
 
 class BlockTranspose:
-    """The structure of ``A^T`` for one block structure, built on the host
-    the first time a gradient asks for it and kept: the permutation that
-    sorts the tiles by (column, row), and the transposed ``block_cols``,
-    ``row_ptr`` and ``block_rows``. Its f32 tiles ``blocks[perm]^T`` are
-    kept too while the tiles they come from are constant (the same tensor
-    at the same version, needing no gradient), as an operator's are."""
+    """The structure of ``A^T`` for one block structure, built on the
+    tiles' device the first time a gradient asks for it and kept: the
+    permutation that sorts the tiles by (column, row), and the transposed
+    ``block_cols``, ``row_ptr`` and ``block_rows``. Its f32 tiles
+    ``blocks[perm]^T`` are kept too while the tiles they come from are
+    constant (the same tensor at the same version, needing no gradient),
+    as an operator's are."""
 
     def __init__(self):
         self._index = None
@@ -157,19 +170,8 @@ class BlockTranspose:
         """``(perm int64, cols, row_ptr, rows int32)`` on the tiles'
         device."""
         if self._index is None:
-            cols = block_cols.cpu().numpy().astype(np.int64)
-            rows = block_rows.cpu().numpy().astype(np.int64)
-            perm = np.lexsort((rows, cols))
-            t_rows = cols[perm]
-            ptr = np.zeros(n_block_rows + 1, np.int64)
-            np.cumsum(np.bincount(t_rows, minlength=n_block_rows),
-                      out=ptr[1:])
-            dev = block_cols.device
-            self._index = (
-                torch.as_tensor(perm, device=dev),
-                torch.as_tensor(rows[perm].astype(np.int32), device=dev),
-                torch.as_tensor(ptr.astype(np.int32), device=dev),
-                torch.as_tensor(t_rows.astype(np.int32), device=dev))
+            self._index = transpose_index(block_cols, block_rows,
+                                          n_block_rows)
         return self._index
 
     def tiles(self, blocks: torch.Tensor, perm: torch.Tensor):
@@ -178,43 +180,83 @@ class BlockTranspose:
         if self._tiles is not None and self._tiles_of[0] is key[0] \
                 and self._tiles_of[1] == key[1]:
             return self._tiles
-        tiles = blocks.detach()[perm].transpose(1, 2).float().contiguous()
+        tiles = transposed_tiles(blocks, perm)
         if not blocks.requires_grad:
             self._tiles, self._tiles_of = tiles, key
         return tiles
 
 
-class _BSRSpmm(torch.autograd.Function):
-    """:func:`bsr_spmm` with its VJP: ``dx = A^T @ g`` through the block
-    SpMM on the transposed structure, ``d_blocks[k] = g_tile[rows[k]] @
+def transpose_index(block_cols: torch.Tensor, block_rows: torch.Tensor,
+                    n_block_rows: int):
+    """The transposed structure from torch ops, so a traced backward
+    (``torch.export``, ``torch.compile``) records it: ``perm`` (int64)
+    sorts the tiles by (column, row); the transpose's ``cols``,
+    ``row_ptr`` and ``rows`` are int32."""
+    cols, rows = block_cols.long(), block_rows.long()
+    perm = torch.argsort(cols * n_block_rows + rows)
+    t_rows = cols[perm]
+    ptr = torch.zeros(n_block_rows + 1, dtype=torch.int64,
+                      device=cols.device).index_add_(
+        0, t_rows + 1, torch.ones_like(t_rows)).cumsum(0)
+    return perm, rows[perm].int(), ptr.int(), t_rows.int()
+
+
+def transposed_tiles(blocks: torch.Tensor, perm: torch.Tensor):
+    return blocks.detach()[perm].transpose(1, 2).float().contiguous()
+
+
+# a structure's block_cols tensor -> its BlockTranspose, while it lives
+_TRANSPOSES = WeakIdKeyDictionary()
+
+
+def kept_transpose(block_cols: torch.Tensor) -> BlockTranspose:
+    """The :class:`BlockTranspose` kept for the block structure whose
+    column tensor is ``block_cols``: operators and attention structures
+    that share that tensor share it."""
+    kept = _TRANSPOSES.get(block_cols)
+    if kept is None:
+        kept = _TRANSPOSES[block_cols] = BlockTranspose()
+    return kept
+
+
+def _setup_context(ctx, inputs, output):
+    blocks, block_cols, row_ptr, block_rows, x = inputs
+    ctx.save_for_backward(blocks, x, block_cols, block_rows)
+    ctx.n_block_rows = row_ptr.numel() - 1
+    # a traced backward sees fake tensors: it keeps nothing
+    ctx.transpose = kept_transpose(block_cols) \
+        if type(block_cols) is torch.Tensor else None
+
+
+def _backward(ctx, g):
+    """The VJP of ``sgp::bsr_spmm``: ``dx = A^T @ g`` through the op on
+    the transposed structure, ``d_blocks[k] = g_tile[rows[k]] @
     x_tile[cols[k]]^T`` through the SDDMM, both in f32 on the tensors'
     device."""
-
-    @staticmethod
-    def forward(ctx, blocks, x, block_cols, row_ptr, block_rows, transpose):
-        ctx.save_for_backward(blocks, x, block_cols, block_rows)
-        ctx.n_block_rows = row_ptr.numel() - 1
-        ctx.transpose = transpose
-        return _spmm(blocks, block_cols, row_ptr, block_rows, x)
-
-    @staticmethod
-    def backward(ctx, g):
-        from sgp_tpu_torch.ops.sddmm import _sddmm_forward
-        blocks, x, block_cols, block_rows = ctx.saved_tensors
-        nbr = ctx.n_block_rows
-        g = g.float().contiguous()
-        d_blocks = dx = None
-        if ctx.needs_input_grad[0]:
-            # x as the forward read it: rounded to the tiles' dtype
-            xr = x.detach().to(blocks.dtype).float().contiguous()
-            d_blocks = _sddmm_forward(g, xr, block_rows, block_cols,
-                                      nbr).to(blocks.dtype)
-        if ctx.needs_input_grad[1]:
+    from sgp_tpu_torch.ops.sddmm import _sddmm_forward
+    blocks, x, block_cols, block_rows = ctx.saved_tensors
+    nbr = ctx.n_block_rows
+    g = g.float().contiguous()
+    d_blocks = dx = None
+    if ctx.needs_input_grad[0]:
+        # x as the forward read it: rounded to the tiles' dtype
+        xr = x.detach().to(blocks.dtype).float().contiguous()
+        d_blocks = _sddmm_forward(g, xr, block_rows, block_cols,
+                                  nbr).to(blocks.dtype)
+    if ctx.needs_input_grad[4]:
+        if ctx.transpose is None:
+            perm, t_cols, t_ptr, t_rows = transpose_index(
+                block_cols, block_rows, nbr)
+            t_tiles = transposed_tiles(blocks, perm)
+        else:
             perm, t_cols, t_ptr, t_rows = ctx.transpose.index(
                 block_cols, block_rows, nbr)
-            dx = _spmm(ctx.transpose.tiles(blocks, perm), t_cols, t_ptr,
-                       t_rows, g).to(x.dtype)
-        return d_blocks, dx, None, None, None, None
+            t_tiles = ctx.transpose.tiles(blocks, perm)
+        dx = _spmm(t_tiles, t_cols, t_ptr, t_rows, g).to(x.dtype)
+    return d_blocks, None, None, None, dx
+
+
+_spmm.register_autograd(_backward, setup_context=_setup_context)
 
 
 def bsr_spmm_plain(blocks: torch.Tensor, block_cols: torch.Tensor,

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from sgp_tpu_torch.ops import _build
-from sgp_tpu_torch.ops.bsr_kernel import BlockTranspose, _spmm, bsr_spmm
+from sgp_tpu_torch.ops.bsr_kernel import _spmm, bsr_spmm, kept_transpose
 from sgp_tpu_torch.ops.scatter import segment_max, segment_sum
 from sgp_tpu_torch.utils.device import resolve_device
 
@@ -52,8 +52,6 @@ class BSRAttentionStructure:
     row_ptr: torch.Tensor        # [n_block_rows + 1] int32
     n_block_rows: int
     num_nodes: int
-    transpose: BlockTranspose = dataclasses.field(   # for the SpMM's VJP
-        default_factory=BlockTranspose, repr=False, compare=False)
 
 
 def bsr_attention_structure(g, device=None) -> BSRAttentionStructure:
@@ -195,9 +193,8 @@ class _BSRSDDMM(torch.autograd.Function):
     same bits."""
 
     @staticmethod
-    def forward(ctx, q, k, block_rows, block_cols, row_ptr, transpose):
+    def forward(ctx, q, k, block_rows, block_cols, row_ptr):
         ctx.save_for_backward(q, k, block_rows, block_cols, row_ptr)
-        ctx.transpose = transpose
         return _sddmm_forward(q, k, block_rows, block_cols,
                               row_ptr.numel() - 1)
 
@@ -210,11 +207,11 @@ class _BSRSDDMM(torch.autograd.Function):
             dq = _spmm(ds, cols, row_ptr, rows, k.float()).to(q.dtype)
         if ctx.needs_input_grad[1]:
             # the tiles of A_ds^T change every call: not kept in the cache
-            perm, t_cols, t_ptr, t_rows = ctx.transpose.index(
+            perm, t_cols, t_ptr, t_rows = kept_transpose(cols).index(
                 cols, rows, row_ptr.numel() - 1)
             t_tiles = ds[perm].transpose(1, 2).contiguous()
             dk = _spmm(t_tiles, t_cols, t_ptr, t_rows, q.float()).to(k.dtype)
-        return dq, dk, None, None, None, None
+        return dq, dk, None, None, None
 
 
 def bsr_sddmm(q: torch.Tensor, k: torch.Tensor,
@@ -226,7 +223,7 @@ def bsr_sddmm(q: torch.Tensor, k: torch.Tensor,
         return torch.zeros((0, BLOCK, BLOCK), dtype=torch.float32,
                            device=q.device)
     return _BSRSDDMM.apply(q, k, struct.block_rows, struct.block_cols,
-                           struct.row_ptr, struct.transpose)
+                           struct.row_ptr)
 
 
 # -- softmax and the block SpMM tail ----------------------------------------
@@ -257,7 +254,7 @@ def _block_spmv(att_blocks: torch.Tensor, v: torch.Tensor,
     structure's transpose). v ``[N, D]``; returns ``[N, D]`` in v's
     dtype."""
     return bsr_spmm(att_blocks, struct.block_cols, struct.row_ptr,
-                    struct.block_rows, v, struct.transpose)
+                    struct.block_rows, v)
 
 
 def bsr_multi_head_attention(q: torch.Tensor, k: torch.Tensor,

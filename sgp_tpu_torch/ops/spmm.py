@@ -22,8 +22,7 @@ import numpy as np
 import torch
 
 from sgp_tpu_torch.graph.sparse import Graph
-from sgp_tpu_torch.ops.bsr_kernel import (BLOCK, BlockTranspose, bsr_spmm,
-                                          prepare_bsr)
+from sgp_tpu_torch.ops.bsr_kernel import BLOCK, bsr_spmm, prepare_bsr
 from sgp_tpu_torch.utils.device import resolve_device
 
 
@@ -81,7 +80,8 @@ class BSROperator:
     into one ``[N, prod(lead) * F]`` product, so a batch of streams is one
     kernel launch. Differentiable in x and in the tiles; the transposed
     structure (and, while the tiles are constant, the transposed tiles) is
-    built the first time a gradient is asked for and kept."""
+    built the first time a gradient is asked for and kept, for every
+    operator on the same ``block_cols`` (``bsr_kernel.kept_transpose``)."""
 
     BLOCK = BLOCK
 
@@ -92,7 +92,6 @@ class BSROperator:
         self.row_ptr = row_ptr              # [n_block_rows + 1] int32
         self.block_rows = block_rows        # [nnzb] int32 (sorted)
         self._num_nodes = int(num_nodes)
-        self._transpose = BlockTranspose()
 
     @classmethod
     def from_bsr(cls, blocks, block_cols, row_ptr, num_nodes: int,
@@ -116,10 +115,10 @@ class BSROperator:
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         args = (self.blocks, self.block_cols, self.row_ptr, self.block_rows)
         if x.ndim == 2:
-            return bsr_spmm(*args, x, self._transpose)
+            return bsr_spmm(*args, x)
         lead, (n, f) = x.shape[:-2], x.shape[-2:]
         folded = x.reshape(-1, n, f).transpose(0, 1).reshape(n, -1)
-        out = bsr_spmm(*args, folded, self._transpose)
+        out = bsr_spmm(*args, folded)
         return out.reshape(n, -1, f).transpose(0, 1).reshape(lead + (n, f))
 
 

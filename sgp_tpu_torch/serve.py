@@ -9,14 +9,20 @@ decoder forward. The online feature assembly is the offline
 :class:`OnlineGESNForecaster` serves DynGESN the same way: one graph
 echo-state update and the stacked per-lag ridge readouts a step.
 
-``export_forecaster`` and ``load_forecaster`` are not ported yet.
+:func:`export_forecaster` writes either forecaster's step as one
+``torch.export`` artifact and :func:`load_forecaster` serves it
+(:class:`ExportedForecaster`) without the encoder or model code.
 """
 from __future__ import annotations
 
+import copy
+import json
+import os
 from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from sgp_tpu_torch.data.scalers import ScalerParams
 from sgp_tpu_torch.encode.encoders import (GESNEncoder, SGPEncoder,
@@ -78,13 +84,19 @@ class OnlineForecaster:
         ``n_streams``) plus optional global exogenous ``[F]`` (``[S, F]``);
         returns the forecast ``[H, N, C]`` (``[S, H, N, C]``) in raw
         units."""
+        self.state, y = self._advance(self.state, x_raw, u_t)
+        return y
+
+    def _advance(self, state, x_raw, u_t=None):
+        """``(state, x_raw[, u_t]) -> (state', forecast)``: the step as a
+        function of the state (what :func:`export_forecaster` traces)."""
         x_raw = torch.as_tensor(x_raw, dtype=torch.float32,
                                 device=self.device)
         # scaler params carry [1, 1, C]-style broadcast dims; keep the
         # single observation's [N, C] rank
         x_t = self.scaler.transform(x_raw).reshape(x_raw.shape)
-        self.state = self._res.step(self.state, x_t)
-        hc = torch.cat(self.state, -1)              # [(S,) N, L*H]
+        state = self._res.step(state, x_t)
+        hc = torch.cat(state, -1)                   # [(S,) N, L*H]
         parts = [hc]
         for op in self._ops:   # same assembly/order as the offline encoder
             cur = hc
@@ -106,7 +118,7 @@ class OnlineForecaster:
                                   device=self.device)
             u = u_t[None, None] if single else u_t[:, None]  # [S, 1, F]
         y = self.scaler.inverse_transform(self.model(x_in, u=u))
-        return y[0] if single else y                # [(S,) H, N, C]
+        return state, (y[0] if single else y)       # [(S,) H, N, C]
 
     def reset(self):
         """Zero the reservoir state (new stream / washout restart)."""
@@ -176,14 +188,20 @@ class OnlineGESNForecaster:
         """One raw observation ``[N, C]`` (``[S, N, C]`` with
         ``n_streams``) -> the forecasts of every lag ``[L, N, C]``
         (``[S, L, N, C]``) in raw units."""
+        self.state, y = self._advance(self.state, x_raw)
+        return y
+
+    def _advance(self, state, x_raw, u_t=None):
+        """``(state, x_raw) -> (state', forecasts)`` (``u_t`` is taken and
+        unused: the closed form has no exogenous input)."""
         x_raw = torch.as_tensor(x_raw, dtype=torch.float32,
                                 device=self.device)
         x_t = self.scaler.transform(x_raw).reshape(x_raw.shape)
-        self.state = self._gesn.step(self.state, self._op, x_t)
-        hc = torch.cat(self.state, -1)                 # [(S,) N, D]
+        state = self._gesn.step(state, self._op, x_t)
+        hc = torch.cat(state, -1)                      # [(S,) N, D]
         # b [L, C] -> [L, 1, C] broadcasts over the nodes
         y = torch.einsum("...nd,ldc->...lnc", hc, self._w) + self._b[:, None]
-        return self.scaler.inverse_transform(y)
+        return state, self.scaler.inverse_transform(y)
 
     def reset(self):
         """Zero the GESN state (a new stream)."""
@@ -198,3 +216,178 @@ class OnlineGESNForecaster:
         x = self.scaler.transform(x_history).reshape(x_history.shape)
         _, self.state = self._gesn(x, self._op, h0=self.state,
                                    with_state=True)
+
+
+# -- export -----------------------------------------------------------------
+
+_META = "sgp_forecaster.json"   # the artifact's metadata, an extra file
+
+
+def _holds_tensor(obj) -> bool:
+    if isinstance(obj, torch.Tensor):
+        return True
+    if isinstance(obj, nn.Module):
+        return False
+    if isinstance(obj, (list, tuple)):
+        return any(_holds_tensor(o) for o in obj)
+    return hasattr(obj, "__dict__") and any(
+        _holds_tensor(v) for v in vars(obj).values())
+
+
+def _hold(module: nn.Module, name: str, obj):
+    """Register every tensor reachable from ``obj`` (through attributes,
+    dataclass fields and list items; not through modules) as a buffer of
+    ``module``. Returns a function that rebuilds ``obj`` from the buffers:
+    shallow copies of each object on the way, so a traced call reads the
+    module's buffers and the forecaster is left as it is."""
+    if isinstance(obj, torch.Tensor):
+        module.register_buffer(name, obj)
+        return lambda: getattr(module, name)
+    if not _holds_tensor(obj):
+        return lambda: obj
+    if isinstance(obj, (list, tuple)):
+        parts = [_hold(module, f"{name}_{i}", o) for i, o in enumerate(obj)]
+        return lambda: type(obj)(p() for p in parts)
+    fields = {k: _hold(module, f"{name}_{k}", v)
+              for k, v in vars(obj).items() if _holds_tensor(v)}
+
+    def rebuild():
+        new = copy.copy(obj)
+        for k, part in fields.items():   # frozen dataclasses too
+            object.__setattr__(new, k, part())
+        return new
+    return rebuild
+
+
+class _StepModule(nn.Module):
+    """A forecaster's ``_advance`` as a module for ``torch.export``: the
+    decoder is a submodule (its parameters), and the reservoir or GESN
+    layers, the operators, the readouts and the scaler are buffers."""
+
+    def __init__(self, fc, parts):
+        super().__init__()
+        self._fc = fc
+        if isinstance(fc, OnlineForecaster):
+            self.model = fc.model
+        self._parts = {p: _hold(self, p.strip("_"), getattr(fc, p))
+                       for p in parts}
+
+    def forward(self, state, x_raw, u_t=None):
+        fc = copy.copy(self._fc)
+        for part, rebuild in self._parts.items():
+            setattr(fc, part, rebuild())
+        return fc._advance(list(state), x_raw, u_t)
+
+
+def export_forecaster(fc, path: str, example_u=None) -> int:
+    """Write the forecaster's step as one deployable artifact.
+
+    ``torch.export.export`` traces the step ``(state, x_raw) -> (state',
+    forecast)``, or ``(state, x_raw, u_t) -> ...`` when ``example_u`` is
+    given, with the reservoir state managed by the caller or
+    :class:`ExportedForecaster`. The decoder parameters, the propagation
+    operators, the reservoir or GESN layers, the readouts and the scaler
+    are embedded (the parameters and buffers of a small wrapper module),
+    so serving needs no model or encoder code, only :func:`load_forecaster`.
+    Works for multi-stream (``n_streams``) forecasters (the input keeps the
+    ``[S, N, C]`` layout) and for :class:`OnlineGESNForecaster`. The
+    program and its shapes go into one file written by
+    ``torch.export.save`` (the shapes in an extra file), through a
+    ``.tmp`` file and ``os.replace``. Returns the artifact's size in bytes.
+
+    Args:
+        example_u: an exogenous input of the shape live ``step`` calls
+            will pass (``[F]``, or ``[S, F]`` with ``n_streams``),
+            required when the decoder was built with exogenous features
+            (only its shape is used).
+
+    Two differences from the JAX package's StableHLO artifact: loading
+    needs ``sgp_tpu_torch.ops`` imported, because importing it registers
+    the custom op ``sgp::bsr_spmm`` that a BSR operator's hops call; and
+    the artifact is tied to the device it was exported on (the card's
+    artifact serves on the card, through the kernel).
+    """
+    if isinstance(fc, OnlineGESNForecaster):
+        if example_u is not None:
+            raise ValueError("the DynGESN serving path takes no "
+                             "exogenous input")
+        parts = ("_gesn", "_op", "_w", "_b", "scaler")
+        f_in = fc._gesn.layers[0].w_ih.shape[1]
+        u_shape = None
+    else:
+        parts = ("_res", "_ops", "scaler")
+        f_in = fc._res.layers[0].w_ih.shape[1]
+        if getattr(fc.model, "exog_size", 0) and example_u is None:
+            raise ValueError(
+                "the decoder was built with exog_size="
+                f"{fc.model.exog_size} — pass example_u (shape of the "
+                "live u_t) so the artifact's signature includes it")
+        u_shape = None if example_u is None else \
+            tuple(np.shape(example_u))
+    # state is [N, H] a layer (or [S, N, H] multi-stream); the raw
+    # observation has the same leading axes with C = f_in channels
+    x_shape = tuple(fc.state[0].shape[:-1]) + (f_in,)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=torch.float32, device=fc.device)
+    args = ([zeros(h.shape) for h in fc.state], zeros(x_shape)) + (
+        () if u_shape is None else (zeros(u_shape),))
+    with torch.no_grad():
+        program = torch.export.export(_StepModule(fc, parts).eval(), args)
+    meta = {"state_shapes": [list(h.shape) for h in fc.state],
+            "input_shape": list(x_shape),
+            "u_shape": None if u_shape is None else list(u_shape),
+            "device": str(fc.device)}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fp:
+        torch.export.save(program, fp, extra_files={_META: json.dumps(meta)})
+    os.replace(tmp, path)
+    return os.path.getsize(path)
+
+
+class ExportedForecaster:
+    """Runtime wrapper around an :func:`export_forecaster` artifact: the
+    same ``step``/``reset`` surface as :class:`OnlineForecaster`, no model
+    or encoder code needed."""
+
+    def __init__(self, program, state_shapes, input_shape, u_shape=None,
+                 device="cpu"):
+        self._step = program.module()
+        self._state_shapes = [tuple(s) for s in state_shapes]
+        self.input_shape = tuple(input_shape)
+        self.u_shape = None if u_shape is None else tuple(u_shape)
+        self.device = torch.device(device)
+        self.reset()
+
+    @torch.no_grad()
+    def step(self, x_raw, u_t=None):
+        if (u_t is None) != (self.u_shape is None):
+            raise ValueError(
+                "artifact exported "
+                + ("WITH" if self.u_shape is not None else "WITHOUT")
+                + f" exogenous input (u_shape={self.u_shape}); step() "
+                + "must match")
+        args = (self.state, torch.as_tensor(
+            x_raw, dtype=torch.float32, device=self.device))
+        if u_t is not None:
+            args += (torch.as_tensor(u_t, dtype=torch.float32,
+                                     device=self.device),)
+        self.state, y = self._step(*args)
+        return y
+
+    def reset(self):
+        self.state = [torch.zeros(s, dtype=torch.float32, device=self.device)
+                      for s in self._state_shapes]
+
+
+def load_forecaster(path: str) -> ExportedForecaster:
+    """Load an artifact written by :func:`export_forecaster` (on the
+    device it was exported on). Importing this module imports
+    ``sgp_tpu_torch.ops``, which registers ``sgp::bsr_spmm``."""
+    extra = {_META: ""}
+    program = torch.export.load(path, extra_files=extra)
+    meta = json.loads(extra[_META])
+    return ExportedForecaster(program, meta["state_shapes"],
+                              meta["input_shape"], meta["u_shape"],
+                              meta["device"])

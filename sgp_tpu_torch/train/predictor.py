@@ -93,6 +93,29 @@ def apply_gradients(model: torch.nn.Module, optimizer, grad_clip: float,
         scheduler.step()
 
 
+def lr_boundaries(lr_milestones, steps_per_epoch: int) -> list:
+    """The steps at which the learning rate drops: ``optax``'s
+    ``piecewise_constant_schedule`` runs step t at lr times every gamma
+    whose boundary is <= t; the reference keys its boundaries in a dict,
+    so milestones that land on one step apply gamma once."""
+    return sorted({int(m * steps_per_epoch) for m in (lr_milestones or [])})
+
+
+def make_optimizer(params, lr: float, weight_decay: float = 0.0,
+                   boundaries=(), gamma: float = 0.25):
+    """``(optimizer, scheduler)``: Adam, or AdamW with ``weight_decay`` >
+    0 (optax's defaults), and the piecewise-constant schedule over
+    ``boundaries`` (:func:`lr_boundaries`), stepped once an update."""
+    if weight_decay > 0:
+        opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay)
+    else:
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda t: gamma ** sum(t >= b for b in boundaries))
+    return opt, sched
+
+
 def _cast_floats(v, dtype):
     """Every f32 tensor of ``v`` (a tensor, or parameters or a call's
     arguments in dicts, tuples and lists) in ``dtype``; everything else
@@ -157,11 +180,7 @@ class Predictor:
         self.seed = seed
         self.lr, self.weight_decay, self.grad_clip = lr, weight_decay, \
             grad_clip
-        # optax.piecewise_constant_schedule: step t runs at lr times every
-        # gamma whose boundary is <= t; the reference keys its boundaries in
-        # a dict, so milestones that land on one step apply gamma once
-        self._boundaries = sorted({int(m * steps_per_epoch)
-                                   for m in (lr_milestones or [])})
+        self._boundaries = lr_boundaries(lr_milestones, steps_per_epoch)
         self.lr_gamma = lr_gamma
         self.optimizer = None
         self.scheduler = None
@@ -180,16 +199,9 @@ class Predictor:
             reset(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device)
         params = list(self.model.parameters())
-        if self.weight_decay > 0:
-            self.optimizer = torch.optim.AdamW(
-                params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
-                weight_decay=self.weight_decay)
-        else:
-            self.optimizer = torch.optim.Adam(params, lr=self.lr,
-                                              betas=(0.9, 0.999), eps=1e-8)
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.optimizer, lambda t: self.lr_gamma ** sum(
-                t >= b for b in self._boundaries))
+        self.optimizer, self.scheduler = make_optimizer(
+            params, self.lr, self.weight_decay, self._boundaries,
+            self.lr_gamma)
         self.scaler = _to_device(scaler, self.device)
         n_params = sum(p.numel() for p in params)
         logger.info(f"Initialized model with {n_params:,} parameters")

@@ -78,6 +78,15 @@ GESN = (
     "sgp_tpu_torch.exp.run_closed_form", "sgp_tpu_torch.serve")
 
 
+# the imputation runner (GRIN, the RNN imputers, the whitening trainer) and
+# the forecaster export
+IMPUTATION = (
+    "sgp_tpu_torch.data.imputation", "sgp_tpu_torch.models.grin",
+    "sgp_tpu_torch.models.rnni", "sgp_tpu_torch.train.imputer",
+    "sgp_tpu_torch.exp.run_imputation", "sgp_tpu_torch.serve",
+    "sgp_tpu_torch.ops.bsr_kernel")
+
+
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
@@ -93,6 +102,7 @@ def test_port_never_imports_jax():
     assert set(DIFFUSION) <= set(words[2:])
     assert set(TRAFFIC_SGP) <= set(words[2:])
     assert set(GESN) <= set(words[2:])
+    assert set(IMPUTATION) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

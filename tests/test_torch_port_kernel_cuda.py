@@ -1098,3 +1098,89 @@ def test_gesn_encode_on_bsr_matches_dense_and_cpu(cuda, streams):
         ref = out[key]
         err = (got - ref).abs().max() / ref.abs().max()
         assert err <= 1e-5, (key, float(err))
+
+
+@pytest.mark.parametrize("streams", [None, 4])
+def test_exported_bsr_forecaster_launches_k1(cuda, tmp_path, streams):
+    """``export_forecaster`` / ``load_forecaster`` of an ``OnlineForecaster``
+    on BSR operators on the card (4 layers of 16 units, receptive field 2,
+    bidirectional: 4 hops a step, 700 nodes): the loaded program runs K1
+    through ``sgp::bsr_spmm``, one launch a hop (counted inside the
+    program), and its forecasts lie within 1e-5 of the largest of the live
+    forecaster's."""
+    from sgp_tpu_torch.encode import SGPEncoder
+    from sgp_tpu_torch.data import ScalerParams
+    from sgp_tpu_torch.models import SGPModel
+    from sgp_tpu_torch.serve import (OnlineForecaster, export_forecaster,
+                                     load_forecaster)
+    rng = np.random.default_rng(5)
+    n = 700
+    g = coalesce(Graph(rng.integers(0, n, 7000), rng.integers(0, n, 7000),
+                       rng.random(7000).astype(np.float32), n))
+    enc = SGPEncoder(input_size=1, reservoir_size=16, reservoir_layers=4,
+                     receptive_field=2, bidirectional=True,
+                     operator_mode="bsr", seed=3, device=cuda)
+    model = SGPModel(input_size=enc.output_size, order=enc.output_size // 16,
+                     n_nodes=n, hidden_size=32, mlp_size=16, output_size=1,
+                     n_layers=1, horizon=3,
+                     generator=torch.Generator().manual_seed(0))
+    scaler = ScalerParams(torch.full((1, 1, 1), 0.5, device=cuda),
+                          torch.full((1, 1, 1), 2.0, device=cuda))
+    fc = OnlineForecaster(enc, g, model.to(cuda), scaler,
+                          n_streams=streams, device=cuda)
+    path = str(tmp_path / "fc.pt2")
+    export_forecaster(fc, path)
+    loaded = load_forecaster(path)
+    lead = () if streams is None else (streams,)
+    obs = rng.standard_normal((6,) + lead + (n, 1)).astype(np.float32)
+    for t in range(6):
+        live = fc.step(obs[t])
+        before = bsr_spmm.launches
+        got = loaded.step(obs[t])
+        torch.cuda.synchronize()
+        assert bsr_spmm.launches - before == 4
+        assert got.device.type == "cuda" and got.shape == live.shape
+        err = (got - live).abs().max() / live.abs().max()
+        assert err <= 1e-5, (t, float(err))
+
+
+def test_grin_step_on_bsr_supports_matches_dense(cuda):
+    """One GRIN train step (``train/imputer.py``, the whitening mask drawn
+    once and handed to both) on BSR supports (K1 forward and backward)
+    against the same step on the dense supports, from the same weights:
+    the losses within 1e-5 relative, every gradient within 1e-4 of its
+    parameter's largest (f32 sums in other orders through 6 recurrent
+    steps), and 10 K1 launches a step and direction forward."""
+    import copy
+    from sgp_tpu_torch.models import GRINModel, diff_conv_support
+    from sgp_tpu_torch.train.imputer import draw_keep, imputer_loss
+    rng = np.random.default_rng(6)
+    n, s = 700, 6
+    g = coalesce(Graph(rng.integers(0, n, 7000), rng.integers(0, n, 7000),
+                       rng.random(7000).astype(np.float32), n))
+    x = torch.as_tensor(rng.standard_normal((2, s, n, 1)).astype(
+        np.float32), device=cuda)
+    batch = {"x": x, "y": x + 0.1, "mask": torch.as_tensor(
+        rng.random((2, s, n, 1)) > 0.2, device=cuda)}
+    keep = draw_keep(batch["mask"], 0.05,
+                     torch.Generator(device=cuda).manual_seed(0))
+    model = GRINModel(1, 16, n_nodes=n, ff_size=16,
+                      generator=torch.Generator().manual_seed(0)).to(cuda)
+    out = {}
+    for mode in ("bsr", "dense"):
+        sup = diff_conv_support(g, operator_mode=mode, device=cuda)
+        m = copy.deepcopy(model)
+        before = bsr_spmm.launches
+        loss = imputer_loss(m, batch, lambda b, tr: (
+            (b["x"], sup), {"mask": b["mask"]}), keep)
+        torch.cuda.synchronize()
+        fwd = bsr_spmm.launches - before
+        loss.backward()
+        out[mode] = (float(loss.detach()), fwd, {k: p.grad for k, p in
+                                         m.named_parameters()})
+    assert out["bsr"][1] == 2 * s * 10 and out["dense"][1] == 0
+    assert abs(out["bsr"][0] - out["dense"][0]) <= 1e-5 * out["dense"][0]
+    for k, want in out["dense"][2].items():
+        got = out["bsr"][2][k]
+        assert float((got - want).abs().max()) <= \
+            1e-4 * max(float(want.abs().max()), 1e-6), k

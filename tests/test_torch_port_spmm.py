@@ -27,6 +27,7 @@ from sgp_tpu.ops.spmm import GlobalMeanOperator as JGlobalMean
 import sgp_tpu_torch.graph as tg
 from sgp_tpu_torch.ops import (BSROperator, GlobalMeanOperator, bsr_spmm,
                                bsr_spmm_plain, build_operator)
+from sgp_tpu_torch.ops.bsr_kernel import kept_transpose
 
 torch.set_num_threads(1)
 
@@ -161,15 +162,16 @@ def test_bsr_gradients_match_jax(rng, lead, dtype):
     assert _rel(xt.grad, want_x) <= TOL[dtype]
     assert _rel(tiles.grad.float(), np.asarray(want_b, np.float32)) \
         <= TOL[dtype]
-    assert trainable._transpose._tiles is None   # trainable: not kept
+    kept = kept_transpose(op.block_cols)        # shared by both operators
+    assert kept._tiles is None                  # trainable: not kept
     # constant tiles: the transposed tiles are built once and kept
     x2 = torch.tensor(x, requires_grad=True)
     (op @ x2).square().sum().backward()
-    kept = op._transpose._tiles
-    assert kept is not None and kept.dtype == torch.float32
+    tiles_t = kept._tiles
+    assert tiles_t is not None and tiles_t.dtype == torch.float32
     x3 = torch.tensor(x, requires_grad=True)
     (op @ x3).square().sum().backward()
-    assert op._transpose._tiles is kept
+    assert kept._tiles is tiles_t
     np.testing.assert_array_equal(x3.grad.numpy(), x2.grad.numpy())
     np.testing.assert_array_equal(x2.grad.numpy(), xt.grad.numpy())
 
