@@ -26,7 +26,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from sgp_tpu_torch.data.splitters import Splitter, TemporalSplitter
+from sgp_tpu_torch.data.splitters import (AtTimeStepSplitter, Splitter,
+                                          TemporalSplitter)
 from sgp_tpu_torch.utils.config import config as global_config
 
 logger = logging.getLogger(__name__)
@@ -115,12 +116,16 @@ def get_dataset(name: str, **kwargs):
 
 def get_splitter(dataset_name: str, val_len: float = 0.1,
                  test_len: float = 0.2) -> Splitter:
-    """The traffic datasets split at the paper's timestamps; everything
-    else splits temporally."""
-    if dataset_name in ("la", "bay"):
-        raise NotImplementedError(
-            "AtTimeStepSplitter (the traffic datasets' datetime split) is "
-            "not ported yet (ROADMAP A9)")
+    """The traffic datasets split at the paper's timestamps
+    (``run_traffic_sgp.py:52-60``); everything else splits temporally."""
+    if dataset_name == "la":
+        return AtTimeStepSplitter(first_val_ts=(2012, 5, 25, 16, 0),
+                                  last_val_ts=(2012, 6, 4, 3, 20),
+                                  first_test_ts=(2012, 6, 4, 4, 20))
+    if dataset_name == "bay":
+        return AtTimeStepSplitter(first_val_ts=(2017, 5, 11, 7, 20),
+                                  last_val_ts=(2017, 5, 25, 17, 40),
+                                  first_test_ts=(2017, 5, 25, 18, 40))
     return TemporalSplitter(val_len=val_len, test_len=test_len)
 
 

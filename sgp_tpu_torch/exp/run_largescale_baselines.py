@@ -19,7 +19,11 @@ diffusion supports built on the device from each batch's edge arrays
 (``diff_conv_support_from_arrays``) and evaluate on the full graph's
 ``diff_conv_support``. ``--subgraph-k 0`` with a graph model raises: a
 node-subset batch with the full graph's edges indexes out of range (the
-JAX runner silently computes on clamped indices).
+JAX runner silently computes on clamped indices). ``stcn`` and
+``rnn2gcn`` raise with either loader: the JAX runner hands them the full
+graph's operator beside subgraph batches, which fails on the node count
+unless the padded subgraph holds every node, and then its relabelled
+nodes need not be the graph's.
 
 Usage::
 
@@ -53,9 +57,21 @@ logger = logging.getLogger(__name__)
 GRAPH_MODELS = ("gatedgn", "gatedgn_conv", "dcrnn", "gwnet")
 
 
+# the models that propagate with the full graph's operator whatever the
+# batch (the JAX runner's ``build_model_and_forward`` route)
+FULL_GRAPH_MODELS = ("stcn", "rnn2gcn")
+
+
 def check_loader(args):
     """A graph model on node-subset batches would pair the subset's nodes
-    with the full graph's edges: refuse it before anything runs."""
+    with the full graph's edges, and a model of ``FULL_GRAPH_MODELS`` pairs
+    any sampled batch with them: refuse it before anything runs."""
+    if args.model_name in FULL_GRAPH_MODELS:
+        raise ValueError(
+            f"--model-name {args.model_name} propagates with the full "
+            f"graph's operator, which does not fit this runner's sampled "
+            f"batches (subgraphs or node subsets); train it with "
+            f"run_traffic_baselines")
     if args.subgraph_k <= 0 and args.model_name in GRAPH_MODELS:
         raise ValueError(
             f"--subgraph-k {args.subgraph_k} with --model-name "

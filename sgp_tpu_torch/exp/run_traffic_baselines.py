@@ -10,12 +10,14 @@ horizon steps 3, 6 and 12 when the horizon is 12.
 Ported models: ``gatedgn`` and ``gatedgn_conv`` with
 ``--gn-aggregation edges|ell|dense`` and ``--full-graph`` (the ELL table
 runs kernel K4 on the card, the dense mask kernel K3), ``transformer``,
-``rnn`` and ``fc_rnn`` (``--cell-type gru|lstm``), ``tcn``, and ``dcrnn``
-and ``gwnet`` on the diffusion supports of ``diff_conv_support``, built on
-the run's device (``auto``: dense up to 512 MB, so on the runners' graphs
-the hops are matrix products; BSR supports would run kernel K1). The other
-models of the JAX registry raise naming their ROADMAP item, as does
-``--data-sharding batch`` (A10).
+``rnn`` and ``fc_rnn`` (``--cell-type gru|lstm``), ``tcn``, ``dcrnn``
+and ``gwnet`` on the diffusion supports of ``diff_conv_support``, and
+``stcn`` and ``rnn2gcn`` on the row-normalized operator
+``build_operator(normalize_adj(g, "row"))`` under their GraphConvs. Both
+are built once on the run's device (``auto``: dense up to 512 MB, so on
+the runners' graphs the hops are matrix products; a BSR operator would run
+kernel K1). ``--data-sharding batch`` raises naming its ROADMAP item
+(A10).
 
 Usage::
 
@@ -39,18 +41,18 @@ from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
 from sgp_tpu_torch.exp.common import (Experiment, add_common_args,
                                       dataset_kwargs, get_dataset,
                                       get_splitter, str2bool)
-from sgp_tpu_torch.graph import auto_band, padded_incoming
+from sgp_tpu_torch.graph import auto_band, normalize_adj, padded_incoming
 from sgp_tpu_torch.models import (DCRNNModel, FCRNNModel, GraphWaveNetModel,
                                   RNNModel, TCNModel, diff_conv_support,
                                   get_model_class)
-from sgp_tpu_torch.ops import dense_adj_mask
+from sgp_tpu_torch.ops import build_operator, dense_adj_mask
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 _PORTED = ("gatedgn", "gatedgn_conv", "transformer", "rnn", "fc_rnn",
-           "dcrnn", "gwnet", "tcn")
+           "dcrnn", "gwnet", "tcn", "stcn", "rnn2gcn")
 
 
 def configure_parser() -> argparse.ArgumentParser:
@@ -162,10 +164,6 @@ def build_model_and_forward(args, ds, u_size, device=None):
     batch (moved to the device once by the Predictor)."""
     name = args.model_name
     if name not in _PORTED:
-        try:
-            get_model_class(name)  # a model not ported yet raises by name
-        except KeyError:
-            pass
         raise ValueError(f"Model {name} not available.")
     cls = get_model_class(name)
     horizon = ds.windowing.horizon_steps
@@ -208,6 +206,21 @@ def build_model_and_forward(args, ds, u_size, device=None):
                 name, batch, training)
         return model, diffusion_call, {
             "supports": diff_conv_support(ds.graph, device=device)}
+    if name in ("stcn", "rnn2gcn"):
+        if name == "stcn":
+            model = cls(input_size(ds, u_size), args.hidden_size,
+                        args.ff_size, ds.n_channels, horizon,
+                        n_layers=args.n_layers, dropout=args.dropout)
+        else:
+            model = cls(input_size(ds, u_size), args.hidden_size,
+                        ds.n_channels, horizon, rec_layers=args.rec_layers,
+                        gcn_layers=args.n_layers, dropout=args.dropout)
+
+        def graph_conv_call(batch, training):
+            return (batch["x"], batch["op"]), {"u": batch.get("u"),
+                                               "training": training}
+        return model, graph_conv_call, {"op": build_operator(
+            normalize_adj(ds.graph, "row"), device=device)}
     model = cls(input_size=input_size(ds, u_size),
                 input_window_size=args.window,
                 hidden_size=args.hidden_size, output_size=ds.n_channels,

@@ -28,31 +28,35 @@ from sgp_tpu_torch.models.gwnet import (DenseSpatialConvOrderK,
 from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel
 from sgp_tpu_torch.models.rnni import BiRNNImputerModel, RNNImputerModel
 from sgp_tpu_torch.models.sgp import SGPModel, SGPOnlineModel
+from sgp_tpu_torch.models.stgn_extra import (AttPool, Concatenate,
+                                             ConditionalTCNBlock,
+                                             DenseDCRNNCell,
+                                             DifferentiableBinarySampler,
+                                             GCNDecoder, GraphConvGRUCell,
+                                             GraphConvLSTMCell, GraphConvRNN,
+                                             InputEncoder, Lambda,
+                                             LinkPredictor,
+                                             MultiHorizonMLPDecoder, NRIDCRNN,
+                                             RNNEncGCNDecModel, Select,
+                                             STCNBlock, STCNModel)
 from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
                                       TemporalConvNet)
-
-# the JAX registry's models not ported yet, by the ROADMAP item that ports
-# them
-_NOT_PORTED = {"stcn": "A9", "rnn2gcn": "A9"}
 
 
 def get_model_class(name: str):
     """The model registry of ``sgp_tpu/models/__init__.py``: the ported
     classes by name, and the imputers of ``exp/run_imputation.py``
-    (``grin``, ``rnni``, ``birnni``); a model of the JAX registry not
-    ported yet raises ``NotImplementedError`` naming its ROADMAP item, an
-    unknown name ``KeyError``."""
+    (``grin``, ``rnni``, ``birnni``); an unknown name raises
+    ``KeyError``."""
     ported = {"sgp": SGPModel, "online_sgp": SGPOnlineModel,
               "esn": ESNModel, "gatedgn": GatedGraphNetworkMLPModel,
               "gatedgn_conv": GatedGraphNetworkConvModel,
               "transformer": TransformerModel, "rnn": RNNModel,
               "fc_rnn": FCRNNModel, "dcrnn": DCRNNModel,
               "gwnet": GraphWaveNetModel, "tcn": TCNModel,
+              "stcn": STCNModel, "rnn2gcn": RNNEncGCNDecModel,
               "grin": GRINModel, "rnni": RNNImputerModel,
               "birnni": BiRNNImputerModel}
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
     return ported[name]
 
 
@@ -70,4 +74,9 @@ __all__ = ["MLP", "Dense", "GroupedLinear", "LinearReadout", "ResidualMLP",
            "DenseSpatialConvOrderK", "GraphWaveNetModel", "FCRNNModel",
            "RNNModel", "Norm", "TCNModel", "TemporalConv", "TemporalConvNet",
            "GRIL", "GRINModel", "SpatialDecoder", "RNNImputerModel",
-           "BiRNNImputerModel"]
+           "BiRNNImputerModel", "GraphConvGRUCell", "GraphConvLSTMCell",
+           "GraphConvRNN", "DenseDCRNNCell", "ConditionalTCNBlock",
+           "InputEncoder", "STCNBlock", "MultiHorizonMLPDecoder",
+           "GCNDecoder", "AttPool", "STCNModel", "RNNEncGCNDecModel",
+           "LinkPredictor", "DifferentiableBinarySampler", "NRIDCRNN",
+           "Lambda", "Concatenate", "Select"]

@@ -34,6 +34,17 @@ The imputers: ``GRINModel`` (``GRIL_0`` forward, ``GRIL_1`` backward,
 ``MLP_0`` the merge; see :func:`_gril`), ``RNNImputerModel``
 (``rnn_cell``, ``readout``) and ``BiRNNImputerModel`` (``fwd_rnn``,
 ``bwd_rnn``, ``Dense_0``).
+
+The rest of the zoo (``models/stgn_extra.py``): the GraphConv cells'
+gates are ``GraphConv_0..2`` (r, u, c) or ``GraphConv_0..3`` (i, f, g, o)
+under ``GraphConvGRUCell_l`` / ``GraphConvLSTMCell_l``; ``DenseDCRNNCell``'s
+gates are named ``forget``, ``update`` and ``cand``; ``STCNBlock`` holds
+``TemporalConvNet_0``, ``GraphConv_0``, ``Dense_0`` (the skip, when the
+widths differ) and ``LayerNorm_0``; ``MultiHorizonMLPDecoder`` its
+``step_emb`` beside ``MLP_0``; ``RNNEncGCNDecModel`` ``_RNNStack_0`` and
+``GCNDecoder_0``; ``LinkPredictor`` ``Dense_0..1`` (source branch) and
+``Dense_2..3`` (target branch); ``NRIDCRNN`` the embedding,
+``LinkPredictor_0`` and ``DenseDCRNNCell_l``.
 """
 from __future__ import annotations
 
@@ -67,6 +78,14 @@ from sgp_tpu_torch.models.rnn import FCRNNModel, RNNModel, RNNStack
 from sgp_tpu_torch.models.rnni import (BiRNNImputerModel, FlaxRNNCell,
                                        RNNImputerModel)
 from sgp_tpu_torch.models.sgp import SGPModel, SGPOnlineModel
+from sgp_tpu_torch.models.stgn_extra import (AttPool, ConditionalTCNBlock,
+                                             DenseDCRNNCell, GCNDecoder,
+                                             GraphConvGRUCell,
+                                             GraphConvLSTMCell, GraphConvRNN,
+                                             InputEncoder, LinkPredictor,
+                                             MultiHorizonMLPDecoder, NRIDCRNN,
+                                             RNNEncGCNDecModel, STCNBlock,
+                                             STCNModel)
 from sgp_tpu_torch.models.tcn import (Norm, TCNModel, TemporalConv,
                                       TemporalConvNet)
 
@@ -486,6 +505,88 @@ def _birnn_imputer(out: dict, scope: Path, m: BiRNNImputerModel):
     _linear(out, scope + ("Dense_0",), m.readout)
 
 
+def _graph_conv_cell(out: dict, scope: Path, m):
+    gates = (m.r, m.u, m.c) if isinstance(m, GraphConvGRUCell) \
+        else (m.i, m.f, m.g, m.o)
+    for k, conv in enumerate(gates):
+        _graph_conv(out, scope + (f"GraphConv_{k}",), conv)
+
+
+def _graph_conv_rnn(out: dict, scope: Path, m: GraphConvRNN):
+    name = "GraphConvGRUCell" if m.cell == "gru" else "GraphConvLSTMCell"
+    for i, cell in enumerate(m.cells):
+        _graph_conv_cell(out, scope + (f"{name}_{i}",), cell)
+
+
+def _dense_dcrnn_cell(out: dict, scope: Path, m: DenseDCRNNCell):
+    for name in ("forget", "update", "cand"):
+        _dense_spatial(out, scope + (name,), getattr(m, name))
+
+
+def _conditional_tcn(out: dict, scope: Path, m: ConditionalTCNBlock):
+    """``TemporalConv_0`` (x), ``TemporalConv_1`` (u), ``Dense_0``,
+    ``Dense_1`` (no bias), ``Dense_2`` the skip."""
+    _temporal_conv(out, scope + ("TemporalConv_0",), m.conv_x)
+    _temporal_conv(out, scope + ("TemporalConv_1",), m.conv_u)
+    _linear(out, scope + ("Dense_0",), m.x_lin)
+    out[scope + ("Dense_1", "kernel")] = (m.u_lin.weight, True)
+    if m.skip is not None:
+        _linear(out, scope + ("Dense_2",), m.skip)
+
+
+def _input_encoder(out: dict, scope: Path, m: InputEncoder):
+    if m.conditional:
+        _conditional_block(out, scope + ("ConditionalBlock_0",), m.encoder)
+    else:
+        _trunk(out, scope + ("MLP_0",), m.encoder)
+
+
+def _stcn_block(out: dict, scope: Path, m: STCNBlock):
+    _temporal_conv_net(out, scope + ("TemporalConvNet_0",), m.tcn)
+    _graph_conv(out, scope + ("GraphConv_0",), m.conv)
+    if m.skip is not None:
+        _linear(out, scope + ("Dense_0",), m.skip)
+    _layer_norm(out, scope + ("LayerNorm_0",), m.norm)
+
+
+def _multi_horizon(out: dict, scope: Path, m: MultiHorizonMLPDecoder):
+    out[scope + ("step_emb",)] = (m.step_emb, False)
+    _trunk(out, scope + ("MLP_0",), m.mlp)
+
+
+def _gcn_decoder(out: dict, scope: Path, m: GCNDecoder):
+    for i, conv in enumerate(m.convs):
+        _graph_conv(out, scope + (f"GraphConv_{i}",), conv)
+    _mlp_decoder(out, scope + ("MLPDecoder_0",), m.readout)
+
+
+def _att_pool(out: dict, scope: Path, m: AttPool):
+    _linear(out, scope + ("Dense_0",), m.score)
+
+
+def _stcn_model(out: dict, scope: Path, m: STCNModel):
+    for i, block in enumerate(m.blocks):
+        _stcn_block(out, scope + (f"STCNBlock_{i}",), block)
+    _mlp_decoder(out, scope + ("MLPDecoder_0",), m.decoder)
+
+
+def _rnn2gcn_model(out: dict, scope: Path, m: RNNEncGCNDecModel):
+    _rnn_stack(out, scope + ("_RNNStack_0",), m.rnn)
+    _gcn_decoder(out, scope + ("GCNDecoder_0",), m.decoder)
+
+
+def _link_predictor(out: dict, scope: Path, m: LinkPredictor):
+    for k, lin in enumerate((*m.src, *m.dst)):
+        _linear(out, scope + (f"Dense_{k}",), lin)
+
+
+def _nri_dcrnn(out: dict, scope: Path, m: NRIDCRNN):
+    out[scope + ("StaticGraphEmbedding_0", "emb")] = (m.emb.emb, False)
+    _link_predictor(out, scope + ("LinkPredictor_0",), m.link)
+    for i, cell in enumerate(m.cells):
+        _dense_dcrnn_cell(out, scope + (f"DenseDCRNNCell_{i}",), cell)
+
+
 # model class -> the function that lists its flax paths
 _TREES = {
     SGPOnlineModel: _sgp_online,
@@ -516,6 +617,20 @@ _TREES = {
     CausalLinearAttention: _linear_attention,
     GATConv: _gat_conv,
     SpatioTemporalAttention: _st_attention,
+    GraphConvGRUCell: _graph_conv_cell,
+    GraphConvLSTMCell: _graph_conv_cell,
+    GraphConvRNN: _graph_conv_rnn,
+    DenseDCRNNCell: _dense_dcrnn_cell,
+    ConditionalTCNBlock: _conditional_tcn,
+    InputEncoder: _input_encoder,
+    STCNBlock: _stcn_block,
+    MultiHorizonMLPDecoder: _multi_horizon,
+    GCNDecoder: _gcn_decoder,
+    AttPool: _att_pool,
+    STCNModel: _stcn_model,
+    RNNEncGCNDecModel: _rnn2gcn_model,
+    LinkPredictor: _link_predictor,
+    NRIDCRNN: _nri_dcrnn,
 }
 
 

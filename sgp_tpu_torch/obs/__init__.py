@@ -1,3 +1,4 @@
+from sgp_tpu_torch.obs.monitor import ResidualWhitenessMonitor
 from sgp_tpu_torch.obs.run_logger import RunLogger
 
-__all__ = ["RunLogger"]
+__all__ = ["ResidualWhitenessMonitor", "RunLogger"]

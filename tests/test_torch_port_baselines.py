@@ -171,14 +171,15 @@ def test_graph_model_on_node_subsets_raises(monkeypatch, model):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--model-name", "stcn"], NotImplementedError, "A9"),
+    # the dataset loaders are not ported (ROADMAP A9)
+    (["--dataset-name", "la"], ValueError, "not in the repository"),
     # ported (the SGP runner's model); the baseline runners, as the JAX
     # ones, do not take it
     (["--model-name", "esn"], ValueError, "not available"),
     (["--model-name", "sgp"], ValueError, "not available"),
     (["--model-name", "gatedgn", "--data-sharding", "batch"],
      NotImplementedError, "A10")],
-    ids=["stcn", "esn", "sgp", "data-sharding"])
+    ids=["dataset-la", "esn", "sgp", "data-sharding"])
 def test_options_not_ported_raise(argv, error, match):
     with pytest.raises(error, match=match):
         Experiment(t_traffic.run_experiment, t_traffic.configure_parser()).run(

@@ -87,6 +87,15 @@ IMPUTATION = (
     "sgp_tpu_torch.ops.bsr_kernel")
 
 
+# the rest of the model zoo, the whiteness test and its monitor, the data
+# utilities
+ZOO = (
+    "sgp_tpu_torch.models.stgn_extra", "sgp_tpu_torch.analysis",
+    "sgp_tpu_torch.analysis.whiteness", "sgp_tpu_torch.obs.monitor",
+    "sgp_tpu_torch.data.aggregation", "sgp_tpu_torch.data.patterns",
+    "sgp_tpu_torch.data.splitters")
+
+
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
@@ -103,6 +112,7 @@ def test_port_never_imports_jax():
     assert set(TRAFFIC_SGP) <= set(words[2:])
     assert set(GESN) <= set(words[2:])
     assert set(IMPUTATION) <= set(words[2:])
+    assert set(ZOO) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -1184,3 +1184,65 @@ def test_grin_step_on_bsr_supports_matches_dense(cuda):
         got = out["bsr"][2][k]
         assert float((got - want).abs().max()) <= \
             1e-4 * max(float(want.abs().max()), 1e-6), k
+
+
+def _graph_conv_step(cuda, model, n, s):
+    """One masked-MAE step of ``model`` (``STCNModel`` or
+    ``RNNEncGCNDecModel``, the traffic runner's call ``(x, op), {u}``) on
+    a BSR operator and on the dense one from the same weights and batch:
+    ``{mode: (loss, K1 launches forward, K1 launches in all, grads)}``."""
+    import copy
+    rng = np.random.default_rng(7)
+    g = _graph(rng, n, 12 * n)
+    x = torch.as_tensor(rng.standard_normal((4, s, n, 2)).astype(
+        np.float32), device=cuda)
+    u = torch.as_tensor(rng.standard_normal((4, s, 3)).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor(rng.standard_normal((4, 3, n, 2)).astype(
+        np.float32), device=cuda)
+    out = {}
+    for mode in ("bsr", "dense"):
+        op = build_operator(g, mode, device=cuda)
+        m = copy.deepcopy(model)
+        before = bsr_spmm.launches
+        loss = (m(x, op, u=u) - y).abs().mean()
+        torch.cuda.synchronize()
+        fwd = bsr_spmm.launches - before
+        loss.backward()
+        torch.cuda.synchronize()
+        out[mode] = (float(loss.detach()), fwd, bsr_spmm.launches - before,
+                     {k: p.grad for k, p in m.named_parameters()})
+    return out
+
+
+def _bsr_step_matches_dense(out, launches):
+    """The losses within 1e-5 relative, every gradient within 1e-4 of its
+    parameter's largest (f32 sums in other orders: K1's tiles against the
+    SGEMM's k-split), K1 once forward and once (transposed) backward a
+    GraphConv, none on the dense route."""
+    assert out["bsr"][1] == launches and out["bsr"][2] == 2 * launches
+    assert out["dense"][2] == 0
+    assert abs(out["bsr"][0] - out["dense"][0]) <= 1e-5 * out["dense"][0]
+    for k, want in out["dense"][3].items():
+        got = out["bsr"][3][k]
+        assert float((got - want).abs().max()) <= \
+            1e-4 * max(float(want.abs().max()), 1e-6), k
+
+
+def test_stcn_step_on_bsr_matches_dense(cuda):
+    """``STCNModel`` with two blocks (F = batch x window x hidden at each
+    GraphConv) on a ragged 700-node graph."""
+    from sgp_tpu_torch.models import STCNModel
+    model = STCNModel(5, 16, 32, 2, 3, n_layers=2,
+                      generator=torch.Generator().manual_seed(0)).to(cuda)
+    _bsr_step_matches_dense(_graph_conv_step(cuda, model, 700, 6), 2)
+
+
+def test_rnn2gcn_step_on_bsr_matches_dense(cuda):
+    """``RNNEncGCNDecModel`` with two decoder GraphConvs (F = batch x
+    hidden) on a ragged 700-node graph."""
+    from sgp_tpu_torch.models import RNNEncGCNDecModel
+    model = RNNEncGCNDecModel(5, 16, 2, 3, gcn_layers=2,
+                              generator=torch.Generator().manual_seed(0)
+                              ).to(cuda)
+    _bsr_step_matches_dense(_graph_conv_step(cuda, model, 700, 6), 2)
