@@ -34,7 +34,10 @@ state; and the forecaster export (``torch.export`` with K1 as the custom
 op ``sgp::bsr_spmm`` inside the loaded programs) and the imputation runner
 (GRIN with K1 under its diffusion hops, the RNN imputers); and the rest of
 the model zoo, STCN and RNN-enc/GCN-dec with K1 under their GraphConvs and
-the graph recurrent cells, beside the residual-whiteness monitor. In
+the graph recurrent cells, beside the residual-whiteness monitor; and the
+dataset loaders' host parsers (no pandas, no h5py), the correntropy and
+Pearson similarities at PV-US's and CER-En's widths on the card, and
+CER-En's 100-nn graph into K1 under the sgp_cer.yaml encode. In
 phases; any failure raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
@@ -261,7 +264,31 @@ phases; any failure raises and the exit code is not 0:
    ms a batch, peak memory; (f) ``ResidualWhitenessMonitor`` (window 64)
    fed phase 3's ``OnlineForecaster``'s one-step residuals over 64 steps:
    ``update``'s ms beside the forecaster's step, the last window's
-   statistic against the CPU port's (1e-9 relative).
+   statistic against the CPU port's (1e-9 relative);
+19. the datasets, on seeded inputs (no raw file of the datasets is in the
+   repository; every cut is in the ``PV_*``, ``CER_*``, ``LA_*``,
+   ``SIM_CUT_*`` constants): (a) ``build_distance_matrix`` on METR-LA's
+   207 sensors, ``read_cer_archives`` (``build_cer_en``'s parse, up to
+   the arrays) on six zip archives (cut to 40 meters x 14 days each; a
+   meter in two archives, a duplicated row, slot codes 0/49/50, a code
+   one archive lacks), and
+   ``ExchangeBenchmark`` on a full-size table, then neither pandas nor
+   h5py in ``sys.modules`` (the ``.h5`` routes need h5py, which the card's
+   machine lacks: the CPU tests hold them); (b) PV-US's distance
+   similarity on the host against the same float64 formula on the card,
+   the correntropy at PV-US's 5,016 x 105,120 (period 2,016) and CER-En's
+   6,435 x 25,728 (period 336, ~1% missing, masked), CUDA-event times,
+   each against float64 on the card and the CPU port at 512 nodes x 8
+   windows (1e-5), CER-En's float64 Pearson against the CPU port and
+   numpy at the cut; (c) ``CEREn.get_connectivity(method="correntropy",
+   knn=100)`` on (b)'s arrays, the sgp_cer.yaml encode over it (128
+   steps) on K1's route against the dense route with K1's launches
+   counted, then K1 at N 6,435 (2,601 tiles), F 128 and 6,144, f32 and
+   bf16, against its plain version (max and mean error, two calls' bits,
+   times, the bound, the torch sparse BSR product, the dense matmul); (d)
+   ``power_iteration_spectral_radius`` on a 1,024-unit reservoir matrix
+   against LAPACK, ``masked_pinball`` and ``MinMaxScaler`` on card tensors
+   against the CPU port.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part): its bytes (each input read once, each output written once) over
@@ -277,7 +304,8 @@ evaluation's width under ``eval``, from phase 15; its ``gesn``
 sub-entry, F 320, from phase 16; its ``export`` sub-entry, launches
 inside the loaded artifacts, and ``grin`` sub-entry, GRIN's hop widths,
 from phase 17; its ``stcn`` sub-entry, F 49,152, with the GCN decoder's F
-4,096 under ``rnn2gcn``, from phase 18); the last is ``{"ok":
+4,096 under ``rnn2gcn``, from phase 18; its ``cer`` sub-entry, N 6,435,
+F 6,144, from phase 19); the last is ``{"ok":
 true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -2647,13 +2675,15 @@ def phase12_runners(device) -> dict:
     the CPU port, host and step times, idle share, peak memory; then K3's
     forward at run (c)'s evaluation shape."""
     runs = {}
-    for tag, runner, config, flags, kernels in RUNNER_CASES:
-        t0 = time.perf_counter()
-        # a bf16 run starts from its f32 twin's weights and batch
-        twin = runs.get(tag.replace(" bf16", ""), {})
-        runs[tag] = runner_run(tag, runner, config, flags, kernels, device,
-                               twin.get("first_grads"))
-        print(f"[time] phase 12 run {tag}: {time.perf_counter() - t0:.1f} s")
+    with cached_datasets("phase 12"):
+        for tag, runner, config, flags, kernels in RUNNER_CASES:
+            t0 = time.perf_counter()
+            # a bf16 run starts from its f32 twin's weights and batch
+            twin = runs.get(tag.replace(" bf16", ""), {})
+            runs[tag] = runner_run(tag, runner, config, flags, kernels,
+                                   device, twin.get("first_grads"))
+            print(f"[time] phase 12 run {tag}: "
+                  f"{time.perf_counter() - t0:.1f} s")
     pred = runs["c"]["pred"]
     k3 = k3_at_runner_shape(pred.static_batch["gn_adj"], device,
                             read_flat_yaml(FULL_CONFIG)["hidden_size"])
@@ -2986,16 +3016,18 @@ def phase13_diffusion(raw, graph, device) -> dict:
         print(f"[time] phase 13 {name}: {time.perf_counter() - t0:.1f} s")
     out["k1"] = k1_at_diffconv_widths(graph, device)
     out["runs"] = {}
-    for tag, runner, config, flags in DIFF_RUNNER_CASES:
-        t0 = time.perf_counter()
-        # the LSTM's cuDNN backward at batch 64 x 5,016 series asks for one
-        # 40 GiB workspace: hand the cache's free blocks back first
-        torch.cuda.empty_cache()
-        row = runner_run(tag, runner, config, flags, (), device,
-                         phase="phase 13", cpu_nodes=DIFF_CPU_NODES)
-        del row["pred"], row["first_grads"]
-        out["runs"][tag] = row
-        print(f"[time] phase 13 run {tag}: {time.perf_counter() - t0:.1f} s")
+    with cached_datasets("phase 13"):
+        for tag, runner, config, flags in DIFF_RUNNER_CASES:
+            t0 = time.perf_counter()
+            # the LSTM's cuDNN backward at batch 64 x 5,016 series asks for
+            # one 40 GiB workspace: hand the cache's free blocks back first
+            torch.cuda.empty_cache()
+            row = runner_run(tag, runner, config, flags, (), device,
+                             phase="phase 13", cpu_nodes=DIFF_CPU_NODES)
+            del row["pred"], row["first_grads"]
+            out["runs"][tag] = row
+            print(f"[time] phase 13 run {tag}: "
+                  f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3490,26 +3522,33 @@ def bsr_supports(args):
 
 
 @contextlib.contextmanager
-def cached_datasets():
-    """The runner's ``get_dataset`` made once for each set of arguments
-    inside the block: the synthetic year costs the host a pass of the
-    dense diffusion operator a step."""
-    import sgp_tpu_torch.exp.run_largescale_sgp as runner
-    get, cache = runner.get_dataset, {}
+def cached_datasets(tag: str = "phase 15"):
+    """The runners' ``get_dataset`` made once for each set of arguments
+    inside the block (the runners read the dataset's arrays and never
+    write them): the synthetic set costs the host a pass of the dense
+    diffusion operator a step, ~5 s at 5,016 x 640."""
+    from sgp_tpu_torch.exp import (run_largescale_baselines,
+                                   run_largescale_sgp,
+                                   run_traffic_baselines)
+    runners = (run_largescale_sgp, run_largescale_baselines,
+               run_traffic_baselines)
+    get, cache = run_largescale_sgp.get_dataset, {}
 
     def cached(name, **kwargs):
         key = (name, tuple(sorted(kwargs.items())))
         if key not in cache:
             t0 = time.perf_counter()
             cache[key] = get(name, **kwargs)
-            print(f"[phase 15] dataset {key}: "
+            print(f"[{tag}] dataset {key}: "
                   f"{time.perf_counter() - t0:.1f} s on the host")
         return cache[key]
-    runner.get_dataset = cached
+    for mod in runners:
+        mod.get_dataset = cached
     try:
         yield
     finally:
-        runner.get_dataset = get
+        for mod in runners:
+            mod.get_dataset = get
 
 
 class StratRecorder:
@@ -5164,6 +5203,462 @@ def phase18_zoo(ds, graph, scaler, device) -> dict:
     return dict(steps=steps, cells=cells, k1=k1, runs=runs, monitor=monitor)
 
 
+# phase 19, the dataset loaders and the graph builds at the datasets'
+# widths; no raw file of the datasets is in the repository, so every input
+# is drawn from SEED (every cut is in these constants)
+LA_SENSORS = 207        # (a) METR-LA's sensors, the first ids of the CSV
+LA_CSV_IDS = 400        # (a) the distance CSV's ids, a quarter of the pairs
+CER_ARCHIVES = 6        # (a) the six File<i>.txt.zip archives, cut from
+CER_ARCHIVE_METERS = 40  # 6,435 meters over 536 days to 40 meters each
+CER_DAYS = 14           # over 14 days
+EXCHANGE_SHAPE = (7588, 8)   # (a) exchange_rate.txt.gz at its full size
+PV_PLANTS, PV_STEPS = 5016, 105120   # (b) PV-US: a year of 5-minute steps
+PV_NOISE = 0.04         # (b) per-plant noise over the shared daylight curve
+CER_METERS, CER_STEPS = 6435, 25728  # (b) CER-En: 536 days of half-hours
+CER_NOISE = 0.2
+CER_MISSING = 0.01      # (b) share of missing readings, in runs per meter
+SIM_CUT_NODES, SIM_CUT_WINDOWS = 512, 8   # (b) the CPU port's cut
+TOL_SIM_CARD = 1e-5     # (b) card f32 vs float64 on the card, and vs CPU
+TOL_PEARSON = 1e-10     # (b) float64 Pearson, card vs CPU port and numpy
+CER_CONFIG = ROOT / "configs" / "largescale_100nn" / "sgp_cer.yaml"
+CER_ENCODE_STEPS = 128  # (c) the encode through K1: two chunks of 64 steps
+CER_WIDTHS = (128, 6144)    # (c) K1's F: phase 2's, and the encode's hop
+RESERVOIR_UNITS = 1024  # (d) the reservoir matrix of the power iteration
+TOL_POWER = 1e-3        # (d) 1,500 power steps against LAPACK, relative
+
+
+def la_csv(tmp: Path, rng) -> dict:
+    """(a) METR-LA's ids file and distance CSV (ids written as floats, as
+    the published CSV holds them) through ``build_distance_matrix``,
+    against a vectorized fill of the same pairs."""
+    from sgp_tpu_torch.data.datasets.build import (build_distance_matrix,
+                                                   read_sensor_ids)
+    ids = rng.choice(np.arange(700000, 800000), LA_CSV_IDS, replace=False)
+    (tmp / "sensor_ids_la.txt").write_text(
+        ",".join(str(i) for i in ids[:LA_SENSORS]))
+    src, dst = np.nonzero(rng.random((LA_CSV_IDS, LA_CSV_IDS)) < 0.25)
+    cost = np.round(rng.random(len(src)) * 1e4, 1)
+    (tmp / "distances_la.csv").write_text("from,to,cost\n" + "".join(
+        f"{ids[a]}.0,{ids[b]}.0,{c}\n" for a, b, c in zip(src, dst, cost)))
+    t0 = time.perf_counter()
+    dist = build_distance_matrix(str(tmp / "distances_la.csv"),
+                                 read_sensor_ids(str(tmp /
+                                                     "sensor_ids_la.txt")))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ref = np.full((LA_SENSORS, LA_SENSORS), np.inf, np.float32)
+    keep = (src < LA_SENSORS) & (dst < LA_SENSORS)
+    ref[src[keep], dst[keep]] = cost[keep]
+    assert np.array_equal(dist, ref), "the distance matrix differs"
+    return {"csv_rows": len(src), "sensors": LA_SENSORS,
+            "finite": int(np.isfinite(dist).sum()), "host_ms": host_ms}
+
+
+def cer_zips(tmp: Path, rng) -> dict:
+    """(a) ``build_cer_en``'s parsing of six seeded archives, up to the
+    arrays (``read_cer_archives``; the write needs h5py): a meter in two
+    archives, a duplicated row, the DST slot codes 49/50, slot 0, a code
+    one archive lacks."""
+    from zipfile import ZipFile
+
+    from sgp_tpu_torch.data.datasets.build import (CER_START,
+                                                   read_cer_archives)
+    days = np.arange(300, 300 + CER_DAYS)
+    codes = (days[:, None] * 100 + np.arange(51)[None, :]).reshape(-1)
+    dropped = int(days[3] * 100 + 17)
+    for k in range(CER_ARCHIVES):
+        meters = 1000 + k * CER_ARCHIVE_METERS + np.arange(CER_ARCHIVE_METERS)
+        if k == 1:
+            meters = np.append(meters, 1000)     # -> 1000_x and 1000_y
+        mc = codes[codes != dropped] if k == 3 else codes
+        m, c = np.repeat(meters, len(mc)), np.tile(mc, len(meters))
+        load = np.round(rng.random(len(m)) * 3, 3)
+        rows = [f"{a} {b} {v}" for a, b, v in zip(m, c, load)]
+        if k == 0:   # meter 1000's slot 5 of its first day, twice
+            rows[5:6] = [f"{m[5]} {c[5]} 0.5", f"{m[5]} {c[5]} 0.7"]
+        order = rng.permutation(len(rows))
+        with ZipFile(tmp / f"File{k + 1}.txt.zip", "w") as zf:
+            zf.writestr(f"File{k + 1}.txt", "\n".join(
+                rows[i] for i in order))
+    t0 = time.perf_counter()
+    values, index, columns = read_cer_archives(str(tmp))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    cols = list(columns)
+    assert values.shape == (CER_DAYS * 48 - 1, CER_ARCHIVES
+                            * CER_ARCHIVE_METERS + 1), values.shape
+    assert values.dtype == np.float32 and "1000_x" in cols \
+        and "1000_y" in cols
+    assert index[0] == np.datetime64(CER_START, "ns") + np.timedelta64(
+        300, "D") + np.timedelta64(30, "m")
+    assert (np.diff(index) > np.timedelta64(0)).all()
+    dup = values[np.searchsorted(index, index[0] + np.timedelta64(
+        120, "m")), cols.index("1000_x")]
+    assert dup == np.float32((0.5 + 0.7) / 2), dup
+    return {"archives": CER_ARCHIVES, "shape": list(values.shape),
+            "host_ms": host_ms}
+
+
+def exchange_gz(tmp: Path, rng, device) -> dict:
+    """(a) ``ExchangeBenchmark`` on a full-size seeded table, its absolute
+    Pearson on the card (f32) against the same formula in float64 numpy:
+    f32 sums of 7,588 terms, 1e-5."""
+    import gzip
+
+    from sgp_tpu_torch.data.datasets import ExchangeBenchmark
+    x = 1 + 0.01 * np.cumsum(rng.standard_normal(EXCHANGE_SHAPE), 0)
+    with gzip.open(tmp / "exchange_rate.txt.gz", "wt") as fp:
+        np.savetxt(fp, x, delimiter=",", fmt="%.6f")
+    t0 = time.perf_counter()
+    ds = ExchangeBenchmark(root=str(tmp))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    sim = ds.compute_similarity("pearson", device=device)
+    v = ds.target[..., 0].T.astype(np.float64)
+    vc = v - v.mean(1, keepdims=True)
+    norms = np.linalg.norm(vc, axis=1)
+    ref = np.abs((vc @ vc.T) / (norms[:, None] * norms[None, :] + 1e-8))
+    np.fill_diagonal(ref, 0.0)
+    err = float(np.abs(sim - ref).max())
+    assert ds.target.shape == EXCHANGE_SHAPE + (1,) and err <= 1e-5, err
+    return {"shape": list(ds.target.shape), "host_ms": host_ms,
+            "pearson_max_abs_err": err}
+
+
+def phase19_parsers(device) -> dict:
+    """(a) The host parsers on this machine, then neither pandas nor h5py
+    imported."""
+    import tempfile
+    rng = np.random.default_rng(SEED)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = {"la": la_csv(Path(tmp), rng), "cer": cer_zips(Path(tmp), rng),
+               "exchange": exchange_gz(Path(tmp), rng, device)}
+    for name, row in out.items():
+        print(f"[phase 19] (a) {name}: {json.dumps(row)}")
+    loaded = sorted(m for m in ("pandas", "h5py") if m in sys.modules)
+    assert not loaded, f"the loaders imported {loaded}"
+    print("[phase 19] (a) neither pandas nor h5py is imported; the .h5 "
+          "routes (MetrLA, PemsBay, PvUS, CEREn files, save_frame_h5) need "
+          "h5py, which this machine lacks: the CPU tests hold them "
+          "(tests/test_torch_port_datasets.py)")
+    return out
+
+
+def seeded_series(n_steps, n_nodes, day_steps, noise, gen, device):
+    """A shared daily curve scaled per node (0.95-1.05) plus gaussian
+    noise, drawn on the card: the nights of PV-US (the curve clipped at 0)
+    and the daily load of CER-En keep the windows' RBF off f32 underflow,
+    which white noise over 2,016 steps is not."""
+    t = torch.arange(n_steps, device=device, dtype=torch.float32)
+    curve = torch.sin(2 * np.pi * t / day_steps)
+    amp = 0.95 + 0.1 * torch.rand(n_nodes, generator=gen, device=device)
+    x = curve[:, None] * amp[None, :]
+    x += noise * torch.randn(n_steps, n_nodes, generator=gen, device=device)
+    return x
+
+
+def sim_row(name, x, period, mask, device, host_fn=None) -> dict:
+    """One correntropy on the card: CUDA-event ms, against float64 on the
+    card and against the CPU port at the cut, the share of exact zeros."""
+    from sgp_tpu_torch.graph.similarities import correntropy
+    got = correntropy(x, period, mask=mask, device=device)
+    ms = cuda_ms(lambda: correntropy(x, period, mask=mask, device=device),
+                 iters=2, warmup=0)
+    t0 = time.perf_counter()
+    exact = correntropy(x.double(), period, mask=mask, device=device)
+    f64_ms = (time.perf_counter() - t0) * 1e3
+    cut = slice(0, SIM_CUT_WINDOWS * period + 1)
+    xc = x[cut, :SIM_CUT_NODES]
+    mc = None if mask is None else mask[cut, :SIM_CUT_NODES]
+    card_cut = correntropy(xc, period, mask=mc, device=device)
+    t0 = time.perf_counter()
+    cpu_cut = correntropy(xc.cpu(), period, mask=None if mc is None
+                          else mc.cpu(), device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    n, t = x.shape[1], x.shape[0]
+    n_win = (t - 1) // period
+    row = {"similarity": name, "n": n, "t": t, "period": period,
+           "windows": n_win, "ms": ms, "float64_ms": f64_ms,
+           "gflop_f32": 2 * n * n * period * n_win / 1e9,
+           "max_abs_err_vs_float64": float(np.abs(got - exact).max()),
+           "cpu_cut": [SIM_CUT_NODES, SIM_CUT_WINDOWS], "cpu_cut_ms": cpu_ms,
+           "max_abs_err_vs_cpu_cut": float(np.abs(card_cut - cpu_cut).max()),
+           "zero_share": float((got == 0).mean()),
+           "mean": float(got.mean()), "min": float(got.min())}
+    if host_fn is not None:
+        t0 = time.perf_counter()
+        host_fn()
+        row["through_dataset_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"[phase 19] (b) {json.dumps(row)}")
+    assert np.isfinite(got).all() and got.shape == (n, n)
+    assert row["max_abs_err_vs_float64"] <= TOL_SIM_CARD, row
+    assert row["max_abs_err_vs_cpu_cut"] <= TOL_SIM_CARD, row
+    return row
+
+
+def pv_distance_row(rng, device) -> dict:
+    """(b) PV-US's distance similarity, on the host by design (haversine
+    in float64, gaussian at theta 150 km), against the same float64
+    formula on the card."""
+    from sgp_tpu_torch.graph.similarities import (gaussian_kernel,
+                                                  geographical_distance)
+    coords = np.stack([rng.uniform(25, 49, PV_PLANTS),
+                       rng.uniform(-125, -67, PV_PLANTS)], axis=1)
+    t0 = time.perf_counter()
+    sim = gaussian_kernel(geographical_distance(coords, to_rad=True),
+                          theta=150)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.as_tensor(np.radians(coords), device=device)
+
+    def card():
+        lat, lon = x[:, 0], x[:, 1]
+        a = (torch.sin((lat[:, None] - lat[None, :]) / 2) ** 2
+             + torch.cos(lat)[:, None] * torch.cos(lat)[None, :]
+             * torch.sin((lon[:, None] - lon[None, :]) / 2) ** 2)
+        d = 2 * 6371.0088 * torch.arcsin(torch.sqrt(a.clamp(0, 1)))
+        return torch.exp(-(d / 150) ** 2)
+    err = float(np.abs(card().cpu().numpy() - sim).max())
+    row = {"similarity": "pv distance", "n": PV_PLANTS, "host_ms": host_ms,
+           "card_float64_ms": cuda_ms(card, iters=3, warmup=1),
+           "max_abs_err_vs_card_float64": err}
+    print(f"[phase 19] (b) {json.dumps(row)}")
+    assert err <= 1e-9, row
+    return row
+
+
+def cer_arrays(gen, device):
+    """(b) CER-En's series with ~1% missing readings in runs (a quarter of
+    the meters lose one run each), as the NaNs of the built frame."""
+    x = seeded_series(CER_STEPS, CER_METERS, 48, CER_NOISE, gen, device)
+    x = x + 1.0
+    run = int(CER_MISSING * 4 * CER_STEPS)
+    meters = torch.nonzero(torch.rand(CER_METERS, generator=gen,
+                                      device=device) < 0.25)[:, 0]
+    starts = torch.randint(0, CER_STEPS - run, (len(meters),),
+                           generator=gen, device=device)
+    steps = starts[:, None] + torch.arange(run, device=device)[None, :]
+    x[steps.reshape(-1), meters.repeat_interleave(run)] = float("nan")
+    index = np.datetime64("2009-07-14T00:30", "ns") + np.arange(
+        CER_STEPS) * np.timedelta64(30, "m")
+    return x.cpu().numpy(), index
+
+
+def phase19_similarities(device) -> tuple:
+    """(b) The similarities at the datasets' widths on the card."""
+    from sgp_tpu_torch.data.datasets import CEREn
+    from sgp_tpu_torch.data.datasets.pv_us import standardize
+    from sgp_tpu_torch.graph.similarities import corrcoef
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    rows = {"pv_distance": pv_distance_row(rng, device)}
+    x = seeded_series(PV_STEPS, PV_PLANTS, 288, PV_NOISE, gen,
+                      device).clamp_(min=0)
+    xs = standardize(x, device)
+    del x
+    rows["pv_correntropy"] = sim_row("pv correntropy", xs, 2016, None,
+                                     device)
+    del xs
+    torch.cuda.empty_cache()
+    values, index = cer_arrays(gen, device)
+    ds = CEREn.from_arrays(values, index)
+    missing = float(1 - ds.mask.mean())
+    xm = torch.as_tensor(ds.target[..., 0] * ds.mask[..., 0], device=device)
+    mask = torch.as_tensor(ds.mask[..., 0], device=device)
+    rows["cer_correntropy"] = sim_row(
+        "cer correntropy", standardize(xm, device), 336, mask, device,
+        host_fn=lambda: ds.get_similarity("correntropy", device=device))
+    rows["cer_correntropy"]["missing_share"] = missing
+    got = ds.get_similarity("pearson", device=device)
+    ms = cuda_ms(lambda: corrcoef(xm, device=device), iters=2, warmup=0)
+    cut = xm[:, :SIM_CUT_NODES]
+    cpu = corrcoef(cut.cpu(), device="cpu")
+    row = {"similarity": "cer pearson (float64)", "n": CER_METERS,
+           "t": CER_STEPS, "ms": ms,
+           "gflop_f64": 2 * CER_METERS ** 2 * CER_STEPS / 1e9,
+           "max_abs_err_vs_cpu_cut": float(np.abs(
+               corrcoef(cut, device=device) - cpu).max()),
+           "max_abs_err_vs_numpy_cut": float(np.abs(
+               np.corrcoef(cut.cpu().numpy(), rowvar=False) - cpu).max())}
+    print(f"[phase 19] (b) {json.dumps(row)}")
+    assert np.isfinite(got).all() and got.shape == (CER_METERS,) * 2
+    assert row["max_abs_err_vs_cpu_cut"] <= TOL_PEARSON, row
+    assert row["max_abs_err_vs_numpy_cut"] <= TOL_PEARSON, row
+    rows["cer_pearson"] = row
+    return rows, ds
+
+
+def k1_cer_row(op, dense_op, f: int, tol: float, rng, device) -> dict:
+    """K1 on the CER graph at width ``f`` against its plain version (in
+    SUPPORT_CHUNK-column calls), as phase 2's rows: max and mean error, two
+    calls' bits, interleaved CUDA-event times; for f32 tiles the bound and
+    the dense operator's matmul, and at the encode's width the torch
+    sparse BSR product."""
+    from sgp_tpu_torch.ops import bsr_spmm, bsr_spmm_plain
+    args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+    n_br = op.row_ptr.numel() - 1
+    n = dense_op.num_nodes
+    x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32),
+                        device=device)
+
+    def plain():
+        return torch.cat([bsr_spmm_plain(
+            op.blocks, op.block_cols, op.block_rows, n_br,
+            x[:, s:s + SUPPORT_CHUNK]) for s in range(0, f, SUPPORT_CHUNK)],
+            dim=1)
+    got, again, ref = bsr_spmm(*args, x), bsr_spmm(*args, x), plain()
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, ref)
+    bias = ((got.float() - ref.float()).mean()
+            / ref.float().abs().max()).item()
+    k_ms, p_ms = interleaved_ms(lambda: bsr_spmm(*args, x), plain, 2,
+                                5 if f > 1024 else 20, plain_iters=2)
+    f32 = op.blocks.dtype == torch.float32
+    row = dict(case="cer graph", n=n, f=f, nnzb=op.blocks.shape[0],
+               dtype=str(op.blocks.dtype).replace("torch.", ""),
+               max_abs_err=abs_err, rel_err=rel, tol=tol, out_mean_err=bias,
+               bitwise_repeat=torch.equal(got, again), ms=k_ms["median"],
+               q1_q3=[k_ms["q1"], k_ms["q3"]], plain_ms=p_ms["median"],
+               plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
+               dense_tile_gflop=2 * op.blocks.numel() * f / 1e9)
+    if f32:
+        nbytes = sum(t.numel() * t.element_size() for t in (
+            *args, x)) + x.numel() * 4
+        row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+        row["dense_operator_ms"] = cuda_ms(lambda: dense_op @ x, 5,
+                                           warmup=1)
+        row["dense_operator_rel_err"] = rel_err(dense_op @ x, ref)[1]
+    if f32 and f == CER_WIDTHS[-1]:
+        npad = n_br * op.blocks.shape[-1]
+        xp = torch.zeros((npad, f), dtype=x.dtype, device=device)
+        xp[:n] = x
+        try:
+            a = torch.sparse_bsr_tensor(op.row_ptr, op.block_cols,
+                                        op.blocks, size=(npad, npad))
+            row["library_max_abs_err"] = rel_err((a @ xp)[:n], ref)[0]
+            row["library_ms"] = cuda_ms(lambda: a @ xp, 2, warmup=1)
+        except (RuntimeError, NotImplementedError, TypeError) as err:
+            row["library_ms"] = None
+            row["library_note"] = f"{type(err).__name__}: {err}"[:300]
+    print(f"[phase 19] (c) K1: {json.dumps(row)}")
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert rel <= tol, f"K1 disagrees with plain on the CER graph: {row}"
+    assert row["bitwise_repeat"], f"two calls differ: {row}"
+    if f32:
+        assert abs(bias) <= TOL_K1_BIAS, f"K1 output is biased: {row}"
+        assert row["dense_operator_rel_err"] <= TOL_F32, row
+    return row
+
+
+def phase19_cer_graph(ds, device) -> dict:
+    """(c) The 100-nn CER-En graph from its correntropy (through
+    ``CEREn.get_connectivity``), the sgp_cer.yaml encode over it on K1's
+    route (launches counted) against the dense route, then K1 at F 128 and
+    6,144 in f32 and bf16."""
+    from sgp_tpu_torch.encode import prepare_propagation_graphs
+    from sgp_tpu_torch.encode import streaming_encode
+    from sgp_tpu_torch.ops import bsr_spmm, build_operator
+    t0 = time.perf_counter()
+    graph = ds.get_connectivity(method="correntropy", knn=KNN,
+                                include_self=False, device=device)
+    g = prepare_propagation_graphs(graph)[0]
+    print(f"[phase 19] (c) CER-En's {KNN}-nn correntropy graph: "
+          f"{graph.num_nodes} nodes, {graph.num_edges} edges in "
+          f"{time.perf_counter() - t0:.1f} s (similarity cached from (b))")
+    cfg = read_flat_yaml(CER_CONFIG)
+    tgt = torch.as_tensor(ds.target[:CER_ENCODE_STEPS], device=device)
+    u = torch.as_tensor(ds.datetime_encoded("day")[:CER_ENCODE_STEPS],
+                        dtype=torch.float32, device=device)
+    x = torch.cat([tgt, u[:, None, :].expand(-1, tgt.shape[1], -1)], -1)
+    outs = {}
+    for mode in ("dense", "bsr"):
+        enc = sgp_encoder(cfg, x.shape[-1], mode, device)
+        torch.cuda.synchronize()
+        bsr_spmm.launches = 0
+        t0 = time.perf_counter()
+        outs[mode] = streaming_encode(enc, x, graph, time_chunk=SGP_CHUNK,
+                                      out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        outs[mode + "_ms"] = (time.perf_counter() - t0) * 1e3
+        outs[mode + "_launches"] = bsr_spmm.launches
+    launches = outs["bsr_launches"]
+    hops = cfg["receptive_field"] * (2 if cfg["bidirectional"] else 1)
+    enc_err = rel_err(outs["bsr"], outs["dense"])[1]
+    t0 = time.perf_counter()
+    streaming_encode(enc, x, graph, time_chunk=SGP_CHUNK,
+                     out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    again_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[phase 19] (c) sgp_cer.yaml encode, {CER_ENCODE_STEPS} steps: "
+          f"{tuple(outs['bsr'].shape)}, K1 launches {launches} "
+          f"({CER_ENCODE_STEPS // SGP_CHUNK} chunks x {hops} hops), BSR vs "
+          f"dense route {enc_err:.3g} of the largest value; wall ms "
+          f"{outs['bsr_ms']:.1f} (BSR, first), {again_ms:.1f} (BSR, "
+          f"second) / {outs['dense_ms']:.1f} (dense)")
+    assert launches == (CER_ENCODE_STEPS // SGP_CHUNK) * hops, launches
+    assert outs["dense_launches"] == 0
+    assert torch.isfinite(outs["bsr"]).all() and enc_err <= TOL_SLICE
+    del outs, x
+    torch.cuda.empty_cache()
+    dense_op = build_operator(g, "dense", device=device)
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    for precision, tol in (("highest", TOL_F32), ("default", TOL_BF16)):
+        op = build_operator(g, "bsr", precision=precision, device=device)
+        for f in CER_WIDTHS:
+            row = k1_cer_row(op, dense_op, f, tol, rng, device)
+            rows[(f, row["dtype"])] = row
+            torch.cuda.empty_cache()
+    return {"edges": graph.num_edges, "launches": launches, "k1": rows}
+
+
+def phase19_helpers(device) -> dict:
+    """(d) A13 on the card: the power iteration on a reservoir matrix
+    against LAPACK; ``masked_pinball`` and ``MinMaxScaler`` on card tensors
+    against the CPU port."""
+    from sgp_tpu_torch.data import MinMaxScaler
+    from sgp_tpu_torch.ops import (power_iteration_spectral_radius,
+                                   spectral_radius_exact)
+    from sgp_tpu_torch.train.metrics import masked_pinball
+    rng = np.random.default_rng(SEED)
+    n = RESERVOIR_UNITS
+    w = rng.uniform(-1, 1, (n, n)) * (rng.random((n, n)) < 0.7)
+    w = (w * (0.99 / spectral_radius_exact(w))).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    radius = float(power_iteration_spectral_radius(w, device=device))
+    power_ms = (time.perf_counter() - t0) * 1e3
+    exact = spectral_radius_exact(w)
+    y_hat = rng.standard_normal((16, 12, 300, 1)).astype(np.float32)
+    y = rng.standard_normal(y_hat.shape).astype(np.float32)
+    mask = rng.random(y.shape) > 0.2
+    card = [torch.as_tensor(a, device=device) for a in (y_hat, y, mask)]
+    pin = float(masked_pinball(*card, q=0.9))
+    pin_cpu = float(masked_pinball(*(torch.as_tensor(a) for a in
+                                     (y_hat, y, mask)), q=0.9))
+    scaler = MinMaxScaler(axis=(0, 1), out_range=(-1.0, 1.0)).fit(y, mask)
+    scaled = scaler.params(device=device).transform(card[1]).cpu().numpy()
+    row = {"power_iteration": radius, "lapack": exact,
+           "rel_err": abs(radius - exact) / exact, "power_ms": power_ms,
+           "masked_pinball_rel_err": abs(pin - pin_cpu) / abs(pin_cpu),
+           "min_max_max_abs_err": float(np.abs(
+               scaled - scaler.transform(y)).max())}
+    print(f"[phase 19] (d) {json.dumps(row)}")
+    assert row["rel_err"] <= TOL_POWER, row
+    assert row["masked_pinball_rel_err"] <= 1e-6, row
+    assert row["min_max_max_abs_err"] <= 1e-6, row
+    return row
+
+
+def phase19_datasets(device) -> dict:
+    """The dataset loaders (every cut is in the phase-19 constants): (a)
+    the host parsers on this machine; (b) the similarities at PV-US's and
+    CER-En's widths on the card; (c) CER-En's 100-nn graph into K1; (d)
+    the A13 helpers on the card."""
+    parsers = timed("phase 19 (a)", phase19_parsers, device)
+    sims, ds = timed("phase 19 (b)", phase19_similarities, device)
+    cer = timed("phase 19 (c)", phase19_cer_graph, ds, device)
+    helpers = timed("phase 19 (d)", phase19_helpers, device)
+    return dict(parsers=parsers, similarities=sims, **cer, helpers=helpers)
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -5223,6 +5718,7 @@ def main():
     p17 = timed("phase 17", phase17_export_and_imputation, ds, graph, scaler,
                 device)
     p18 = timed("phase 18", phase18_zoo, ds, graph, scaler, device)
+    p19 = timed("phase 19", phase19_datasets, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -5284,6 +5780,14 @@ def main():
         "sgp_tpu/ops/bsr_kernel.py:39",
         p18["steps"]["rnn2gcn"]["k1_launches_step"], p18["k1"][f_dec])
     kernels[0]["stcn"]["rnn2gcn"]["f"] = f_dec
+    # the sgp_cer.yaml encode's hop on CER-En's 100-nn graph, N 6,435, F
+    # 6,144 (phase 19 (c)); launches of its two-chunk encode
+    kernels[0]["cer"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", p19["launches"],
+        p19["k1"][(CER_WIDTHS[-1], "float32")])
+    kernels[0]["cer"]["f"] = CER_WIDTHS[-1]
+    kernels[0]["cer"]["n"] = p19["k1"][(CER_WIDTHS[-1], "float32")]["n"]
     # K4's launches from the traffic runner's run (a), K3 forward's from
     # the large-scale runner's run (c); the slices' own counts beside them
     run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]

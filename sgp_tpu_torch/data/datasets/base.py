@@ -53,6 +53,9 @@ class TabularDataset:
     def n_channels(self):
         return self.target.shape[2] if self.target.ndim == 3 else 1
 
+    def numpy(self):
+        return self.target
+
     def datetime_encoded(self, units) -> np.ndarray:
         """Sin/cos phase of the index within each unit, ``[T, 2 *
         len(units)]``."""

@@ -95,6 +95,33 @@ class StandardScaler(Scaler):
         return self
 
 
+class MinMaxScaler(Scaler):
+    """Rescale into ``out_range``."""
+
+    def __init__(self, axis=0, out_range: Tuple[float, float] = (0.0, 1.0)):
+        super().__init__(axis)
+        self.out_range = out_range
+
+    def fit(self, x, mask=None, keepdims=True):
+        out_min, out_max = self.out_range
+        if out_min >= out_max:
+            raise ValueError(f"invalid out_range {self.out_range}")
+        x = np.asarray(x)
+        if mask is not None:
+            xm = np.where(np.asarray(mask, bool), x, np.nan).astype(np.float32)
+            x_min = np.nanmin(xm, axis=self.axis, keepdims=keepdims
+                              ).astype(x.dtype)
+            x_max = np.nanmax(xm, axis=self.axis, keepdims=keepdims
+                              ).astype(x.dtype)
+        else:
+            x_min = x.min(axis=self.axis, keepdims=keepdims)
+            x_max = x.max(axis=self.axis, keepdims=keepdims)
+        scale = _zeros_to_one((x_max - x_min) / (out_max - out_min))
+        self.bias = x_min - out_min * scale
+        self.scale = scale
+        return self
+
+
 class RobustScaler(Scaler):
     """Median / quantile-range scaling; the large-scale experiments use
     ``RobustScaler(quantile_range=(10, 90))``."""

@@ -8,7 +8,8 @@ splitter registries.
 
 The configs under ``configs/`` are flat ``key: value`` files (a value may
 be a block list of scalars), so :func:`load_config` reads them without
-PyYAML and raises on anything nested. ``--device`` is the port's: where
+PyYAML (``utils/config.py::read_flat_yaml``) and raises on anything
+nested. ``--device`` is the port's: where
 the run goes (default ``cuda:0``; ``cpu`` for the CPU).
 """
 from __future__ import annotations
@@ -19,7 +20,6 @@ import inspect
 import json
 import logging
 import os
-import re
 import sys
 from typing import Callable, Optional
 
@@ -29,88 +29,38 @@ import torch
 from sgp_tpu_torch.data.splitters import (AtTimeStepSplitter, Splitter,
                                           TemporalSplitter)
 from sgp_tpu_torch.utils.config import config as global_config
+from sgp_tpu_torch.utils.config import read_flat_yaml
 
 logger = logging.getLogger(__name__)
 
-# YAML 1.1's plain scalars, as PyYAML's safe loader resolves them
-_NULL = {"", "~", "null", "Null", "NULL"}
-_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
-_FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"}
-_INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
-_FLOAT = re.compile(r"^[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$"
-                    r"|^[-+]?\.[0-9_]+(?:[eE][-+][0-9]+)?$")
-
-
-def _scalar(text: str, where: str):
-    if text and text[0] in "[{&*!|>%@`":
-        raise ValueError(f"{where}: only flat scalars are read, got {text!r}")
-    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
-        return text[1:-1]
-    if text in _NULL:
-        return None
-    if text in _TRUE or text in _FALSE:
-        return text in _TRUE
-    if _INT.match(text):
-        return int(text.replace("_", ""))
-    if _FLOAT.match(text):
-        return float(text.replace("_", ""))
-    if text.lower() in (".inf", "+.inf", "-.inf", ".nan"):
-        return float(text.lower().replace(".", ""))
-    if ": " in text or text.endswith(":"):
-        raise ValueError(f"{where}: nested mapping {text!r}")
-    return text
-
-
 def load_config(path: str) -> dict:
-    """Read a flat config: ``key: scalar`` lines, and ``key:`` followed by
-    ``- scalar`` lines for a list. Anything nested raises. Relative paths
-    that do not exist from the working directory are looked up under
+    """Read a flat config (:func:`read_flat_yaml`). Relative paths that do
+    not exist from the working directory are looked up under
     ``configs/``."""
     if not os.path.isabs(path) and not os.path.exists(path):
         path = os.path.join(global_config["config_dir"], path)
-    out, key = {}, None
-    with open(path) as fp:
-        lines = fp.read().splitlines()
-    for i, raw in enumerate(lines, 1):
-        where = f"{path}:{i}"
-        line = re.sub(r"(^|\s)#.*$", "", raw).rstrip()
-        if not line.strip() or line.strip() == "---":
-            continue
-        item = line.lstrip()
-        if item.startswith("- ") or item == "-":
-            if key is None or not isinstance(out[key], list):
-                raise ValueError(f"{where}: list item outside a list")
-            out[key].append(_scalar(item[1:].strip(), where))
-            continue
-        if line[0].isspace():
-            raise ValueError(f"{where}: nested entry {raw!r}")
-        name, sep, value = line.partition(":")
-        if not sep:
-            raise ValueError(f"{where}: not a 'key: value' line: {raw!r}")
-        key, value = name.strip(), value.strip()
-        nxt = next((ln for ln in lines[i:] if ln.strip()
-                    and not ln.lstrip().startswith("#")), "")
-        if not value and nxt.lstrip().startswith("-"):
-            out[key] = []
-        else:
-            out[key] = _scalar(value, where)
-    return out
+    return read_flat_yaml(path)
 
 
 def get_dataset(name: str, **kwargs):
-    """The synthetic datasets; the real ones are not in the repository."""
-    from sgp_tpu_torch.data.datasets import SyntheticDiffusion
+    """The paper's four datasets, read from ``config["data_dir"]``, or the
+    synthetic ones."""
+    from sgp_tpu_torch.data.datasets import (CEREn, MetrLA, PemsBay, PvUS,
+                                             SyntheticDiffusion)
+    if name == "la":
+        return MetrLA()
+    if name == "bay":
+        return PemsBay(mask_zeros=True)
+    if name == "pv":
+        return PvUS(mask_zeros=True)
+    if name == "cer":
+        return CEREn()
     if name == "synthetic":
         return SyntheticDiffusion(**kwargs)
     if name == "synthetic_large":
         return SyntheticDiffusion(num_nodes=kwargs.pop("num_nodes", 1024),
                                   num_steps=kwargs.pop("num_steps", 4000),
                                   **kwargs)
-    if name in ("la", "bay", "pv", "cer"):
-        raise ValueError(
-            f"dataset {name!r}: its data is not in the repository and the "
-            "port reads no downloaded data; use 'synthetic' or "
-            "'synthetic_large'")
     raise ValueError(f"Dataset {name} not available.")
 
 

@@ -81,7 +81,8 @@ def run_experiment(args):
     dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
     exog = dataset.datetime_encoded("day")
     graph = dataset.get_connectivity(
-        threshold=args.adj_threshold, knn=args.adj_knn, include_self=False)
+        threshold=args.adj_threshold, knn=args.adj_knn, include_self=False,
+        device=device)
     ds = SpatioTemporalDataset(
         dataset.target, index=dataset.index, mask=dataset.mask,
         graph=graph, covariates={"u": exog},

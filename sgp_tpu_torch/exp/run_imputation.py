@@ -125,7 +125,8 @@ def run_experiment(args):
     device = resolve_device(getattr(args, "device", None))
     dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
     graph = dataset.get_connectivity(
-        threshold=args.adj_threshold, knn=args.adj_knn, include_self=False)
+        threshold=args.adj_threshold, knn=args.adj_knn, include_self=False,
+        device=device)
     ds = ImputationDataset(
         dataset.target, index=dataset.index, mask=dataset.mask, graph=graph,
         windowing=Windowing(window=args.window, horizon=1))

@@ -135,7 +135,7 @@ def run_experiment(args):
     dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
     exog = dataset.datetime_encoded("day")
     graph = dataset.get_connectivity(knn=args.adj_knn, threshold=None,
-                                     include_self=False)
+                                     include_self=False, device=device)
     logger.info(f"graph: {graph.num_nodes} nodes {graph.num_edges} edges")
     ds = SpatioTemporalDataset(
         dataset.target, index=dataset.index, mask=dataset.mask,

@@ -89,14 +89,15 @@ def _state_copy(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _dataset(args):
+def _dataset(args, device):
     """The dataset, its k-nn graph with the day encoding as exogenous
     input, the split and ``RobustScaler(10, 90)`` fitted on the train
     windows' start steps: ``(ds, split, exog)``."""
     dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
     exog = dataset.datetime_encoded("day")
     graph = dataset.get_connectivity(
-        knn=args.adj_knn, threshold=None, include_self=False)
+        knn=args.adj_knn, threshold=None, include_self=False,
+        device=device)
     logger.info(f"graph: {graph.num_nodes} nodes, {graph.num_edges} edges")
     ds = SpatioTemporalDataset(
         dataset.target, index=dataset.index, mask=dataset.mask,
@@ -147,7 +148,7 @@ def run_experiment(args):
                              "vmapped --search-lr/--search-seeds path")
     _unported(args)
     device = resolve_device(getattr(args, "device", None))
-    ds, split, exog = _dataset(args)
+    ds, split, exog = _dataset(args, device)
     order = derive_order(args)
     est_gb = (ds.n_steps * ds.n_nodes * order * args.reservoir_size
               * 4 / 2 ** 30)
@@ -398,7 +399,7 @@ def run_experiment_stratified(args):
                          "the precompute path)")
     _unported(args)
     device = resolve_device(getattr(args, "device", None))
-    ds, split, exog = _dataset(args)
+    ds, split, exog = _dataset(args, device)
     input_size = ds.n_channels + (exog.shape[-1]
                                   if args.preprocess_exogenous else 0)
     res = Reservoir(input_size=input_size,

@@ -357,3 +357,65 @@ def padded_incoming(g: Graph, pad_to: Optional[int] = None):
     src_idx[dst_s, slot] = src_s
     mask[dst_s, slot] = True
     return src_idx, mask
+
+
+def dummy_graph(kind: str, num_nodes: int, edge_prob: float = 0.1,
+                directed: bool = True, seed: int = 0):
+    """Synthetic connectivity: ``'identity'`` (A = I), ``'full'`` (all
+    pairs incl. self), ``'random'`` (Erdős–Rényi with edge probability
+    ``edge_prob``; undirected = symmetrized upper triangle), or ``'none'``
+    (returns None). Host-side :class:`Graph` with unit weights."""
+    if kind == "none":
+        return None
+    if kind == "identity":
+        idx = np.arange(num_nodes, dtype=np.int64)
+        return Graph(idx, idx, np.ones(num_nodes, np.float32), num_nodes)
+    if kind == "full":
+        idx = np.arange(num_nodes, dtype=np.int64)
+        src = np.repeat(idx, num_nodes)
+        dst = np.tile(idx, num_nodes)
+        return Graph(src, dst, np.ones(len(src), np.float32), num_nodes)
+    if kind == "random":
+        rng = np.random.default_rng(seed)
+        keep = rng.random((num_nodes, num_nodes)) < edge_prob
+        np.fill_diagonal(keep, False)
+        if not directed:
+            keep = np.triu(keep) | np.triu(keep).T
+        src, dst = np.nonzero(keep)
+        return Graph(src.astype(np.int64), dst.astype(np.int64),
+                     np.ones(len(src), np.float32), num_nodes)
+    raise ValueError(f"unknown dummy connectivity {kind!r}")
+
+
+def band_graph(num_nodes: int, halfwidth: int = 4) -> Graph:
+    """Banded line graph: node ``i`` connects to ``i±1..halfwidth`` (both
+    directions, unit weights), the road-network shape of the traffic
+    datasets (low degree, 1-D locality)."""
+    srcs, dsts = [], []
+    for d in range(1, halfwidth + 1):
+        idx = np.arange(num_nodes - d)
+        srcs += [idx, idx + d]
+        dsts += [idx + d, idx]
+    src = np.concatenate(srcs).astype(np.int64)
+    dst = np.concatenate(dsts).astype(np.int64)
+    return Graph(src, dst, np.ones(len(src), np.float32), num_nodes)
+
+
+def morton_order(pos: np.ndarray, bits: int = 16) -> np.ndarray:
+    """Z-order (Morton) node permutation from 2-D positions: nodes sorted
+    by interleaved coordinate bits, so contiguous index blocks are compact
+    spatial tiles. Returns ``perm`` (new position -> old id), the
+    convention of :func:`rcm_order`."""
+    p = np.asarray(pos, np.float64)
+    if p.ndim != 2 or p.shape[1] != 2:
+        raise ValueError("morton_order expects [N, 2] positions")
+    lo, hi = p.min(0), p.max(0)
+    q = ((p - lo) / np.maximum(hi - lo, 1e-12)
+         * (2 ** bits - 1)).astype(np.uint64)
+    code = np.zeros(len(p), np.uint64)
+    for b in range(bits):
+        code |= ((q[:, 0] >> np.uint64(b)) & np.uint64(1)) \
+            << np.uint64(2 * b)
+        code |= ((q[:, 1] >> np.uint64(b)) & np.uint64(1)) \
+            << np.uint64(2 * b + 1)
+    return np.argsort(code, kind="stable").astype(np.int64)

@@ -101,6 +101,34 @@ def write_state(path: str, state: dict):
     os.replace(tmp, path)
 
 
+def save_train_state(path: str, model: torch.nn.Module, optimizer=None,
+                     generator: Optional[torch.Generator] = None,
+                     extra: Optional[Dict] = None):
+    """The model's weights, the optimizer's state, a generator's state and
+    an ``extra`` dict in one ``torch.save`` file, written through
+    ``path + ".tmp"`` and an atomic rename (a crash mid-write keeps the
+    previous file)."""
+    write_state(path, _map_tensors(lambda t: t.detach().clone(), {
+        "model": model.state_dict(),
+        "optimizer": None if optimizer is None else optimizer.state_dict(),
+        "rng": None if generator is None else generator.get_state(),
+        "extra": dict(extra or {})}))
+
+
+def load_train_state(path: str, model: torch.nn.Module, optimizer=None,
+                     generator: Optional[torch.Generator] = None) -> dict:
+    """Counterpart of :func:`save_train_state`: loads the weights and,
+    where given and stored, the optimizer's and the generator's states in
+    place; returns the ``extra`` dict."""
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    model.load_state_dict(state["model"])
+    if optimizer is not None and state["optimizer"] is not None:
+        optimizer.load_state_dict(state["optimizer"])
+    if generator is not None and state["rng"] is not None:
+        generator.set_state(state["rng"])
+    return state["extra"]
+
+
 def save_run_state(path: str, model, optimizer, generator, epoch: int,
                    best_loss: float, best_state: dict,
                    elapsed_s: float = 0.0,

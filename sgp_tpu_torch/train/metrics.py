@@ -72,6 +72,52 @@ def masked_mre(y_hat, y, mask=None):
     return v / torch.clamp(tot, min=1e-12)
 
 
+# -- loss extras -------------------------------------------------------------
+
+def pinball_loss(y_hat, y, q: float = 0.5):
+    """Quantile (pinball) loss, elementwise."""
+    err = y - y_hat
+    return torch.maximum(q * err, (q - 1.0) * err)
+
+
+def masked_pinball(y_hat, y, mask=None, q: float = 0.5):
+    return _mean(lambda a, b: pinball_loss(a, b, q), y_hat, y, mask)
+
+
+def multi_loss(losses, weights=None):
+    """Weighted combination of loss callables: returns ``fn(y_hat, y,
+    mask)``."""
+    if weights is None:
+        weights = [1.0] * len(losses)
+
+    def fn(y_hat, y, mask=None):
+        return sum(w * loss(y_hat, y, mask)
+                   for w, loss in zip(weights, losses))
+    return fn
+
+
+def _take(x, index, dim: int):
+    return torch.index_select(x, dim % x.dim(), torch.as_tensor(
+        index, device=x.device).reshape(-1))
+
+
+def metric_at_steps(metric_fn, steps):
+    """Restrict a metric to specific horizon steps (axis 1)."""
+    def fn(y_hat, y, mask=None):
+        return metric_fn(_take(y_hat, steps, 1), _take(y, steps, 1),
+                         None if mask is None else _take(mask, steps, 1))
+    return fn
+
+
+def metric_on_channels(metric_fn, channels):
+    """Restrict a metric to a subset of channels (the last axis)."""
+    def fn(y_hat, y, mask=None):
+        return metric_fn(_take(y_hat, channels, -1),
+                         _take(y, channels, -1),
+                         None if mask is None else _take(mask, channels, -1))
+    return fn
+
+
 def numpy_metric(fn, y_hat, y, mask=None) -> float:
     """A one-shot metric ``fn`` of arrays, in f32 on the CPU (the JAX
     package's metrics take numpy arrays as f32)."""

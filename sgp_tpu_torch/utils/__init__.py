@@ -1,3 +1,3 @@
-from sgp_tpu_torch.utils.config import config
+from sgp_tpu_torch.utils.config import Config, config
 
-__all__ = ["config"]
+__all__ = ["Config", "config"]

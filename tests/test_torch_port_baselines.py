@@ -18,8 +18,9 @@ layer's Predictor step with the rule for such gradients).
 
 Also: the untrained runs (``--epochs 0``) agree, the port's runner writes
 ``best.pt`` and ``metrics.jsonl``, a graph model on node-subset batches
-(``--subgraph-k 0``) raises before any step, and the options not ported
-raise by name.
+(``--subgraph-k 0``) raises before any step, the options not ported
+raise by name, and a real dataset whose files are absent raises naming
+them.
 """
 import json
 import os
@@ -171,8 +172,10 @@ def test_graph_model_on_node_subsets_raises(monkeypatch, model):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    # the dataset loaders are not ported (ROADMAP A9)
-    (["--dataset-name", "la"], ValueError, "not in the repository"),
+    # the METR-LA loader reads local files only: none are in the
+    # repository, so it names the paths it expected
+    (["--dataset-name", "la"], FileNotFoundError,
+     "metr_la.h5 and .*metr_la_dist.npy"),
     # ported (the SGP runner's model); the baseline runners, as the JAX
     # ones, do not take it
     (["--model-name", "esn"], ValueError, "not available"),

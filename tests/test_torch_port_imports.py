@@ -1,7 +1,9 @@
-"""The PyTorch port imports neither JAX, flax, PyYAML nor the JAX package
-(the card's machine has no PyYAML): every
+"""The PyTorch port imports neither JAX, flax, PyYAML, pandas, h5py nor the
+JAX package (the card's machine has no PyYAML, pandas or h5py): every
 module of ``sgp_tpu_torch`` and ``chip_smoke.py`` is imported in a fresh
-interpreter, which must end with none of them in ``sys.modules``."""
+interpreter, which must end with none of them in ``sys.modules``; no
+import line of the port names pandas (h5py is imported only inside the
+functions that read or write ``.h5`` files)."""
 import os
 import subprocess
 import sys
@@ -21,7 +23,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sgp_tpu",
-                                    "yaml"))
+                                    "yaml", "pandas", "h5py"))
 print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
@@ -96,6 +98,16 @@ ZOO = (
     "sgp_tpu_torch.data.splitters")
 
 
+# the dataset loaders, the similarities and the public helpers (A9, A13)
+DATASETS = (
+    "sgp_tpu_torch.data.datasets.build", "sgp_tpu_torch.data.datasets.metr_la",
+    "sgp_tpu_torch.data.datasets.pems_bay",
+    "sgp_tpu_torch.data.datasets.pv_us", "sgp_tpu_torch.data.datasets.cer_en",
+    "sgp_tpu_torch.data.datasets.mts_benchmarks",
+    "sgp_tpu_torch.graph.similarities", "sgp_tpu_torch.ops.linalg",
+    "sgp_tpu_torch.utils.config")
+
+
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
@@ -113,16 +125,18 @@ def test_port_never_imports_jax():
     assert set(GESN) <= set(words[2:])
     assert set(IMPUTATION) <= set(words[2:])
     assert set(ZOO) <= set(words[2:])
+    assert set(DATASETS) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "sgp_tpu_torch").rglob("*.py")))
 def test_port_source_names_no_jax_import(path):
-    """No import line of the port names jax, flax, yaml or sgp_tpu (a lazy
-    import inside a function would escape the subprocess check)."""
+    """No import line of the port names jax, flax, yaml, pandas or
+    sgp_tpu (a lazy import inside a function would escape the subprocess
+    check)."""
     for line in (ROOT / path).read_text().splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]) and len(words) > 1:
             top = words[1].split(".")[0].rstrip(",")
             assert top not in ("jax", "jaxlib", "flax", "sgp_tpu",
-                               "yaml"), line
+                               "yaml", "pandas"), line

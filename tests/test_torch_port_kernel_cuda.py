@@ -1246,3 +1246,52 @@ def test_rnn2gcn_step_on_bsr_matches_dense(cuda):
                               generator=torch.Generator().manual_seed(0)
                               ).to(cuda)
     _bsr_step_matches_dense(_graph_conv_step(cuda, model, 700, 6), 2)
+
+
+@pytest.mark.parametrize("period,masked", [(336, True), (2016, False)])
+def test_correntropy_on_the_card_matches_cpu(cuda, period, masked):
+    """The windowed correntropy at CER-En's and PV-US's weekly periods
+    (1,024 nodes, 4 windows of a shared daily course plus noise) on the
+    card against the CPU port, and against float64 on the card: 1e-5."""
+    from sgp_tpu_torch.graph.similarities import correntropy
+    rng = np.random.default_rng(0)
+    t, n = 4 * period + 1, 1024
+    day = np.sin(2 * np.pi * np.arange(t) / (period // 7))[:, None]
+    x = (day * (0.95 + 0.1 * rng.random(n))
+         + 0.1 * rng.standard_normal((t, n))).astype(np.float32)
+    x = (x - x.mean()) / x.std()
+    mask = rng.random((t, n)) > 0.001 if masked else None
+    got = correntropy(x, period, mask=mask, device=cuda)
+    cpu = correntropy(x, period, mask=mask, device="cpu")
+    exact = correntropy(x.astype(np.float64), period, mask=mask, device=cuda)
+    assert np.abs(got - cpu).max() <= 1e-5
+    assert np.abs(got - exact).max() <= 1e-5
+    if mask is None:                      # (masked pairs may share no
+        assert (got > 0).mean() > 0.99    # valid window: 0) off underflow
+
+
+def test_k1_on_the_cer_graph_matches_plain(cuda):
+    """K1 at N 6,435 (a ragged last block row: 50 x 128 + 35) on a 100-nn
+    graph that fills every block position, F 128 and 6,144, f32 and bf16
+    tiles, against its plain version; two calls give the same bits."""
+    from sgp_tpu_torch.graph.similarities import top_k
+    rng = np.random.default_rng(0)
+    n = 6435
+    sim = rng.random((n, n)).astype(np.float32)
+    g = normalize_adj(Graph.from_dense(top_k(sim, 100, keep_values=True)))
+    for precision, tol in (("highest", 1e-5), ("default", 1e-2)):
+        op = build_operator(g, "bsr", precision=precision, device=cuda)
+        assert op.blocks.shape[0] == 51 * 51
+        n_br = op.row_ptr.numel() - 1
+        for f in (128, 6144):
+            x = torch.as_tensor(rng.standard_normal((n, f)).astype(
+                np.float32), device=cuda)
+            args = (op.blocks, op.block_cols, op.row_ptr, op.block_rows)
+            got, again = bsr_spmm(*args, x), bsr_spmm(*args, x)
+            ref = torch.cat([bsr_spmm_plain(
+                op.blocks, op.block_cols, op.block_rows, n_br,
+                x[:, s:s + 2048]) for s in range(0, f, 2048)], dim=1)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            err = (got.float() - ref.float()).abs().max()
+            assert err <= tol * ref.float().abs().max(), (precision, f, err)
