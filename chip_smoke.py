@@ -25,7 +25,7 @@ K1 under DiffConv's hops, and the runners on them and on the LSTM; and
 the traffic SGP runner (``exp/run_traffic_sgp.py``) at the widths of
 ``configs/traffic/sgp_la.yaml`` on 207 nodes, with its loader-side
 supports through K1 on the 100-nn graph; and the large-scale runner's
-stratified trainer on PV-US's year (8,868 steps) with K1 under its
+stratified trainer on half of PV-US's year (4,434 steps) with K1 under its
 in-step supports, and its trial search; and DynGESN, the graph echo-state
 encoder with K1 under its recurrence, the closed-form runner
 (``exp/run_closed_form.py``) and its online forecaster, beside the
@@ -37,13 +37,18 @@ the model zoo, STCN and RNN-enc/GCN-dec with K1 under their GraphConvs and
 the graph recurrent cells, beside the residual-whiteness monitor; and the
 dataset loaders' host parsers (no pandas, no h5py), the correntropy and
 Pearson similarities at PV-US's and CER-En's widths on the card, and
-CER-En's 100-nn graph into K1 under the sgp_cer.yaml encode. In
-phases; any failure raises and the exit code is not 0:
+CER-En's 100-nn graph into K1 under the sgp_cer.yaml encode; and the host
+graph core (``sgp_tpu_torch/native``), the runner under the supervisor, the
+trial search, the timers and traces and the roofline's floors. In phases;
+any failure raises and the exit code is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
 1. build the four kernels, one ``nvcc`` each, in parallel
    (``sgp_tpu_torch/csrc/bsr_spmm.cu``, ``gn_ell.cu``, ``gn_allpairs.cu``,
-   ``sddmm.cu``);
+   ``sddmm.cu``), then start one process for each width of the library
+   yardstick (torch's Triton BSR product, ``LIBRARY_WIDTHS``) compiling it
+   into ``build/triton_cache`` at the lowest CPU priority beside phases
+   2-10 (phase 2's library call comes after phase 10);
 2. the BSR kernel against its plain PyTorch version on the card, after
    ``ptxas``'s registers and spills of each instantiation (a spill fails),
    at the slice's shapes (F 16, 64, 128, 512) and on ragged /
@@ -125,7 +130,8 @@ phases; any failure raises and the exit code is not 0:
    (25,155,240 edges; subgraphs capped at 2,500,000 edges; K3's forward in
    evaluation). Each run: its kernels' launches (counters set to 0 just
    before it), finite test metrics below the same run's untrained ones
-   (``--epochs 0``), the first step held against the port on the CPU, the
+   (``--epochs 0``), the first step held against the port on the CPU
+   (run (a)'s, f32 and bf16, on a 1,001-node set of the same command), the
    train loader's host ms a batch, step times, peak memory and a
    profile's idle share; then K3's forward at run (c)'s evaluation shape
    (25.2 M pairs) against its plain version, with its bound;
@@ -175,7 +181,8 @@ phases; any failure raises and the exit code is not 0:
    every cut is in the ``STRAT_*`` and ``SEARCH_*`` constants): first the
    stratified route's first step against the port on the CPU (300 nodes,
    400 steps, dropout off, the card's draws); (a) ``--iid-stratified
-   true`` on 5,016 nodes x 8,868 steps (PV-US's year; the synthetic set is
+   true`` on 5,016 nodes x 4,434 steps (half of PV-US's year of 8,868,
+   for the script's time limit; the synthetic set is
    made once and kept for the phase), 8 of the yaml's 12,897 epochs, the
    dense supports (``auto``): the reservoir encode's wall and the
    resident bf16 embedding's bytes, batch/s of the training calls at
@@ -288,10 +295,32 @@ phases; any failure raises and the exit code is not 0:
    times, the bound, the torch sparse BSR product, the dense matmul); (d)
    ``power_iteration_spectral_radius`` on a 1,024-unit reservoir matrix
    against LAPACK, ``masked_pinball`` and ``MinMaxScaler`` on card tensors
-   against the CPU port.
+   against the CPU port;
+20. the host graph core and the tooling (the ``phase 20`` constants; at
+   most ~90 s, its wall printed): (a) ``add_self_loops`` and
+   ``to_undirected`` of the 100-nn graph, whose ``coalesce`` takes the
+   native route, against the numpy branch (same edges, weights within
+   f32's summation bound), and ``k_hop_subgraph`` as runner (c)'s
+   subgraph loader calls it on its 25,155,240-edge similarity graph
+   against a plain numpy BFS, the host ms of each; (b) ``supervise`` over
+   a worker running the large-scale runner at sgp_pv.yaml's widths on
+   5,016 nodes x 320 steps (T cut from 640, 4 epochs) on
+   ``operator_mode="bsr"``, a checkpoint every epoch, killed by
+   ``SGP_TPU_FAULT`` at epoch 2 and resumed, K1's launches counted in the
+   child; (c) ``run_search`` over two learning rates, at 1 worker in this
+   process and at 2 with a process a trial, whose trials at the yaml's lr
+   are uninterrupted runs of (b)'s command: (b)'s recovered test MAE must
+   equal them bit for bit; (d) ``time_fn`` and ``StepTimer`` beside
+   CUDA-event times of K1 at F 128 and 8,192, and ``profile_trace`` of
+   one two-hop encode chunk naming K1 as often as it launched; (e) the
+   random 1 KiB-row gather beside the roofline's ``ROW_GATHER_LAT_S``, K1
+   per stored block at F 128 on ``bench.py::section_bsr``'s N 40,960
+   banded graph, and K1's bound (``roofline.bsr_spmm_bound``, never above
+   K1's time) at that shape and the 100-nn graph's F 128 and 8,192.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
-SXM part): its bytes (each input read once, each output written once) over
+SXM part, the rates read from ``sgp_tpu_torch/obs/roofline.py``, K1's
+count too): its bytes (each input read once, each output written once) over
 the H100's 3.35 TB/s; its f32-accurate products by the cheaper route, FFMA
 at 67 TFLOP/s or 3xTF32 at 495 / 3 TFLOP/s; its transcendentals over 16 a
 clock per SM at the SM clock ``nvidia-smi`` reports.
@@ -314,6 +343,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import re
 import subprocess
 import sys
@@ -322,6 +352,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# the card's rates (H100 SXM: 3.35 TB/s, FFMA 67 TFLOP/s, TF32 495 TFLOP/s
+# dense) from the port's one source of them
+from sgp_tpu_torch.obs import roofline
+from sgp_tpu_torch.obs.roofline import (FFMA_FLOPS, HBM_BYTES_PER_S,
+                                        TF32_FLOPS)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "largescale_100nn" / "sgp_pv.yaml"
@@ -348,9 +384,6 @@ GN_CONFIG = ROOT / "configs" / "largescale_100nn" / "gatedgn_pv.yaml"
 FULL_CONFIG = ROOT / "configs" / "largescale" / "gatedgn_pv.yaml"
 FULL_DENSITY = 0.1475   # PV-US full graph (paper Table 3)
 BAND_BLOCK = 256        # dst rows per window (the runners' auto_band)
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM: device memory rate
-FFMA_FLOPS = 67e12          # H100 SXM: f32 outside the tensor cores
-TF32_FLOPS = 495e12         # H100 SXM: TF32 on the tensor cores, dense
 MUFU_PER_CLOCK_SM = 16      # transcendentals (ex2, rcp) a clock per SM
 GRAD_CLIP = 5.0         # the runners' default (exp/common.py)
 TRAIN_STEPS = 8         # train steps of each training run
@@ -394,7 +427,7 @@ AP_PLAIN_ITERS = 2      # plain launches a timing sample (~0.1 s each)
 CPU_NODES = 1500        # phase 7's CPU step: fewer nodes, same density
 RAGGED_NODES = 1001     # phase 6's ragged case: N no multiple of anything
 FULL_TIME_ORDER = ("plain", "k3", "k3", "plain")  # phase 7 step timing
-FULL_TIME_STEPS = 8
+FULL_TIME_STEPS = 5
 # K2 against its plain version, relative to the plain version's largest
 # value: f32 TOL_F32 (the same f32 products summed over D in another
 # order); bf16 inputs 2e-2 (both multiply the bf16 values exactly in f32;
@@ -439,9 +472,13 @@ RUNNER_CASES = (
      ("gn_ell_fwd", "gn_ell_bwd")),
     ("b", "largescale", GN_CONFIG, ELL_RUN, ("gn_ell_fwd",)),
     ("c", "largescale", FULL_CONFIG,
-     ["--gn-aggregation", "dense", "--epochs", "2", "--batches-epoch", "4"],
+     ["--gn-aggregation", "dense", "--epochs", "2", "--batches-epoch", "2"],
      ("gn_allpairs_fwd",)))
 RUNNER_TIME_DROP = 2    # first steps of a run left out of its step times
+# runs whose first step the CPU port takes on a smaller set (the same
+# command at this many nodes): the full-graph ELL step at 5,016 nodes took
+# the host 9-12 s, f32 and bf16, a fifth of phase 12
+RUNNER_CPU_NODES = {"a": 1001, "a bf16": 1001}
 # a run's first step, card vs CPU port: the loss within TOL_LOSS (bf16:
 # 2e-2, one bf16 ulp is 2^-8), each clipped gradient within TOL_GRAD (bf16:
 # 2e-2) of its largest value, or else no further from a reference step
@@ -459,7 +496,7 @@ GWNET_CONFIG = ROOT / "configs" / "largescale_100nn" / "gwnet_pv.yaml"
 RNN_CONFIG = ROOT / "configs" / "traffic" / "rnn.yaml"
 DIFF_STEPS = 4          # train steps of each support route's run
 DIFF_TIME_ORDER = ("dense", "bsr", "bsr", "dense")   # step timing rounds
-DIFF_TIME_STEPS = 5     # steps a round (the first TIME_DROP left out)
+DIFF_TIME_STEPS = 4     # steps a round (the first TIME_DROP left out)
 DIFF_CPU_NODES = 1001   # the CPU first step's ragged set, at k = KNN
 DIFF_WIDTHS = (256, 2304)   # K1's F under DCRNN's and GraphWaveNet's hops
 # BSR route (K1, 3xTF32 products) vs dense route (an f32 matmul) from the
@@ -526,7 +563,8 @@ SUPPORT_CHUNK = 4096    # columns a call of K1's plain version (its
 # and the global mean: 512 features a row; decoder hidden 960, MLP 256 x 2,
 # resnet, embedding 32; batch 4,096 as 32 times x 128 nodes, 32 batches a
 # call) on 5,016 synthetic nodes and the 100-nn graph
-STRAT_STEPS = 8868      # PV-US's year (its raw files are not in the repo)
+STRAT_STEPS = 4434      # half of PV-US's year of 8,868 (its raw files are
+                        # not in the repo): the script's time limit
 STRAT_EPOCHS = 8        # of the yaml's 12,897: 256 steps
 STRAT_BSR_EPOCHS = 2    # the BSR route's run from the command line
 STRAT_TIME_STEPS = 12   # synchronized steps timed after the run
@@ -619,6 +657,19 @@ def bound(nbytes: float, products: float, ffma: float = 0.0,
             "mufu_ops": mufu}
 
 
+def k1_bound(op, x) -> dict:
+    """K1's bound as ``bound`` gives it, from the port's one count of K1's
+    work (``roofline.bsr_spmm_bound``): the tiles, their indices and x read
+    once, the f32 output written once, 2 FLOP per stored nonzero and column
+    of x."""
+    b = roofline.bsr_spmm_bound(
+        op.blocks.shape[0], op.row_ptr.numel() - 1, x.shape[1],
+        block=op.blocks.shape[-1], blk_itemsize=op.blocks.element_size(),
+        x_itemsize=x.element_size(), n=x.shape[0],
+        nonzeros=int((op.blocks != 0).sum()))
+    return bound(b.bytes, b.flops)
+
+
 def gated_chain_work(pairs: int, h2: int, h: int) -> dict:
     """The gated chain's work per direction, as ``bound``'s arguments: the
     w2 product a pair forward, and the recompute, dt and dw2 backward (the
@@ -660,6 +711,75 @@ def phase0_card() -> str:
 
 
 BUILD_LOGS = {}   # nvcc's output of each source built by phase 1
+# torch's BSR product, the library yardstick beside K1 (``library_bsr``,
+# ``k1_at_support_width``, ``k1_cer_row``), JIT-compiles a Triton kernel
+# for each F it meets: ~20 s of host time each on the card's machine, the
+# number of block rows aside. Once nvcc is done, phase 1 starts one
+# process a width at the lowest CPU priority, each compiling into
+# TRITON_CACHE, where this process's calls find them, beside phases 2-10
+# (phase 2's library call waits until after phase 10); each call waits
+# for its width's process (``library_ready``). They run on 4 block rows
+# of zero tiles (16 tiles: the kernel takes the index lengths'
+# divisibility by 16 from the 100-nn graph's 1,600; 3 rows, 9 tiles, for
+# CER-En's 2,601), so the card barely sees them
+LIBRARY_WIDTHS = (
+    (128, 4),           # phase 2's slice row
+    (8192, 4),          # phase 11's encode hop
+    (256, 4), (2304, 4),    # phase 13's DiffConv hops
+    (49152, 4),         # phase 14's supports, phase 18's STCN hop
+    (4096, 4), (2048, 4),   # phase 15's stratified step and evaluation
+    (320, 4),           # phase 16's GESN hop
+    (1056, 4), (1024, 4),   # phase 17's GRIN hops
+    (6144, 3))          # phase 19's hop on CER-En's graph
+TRITON_CACHE = ROOT / "build" / "triton_cache"
+LIBRARY_WARM = """
+import sys, torch
+f, nb = int(sys.argv[1]), int(sys.argv[2])
+n = nb * 128
+a = torch.sparse_bsr_tensor(
+    torch.arange(0, nb * nb + 1, nb, dtype=torch.int32, device="cuda"),
+    torch.arange(nb, dtype=torch.int32, device="cuda").repeat(nb),
+    torch.zeros((nb * nb, 128, 128), device="cuda"), size=(n, n))
+a @ torch.zeros((n, f), device="cuda")
+torch.cuda.synchronize()
+"""
+LIBRARY_PROCS = {}   # F -> the process compiling torch's BSR product at F
+
+
+def start_library_warm():
+    """One process a width of LIBRARY_WIDTHS at the lowest CPU priority,
+    compiling torch's Triton BSR product into TRITON_CACHE, which this
+    process reads too."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE))
+    for f, nb in LIBRARY_WIDTHS:
+        LIBRARY_PROCS[f] = subprocess.Popen(
+            ["nice", "-n", "19", sys.executable, "-c", LIBRARY_WARM, str(f),
+             str(nb)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def library_ready(f: int):
+    """Wait for the process compiling torch's BSR product at width ``f``
+    (none: nothing to wait for); one that failed raises with its error
+    output."""
+    proc = LIBRARY_PROCS.pop(f, None)
+    if proc is None:
+        return
+    t0 = time.perf_counter()
+    err = proc.communicate()[1]
+    assert proc.returncode == 0, \
+        f"torch's BSR product did not compile at F {f}: {err[-2000:]}"
+    print(f"[library] torch's BSR product compiled at F {f} by its "
+          f"process (waited {time.perf_counter() - t0:.1f} s)")
+
+
+def stop_library_warm():
+    """End every warm-up process still running (the script failed first,
+    or a width went unused)."""
+    while LIBRARY_PROCS:
+        proc = LIBRARY_PROCS.popitem()[1]
+        proc.kill()
+        proc.communicate()
 
 
 def ptxas_report(source: str, kernel: str):
@@ -727,6 +847,9 @@ def phase1_build():
                                 "sddmm"])
     print(f"[phase 1] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel")
+    start_library_warm()
+    print(f"[phase 1] started {len(LIBRARY_WIDTHS)} processes compiling "
+          f"torch's BSR product, one a width")
     for name, (seconds, log) in built.items():
         BUILD_LOGS[name] = log
         print(f"[phase 1] nvcc {name}.cu: {seconds:.2f} s")
@@ -761,12 +884,14 @@ def slice_setup(n_nodes: int, n_steps: int, device):
 
 
 def library_bsr(op, x):
-    """One cuSPARSE BSR product through ``torch.sparse_bsr_tensor`` on the
-    same tiles (a yardstick; the port never calls it): ``(ms, out)``, or
+    """One BSR product of PyTorch's (``torch.sparse_bsr_tensor @ x``, which
+    this build runs as a Triton kernel, compiled by phase 1) on the same
+    tiles (a yardstick; the port never calls it): ``(ms, out)``, or
     ``(None, why)`` where this build refuses it."""
     npad = (op.row_ptr.numel() - 1) * op.blocks.shape[-1]
     xp = torch.zeros((npad, x.shape[1]), dtype=x.dtype, device=x.device)
     xp[:x.shape[0]] = x
+    library_ready(x.shape[1])
     try:
         a = torch.sparse_bsr_tensor(op.row_ptr, op.block_cols, op.blocks,
                                     size=(npad, npad))
@@ -828,16 +953,8 @@ def phase2_kernel(graph, device) -> dict:
                        plain_ms=p_ms["median"],
                        plain_q1_q3=[p_ms["q1"], p_ms["q3"]])
             if main:
-                # tiles, indices, x read once and the output written once;
-                # 2 FLOP per stored nonzero and column of x
-                nbytes = sum(t.numel() * t.element_size() for t in (
-                    *args, op.block_rows, x)) + x.numel() * 4
-                row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
-                row["library_ms"], lib_out = library_bsr(op, x)
-                if row["library_ms"] is None:
-                    row["library_note"] = lib_out
-                else:
-                    row["library_max_abs_err"] = rel_err(lib_out, ref)[0]
+                row.update(k1_bound(op, x))
+                PHASE2_LIBRARY.update(op=op, x=x, ref=ref, row=row)
             print(f"[phase 2] {json.dumps(row)}")
             assert got.shape == ref.shape and torch.isfinite(got).all()
             assert rel <= tol, f"kernel disagrees with plain: {row}"
@@ -851,6 +968,25 @@ def phase2_kernel(graph, device) -> dict:
             bsr_gradient_check(g, f, precision, tol, rng, device)
     return next(r for r in rows if r["case"] == "slice" and r["f"] == 128
                 and r["dtype"] == "float32")
+
+
+PHASE2_LIBRARY = {}  # phase 2's slice row and its inputs, for the library
+
+
+def phase2_library():
+    """The library call beside phase 2's slice row (F 128), once the
+    warm-up processes have compiled it, on the row's inputs."""
+    lib = PHASE2_LIBRARY
+    row = lib["row"]
+    row["library_ms"], lib_out = library_bsr(lib["op"], lib["x"])
+    if row["library_ms"] is None:
+        row["library_note"] = lib_out
+    else:
+        row["library_max_abs_err"] = rel_err(lib_out, lib["ref"])[0]
+    print(f"[phase 2] the slice row's library call: library_ms "
+          f"{row['library_ms']}, max abs err "
+          f"{row.get('library_max_abs_err', row.get('library_note'))}")
+    lib.clear()
 
 
 def bsr_gradient_check(g, f: int, precision: str, tol: float, rng, device):
@@ -1221,26 +1357,31 @@ def train_steps(pred, loader, device):
 def device_busy(prof, calls: int) -> dict:
     """The union of a torch.profiler window's device activities' intervals
     (kernels, copies; not the user annotations) per call, and the device
-    time by name."""
+    time by name. Read from the profiler's raw events, with the filters
+    and names of ``prof.events()``, whose tree of the host's operators
+    took seconds to build for every profile of a step."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                or _filter_name(e.name()) \
+                or getattr(e, "is_hidden_event", lambda: False)():
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us()
+        spans.append((e.start_ns(), e.end_ns()))
+        name = _rewrite_name(name=e.name(), with_wildcard=True)
+        by_name[name] = by_name.get(name, 0) + e.end_ns() - e.start_ns()
     if not spans:
         return {}
-    busy, end = 0.0, -np.inf
+    busy, end = 0, -np.inf
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_busy_ms": busy / 1e3 / calls,
+    return {"device_busy_ms": busy / 1e6 / calls,
             "device_activities": len(spans) / calls,
-            "device_ms_by_name": {k[:70]: v / 1e3 / calls for k, v in top}}
+            "device_ms_by_name": {k[:70]: v / 1e6 / calls for k, v in top}}
 
 
 def idle_share(pred, loader, step_ms: float) -> dict:
@@ -2022,9 +2163,7 @@ def k1_at_encode_width(enc, dense, x, graph, device) -> dict:
                q1_q3=[k_ms["q1"], k_ms["q3"]], plain_ms=p_ms["median"],
                plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
                dense_tile_gflop=2 * op.blocks.numel() * f / 1e9)
-    nbytes = sum(t.numel() * t.element_size() for t in (
-        *args, folded)) + folded.numel() * 4
-    row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+    row.update(k1_bound(op, folded))
     row["library_ms"], lib_out = library_bsr(op, folded)
     if row["library_ms"] is None:
         row["library_note"] = lib_out
@@ -2269,7 +2408,9 @@ def phase11_sgp(raw, graph, device) -> dict:
     # route with a share of its bf16 features moved by one ulp
     print(f"[phase 11] the runner at seeds {SGP_RUNNER_SEEDS} only (seed 1 "
           f"cut: the script's time limit)")
-    runs = {seed: sgp_runner_runs(seed, device) for seed in SGP_RUNNER_SEEDS}
+    with cached_datasets("phase 11"):
+        runs = {seed: sgp_runner_runs(seed, device)
+                for seed in SGP_RUNNER_SEEDS}
     for seed, res in runs.items():
         print(f"[phase 11] run_experiment seed {seed}: {json.dumps(res)}")
     gaps = {seed: {k: abs(res[k]["test_mae"] - res["auto"]["test_mae"])
@@ -2638,7 +2779,7 @@ def runner_run(tag, runner, config, flags, kernels, device,
     assert all(np.isfinite(v) for v in untrained.values()), untrained
     assert res["test_mae"] < untrained["test_mae"], \
         (res["test_mae"], untrained["test_mae"])
-    row["pred"], row["first_grads"] = pred, rec.first["grads"]
+    row["pred"], row["first_grads"] = pred, first["grads"]
     return row
 
 
@@ -2681,7 +2822,8 @@ def phase12_runners(device) -> dict:
             # a bf16 run starts from its f32 twin's weights and batch
             twin = runs.get(tag.replace(" bf16", ""), {})
             runs[tag] = runner_run(tag, runner, config, flags, kernels,
-                                   device, twin.get("first_grads"))
+                                   device, twin.get("first_grads"),
+                                   cpu_nodes=RUNNER_CPU_NODES.get(tag))
             print(f"[time] phase 12 run {tag}: "
                   f"{time.perf_counter() - t0:.1f} s")
     pred = runs["c"]["pred"]
@@ -2986,9 +3128,7 @@ def k1_at_diffconv_widths(graph, device) -> dict:
                    ms=k_ms["median"], q1_q3=[k_ms["q1"], k_ms["q3"]],
                    plain_ms=p_ms["median"],
                    plain_q1_q3=[p_ms["q1"], p_ms["q3"]])
-        nbytes = sum(t.numel() * t.element_size() for t in (*args, x)) \
-            + x.numel() * 4
-        row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+        row.update(k1_bound(op, x))
         row["library_ms"], lib_out = library_bsr(op, x)
         if row["library_ms"] is None:
             row["library_note"] = lib_out
@@ -3374,12 +3514,11 @@ def k1_at_support_width(op, dense_op, x, tag: str = "phase 14",
                q1_q3=[k_ms["q1"], k_ms["q3"]], plain_ms=p_ms["median"],
                plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
                dense_tile_gflop=2 * op.blocks.numel() * f / 1e9)
-    nbytes = sum(t.numel() * t.element_size() for t in (
-        *args, folded)) + folded.numel() * 4
-    row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+    row.update(k1_bound(op, folded))
     npad = n_br * op.blocks.shape[-1]
     xp = torch.zeros((npad, f), dtype=folded.dtype, device=folded.device)
     xp[:n] = folded
+    library_ready(f)
     try:
         a = torch.sparse_bsr_tensor(op.row_ptr, op.block_cols, op.blocks,
                                     size=(npad, npad))
@@ -4026,7 +4165,8 @@ def phase15_stratified(device) -> dict:
               f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out["search"] = strat_search(device)
+    with cached_datasets():
+        out["search"] = strat_search(device)
     print(f"[time] phase 15 (c) search: {time.perf_counter() - t0:.1f} s")
     out["launches"] = out["bsr_run"]["launches"]
     return out
@@ -5519,9 +5659,7 @@ def k1_cer_row(op, dense_op, f: int, tol: float, rng, device) -> dict:
                plain_q1_q3=[p_ms["q1"], p_ms["q3"]],
                dense_tile_gflop=2 * op.blocks.numel() * f / 1e9)
     if f32:
-        nbytes = sum(t.numel() * t.element_size() for t in (
-            *args, x)) + x.numel() * 4
-        row.update(bound(nbytes, 2 * int((op.blocks != 0).sum()) * f))
+        row.update(k1_bound(op, x))
         row["dense_operator_ms"] = cuda_ms(lambda: dense_op @ x, 5,
                                            warmup=1)
         row["dense_operator_rel_err"] = rel_err(dense_op @ x, ref)[1]
@@ -5529,6 +5667,7 @@ def k1_cer_row(op, dense_op, f: int, tol: float, rng, device) -> dict:
         npad = n_br * op.blocks.shape[-1]
         xp = torch.zeros((npad, f), dtype=x.dtype, device=device)
         xp[:n] = x
+        library_ready(f)
         try:
             a = torch.sparse_bsr_tensor(op.row_ptr, op.block_cols,
                                         op.blocks, size=(npad, npad))
@@ -5659,6 +5798,383 @@ def phase19_datasets(device) -> dict:
     return dict(parsers=parsers, similarities=sims, **cer, helpers=helpers)
 
 
+# phase 20, the host graph core and the tooling (A12, A11), at most ~90 s
+HOST_REPEATS = 3        # (a) host timings of each route, the median kept
+KHOP_ROOTS = 512        # (a) the subgraph loader's roots and hops
+KHOP_K = 2
+SUP_STEPS = 320         # (b), (c) the runner's series: T cut from 640
+SUP_EPOCHS = 4          # (b), (c) of the yaml's 12,897 epochs
+SUP_FAULT_EPOCH = 2     # (b) SGP_TPU_FAULT kills the child at this epoch
+SUP_LRS = (1e-3, 1e-4)  # (c) the yaml's lr and a tenth of it
+TIMING_ITERS = 20       # (d) calls of each K1 timing
+GATHER_ROWS = 1 << 20   # (e) the gather's table: 1 GiB of 1 KiB rows,
+GATHER_DRAWS = 1 << 20  # 20x the L2; as many random draws
+BAND_NODES, BAND_WIDTH = 40960, 10   # (e) bench.py::section_bsr's graph
+# one run of the large-scale runner on K1's route in a process of its own:
+# argv[1] is its logs directory, the rest the runner's command line
+SUP_WORKER = """
+import json, sys
+sys.path.insert(0, {root!r})
+import sgp_tpu_torch.exp.run_largescale_sgp as runner
+from sgp_tpu_torch.exp.common import Experiment, global_config
+from sgp_tpu_torch.ops import bsr_spmm
+
+
+def bsr_route(args):
+    args.operator_mode = "bsr"
+    return runner.run_experiment(args)
+
+
+global_config["logs_dir"] = sys.argv[1]
+res = Experiment(bsr_route,
+                 runner.configure_parser_largescale()).run(sys.argv[2:])
+print("RESULT " + json.dumps({{"test_mae": res["test_mae"],
+                              "k1_launches": bsr_spmm.launches}}))
+"""
+
+
+@contextlib.contextmanager
+def numpy_route():
+    """``coalesce`` on its numpy branch at any size: the host core's
+    threshold moved out of reach."""
+    from sgp_tpu_torch.graph import sparse
+    at = sparse.NATIVE_MIN_EDGES
+    sparse.NATIVE_MIN_EDGES = float("inf")
+    try:
+        yield
+    finally:
+        sparse.NATIVE_MIN_EDGES = at
+
+
+def host_ms(fn, *args, repeats: int = 1):
+    """``fn(*args)`` and the median host ms of ``repeats`` calls."""
+    ms = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(ms))
+
+
+def plain_khop_mask(rows, roots, k: int) -> np.ndarray:
+    """The plain k-hop BFS the host core is held against: numpy over the
+    rows of the CSR that ``k_hop_subgraph`` walks."""
+    mask = np.zeros(rows.shape[0], bool)
+    mask[roots] = True
+    frontier = roots
+    for _ in range(k):
+        reach = np.zeros(rows.shape[0], bool)
+        reach[rows[frontier].indices] = True
+        reach &= ~mask
+        frontier = np.flatnonzero(reach)
+        if len(frontier) == 0:
+            break
+        mask |= reach
+    return mask
+
+
+def phase20_native(raw, graph) -> dict:
+    """(a) The host core where the runners meet it. ``coalesce`` through
+    ``add_self_loops`` (DynGESN's operator, ``encode/encoders.py``; the
+    supports' ``add_self_loops`` option) and ``to_undirected`` (the
+    supports' ``undirected`` option, ``encode/spatial.py``) on the 100-nn
+    graph at 5,016 nodes, on the native route and the numpy branch; and
+    ``k_hop_subgraph`` as runner (c)'s subgraph loader calls it on its
+    25,155,240-edge similarity graph (512 roots, 2 hops, the by-target CSR
+    built once), its BFS alone beside a plain numpy BFS; the host ms of
+    each."""
+    from sgp_tpu_torch.graph import (adjacency_rows, add_self_loops,
+                                     k_hop_subgraph, to_undirected)
+    from sgp_tpu_torch.native import khop_mask
+    out = {"graph_edges": graph.num_edges}
+    for name, fn in (("add_self_loops", add_self_loops),
+                     ("to_undirected", to_undirected)):
+        native, native_ms = host_ms(fn, graph, repeats=HOST_REPEATS)
+        with numpy_route():
+            plain, numpy_ms = host_ms(fn, graph, repeats=HOST_REPEATS)
+        # each merged weight sums m_i inputs in another order: within
+        # (m_i - 1) ulps of f32 of the sum of the inputs' magnitudes, and
+        # sum(m_i - 1) = edges in - edges out
+        merged = (2 if name == "to_undirected" else 1) * graph.num_edges \
+            - native.num_edges
+        dw = np.abs(native.weight - plain.weight)
+        row = {"edges_out": native.num_edges, "native_ms": native_ms,
+               "numpy_ms": numpy_ms, "max_abs_dw": float(dw.max()),
+               "bitwise": bool(np.array_equal(native.weight, plain.weight))}
+        out[name] = row
+        assert np.array_equal(native.src, plain.src) and \
+            np.array_equal(native.dst, plain.dst), f"{name}: edges differ"
+        assert (dw <= max(merged, 0) * 2.0 ** -24
+                * np.abs(plain.weight)).all(), row
+    g = raw.get_connectivity(threshold=None, include_self=False)
+    assert g.num_edges == N_NODES * (N_NODES - 1), g.num_edges
+    rows, out["rows_ms"] = host_ms(adjacency_rows, g)
+    roots = np.random.default_rng(SEED).permutation(g.num_nodes)[:KHOP_ROOTS]
+    (nodes, sub, pos), out["khop_native_ms"] = host_ms(
+        lambda: k_hop_subgraph(g, roots, KHOP_K, rows=rows))
+    core, out["khop_core_bfs_ms"] = host_ms(
+        khop_mask, rows.indptr, rows.indices, g.num_nodes, roots,
+        KHOP_K)
+    mask, out["khop_plain_bfs_ms"] = host_ms(plain_khop_mask, rows, roots,
+                                             KHOP_K)
+    out.update(khop_edges=g.num_edges, khop_nodes=len(nodes),
+               khop_sub_edges=sub.num_edges)
+    print(f"[phase 20] (a) native core: {json.dumps(out)}")
+    assert np.array_equal(core, mask), "the BFS masks differ"
+    assert np.array_equal(nodes, np.flatnonzero(mask)), "k-hop nodes differ"
+    assert np.array_equal(nodes[pos], roots)
+    assert sub.num_edges == int((mask[g.src] & mask[g.dst]).sum())
+    return out
+
+
+def sup_argv(device) -> list:
+    """The large-scale runner at sgp_pv.yaml's widths on 5,016 synthetic
+    nodes, T and epochs cut (``SUP_STEPS``, ``SUP_EPOCHS``)."""
+    return ["--config", str(CONFIG), "--dataset-name", "synthetic",
+            "--synthetic-nodes", str(N_NODES), "--synthetic-steps",
+            str(SUP_STEPS), "--epochs", str(SUP_EPOCHS), "--seed",
+            str(SEED), "--device", str(device)]
+
+
+def worker_run(worker: Path, logs: Path, argv: list) -> dict:
+    """One uninterrupted run of ``SUP_WORKER`` in a process of its own:
+    its ``RESULT`` (test MAE, K1 launches)."""
+    env = {k: v for k, v in os.environ.items() if k != "SGP_TPU_FAULT"}
+    proc = subprocess.run([sys.executable, str(worker), str(logs), *argv],
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-3000:]
+    res = [line for line in proc.stdout.splitlines()
+           if line.startswith("RESULT ")]
+    assert len(res) == 1, proc.stdout[-3000:]
+    return json.loads(res[0].split("RESULT ", 1)[1])
+
+
+def phase20_supervised(device) -> dict:
+    """(b) ``supervise`` over a worker that runs the runner on
+    ``operator_mode="bsr"`` with a checkpoint every epoch, killed by
+    ``SGP_TPU_FAULT`` at epoch 2 and resumed; (c) ``run_search`` over two
+    learning rates at 2 workers, each trial a worker process of its own
+    (its own generators, logs and K1 count: ``Experiment.run`` seeds the
+    process's global generators, which threads of one process would
+    share), run beside (b) from a thread, then at 1 worker in this
+    process. The card's runs are deterministic, so (b)'s recovered test
+    MAE must equal, bit for bit, the uninterrupted runs of its command in
+    both searches."""
+    import io
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from sgp_tpu_torch.exp.common import global_config
+    from sgp_tpu_torch.exp.hyperopt import run_search
+    from sgp_tpu_torch.exp.supervise import supervise
+    from sgp_tpu_torch.ops import bsr_spmm
+    torch.cuda.empty_cache()   # the children need the card's memory too
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        worker, marker = tmp / "worker.py", tmp / "fault_fired"
+        worker.write_text(SUP_WORKER.format(root=str(ROOT)))
+
+        def in_process(cfg):
+            global_config["logs_dir"] = str(tmp / f"logs_1_{cfg['lr']}")
+            bsr_spmm.launches = 0
+            res = run_largescale(sup_argv(device) + ["--lr", str(cfg["lr"])],
+                                 bsr_supports)
+            return {**res, "k1_launches": bsr_spmm.launches}
+
+        def own_process(cfg):
+            return worker_run(worker, tmp / f"logs_2_{cfg['lr']}",
+                              sup_argv(device) + ["--lr", str(cfg["lr"])])
+
+        def search(workers, run_fn):
+            path = tmp / f"search_{workers}.json"
+            t0 = time.perf_counter()
+            res = run_search(run_fn, {}, {"lr": list(SUP_LRS)}, mode="grid",
+                             n_workers=workers, out_path=str(path))
+            out[f"search_{workers}_wall_s"] = time.perf_counter() - t0
+            assert json.loads(path.read_text())["best_config"] == \
+                res["best_config"]
+            assert all("metrics" in t for t in res["trials"]), res
+            return res
+
+        cmd = [sys.executable, str(worker), str(tmp / "logs_supervised"),
+               *sup_argv(device), "--checkpoint-every", "1",
+               "--checkpoint-path", str(tmp / "state.ckpt")]
+        buf = io.StringIO()
+        searches, logs_at = {}, global_config["logs_dir"]
+        with ThreadPoolExecutor(1) as pool:
+            beside = pool.submit(search, 2, own_process)
+            os.environ["SGP_TPU_FAULT"] = \
+                f"epoch:{SUP_FAULT_EPOCH},marker:{marker}"
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = supervise(cmd, max_restarts=2, hang_timeout=300,
+                                   restart_delay=0)
+            finally:
+                del os.environ["SGP_TPU_FAULT"]
+            out["supervised_wall_s"] = time.perf_counter() - t0
+            searches[2] = beside.result()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if any(w in line for w in ("FAULT", "resumed", "RESULT")):
+                print(f"[phase 20] (b) child: {line[:200]}")
+        results = [json.loads(line.split("RESULT ", 1)[1])
+                   for line in text.splitlines()
+                   if line.startswith("RESULT ")]
+        assert rc == 0, text[-3000:]
+        assert marker.read_text() == str(SUP_FAULT_EPOCH), "no fault"
+        assert "resumed from" in text and len(results) == 1, text[-3000:]
+        out.update(recovered_mae=results[0]["test_mae"],
+                   child_k1_launches=results[0]["k1_launches"])
+        try:
+            with cached_datasets("phase 20"):
+                searches[1] = search(1, in_process)
+        finally:
+            global_config["logs_dir"] = logs_at
+    trials = {w: {t["config"]["lr"]: t["metrics"] for t in r["trials"]}
+              for w, r in searches.items()}
+    maes = {w: {lr: m["test_mae"] for lr, m in t.items()}
+            for w, t in trials.items()}
+    runs = [out["recovered_mae"]] + [maes[w][SUP_LRS[0]] for w in (1, 2)]
+    out.update(search_maes=maes, spread=max(runs) - min(runs),
+               search_k1_launches={w: {lr: m["k1_launches"]
+                                       for lr, m in t.items()}
+                                   for w, t in trials.items()},
+               best_config={w: r["best_config"] for w, r in searches.items()})
+    print(f"[phase 20] (b), (c) supervise and the search: {json.dumps(out)}")
+    assert runs[1] == runs[0] == runs[2], out
+    assert maes[1] == maes[2], out
+    assert searches[1]["best_config"] == searches[2]["best_config"], out
+    per_run = out["child_k1_launches"]
+    assert per_run > 0, out
+    for t in out["search_k1_launches"].values():
+        assert set(t.values()) == {per_run}, out
+    return out
+
+
+def phase20_timing(raw, graph, device) -> dict:
+    """(d) ``time_fn`` and ``StepTimer`` beside CUDA-event times of K1 at
+    F 128 and 8,192 on the 100-nn graph's operator; ``profile_trace`` of
+    one two-hop encode chunk at sgp_pv.yaml's widths, whose Chrome trace
+    must name K1's kernel as often as the wrapper counted launches."""
+    import tempfile
+    from sgp_tpu_torch.encode import (encoder_input_array,
+                                      prepare_propagation_graphs,
+                                      streaming_encode)
+    from sgp_tpu_torch.obs import StepTimer, profile_trace, time_fn
+    from sgp_tpu_torch.ops import bsr_spmm, build_operator
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    op = build_operator(prepare_propagation_graphs(graph)[0], "bsr",
+                        device=device)
+    out = {}
+    for f in (128, 8192):
+        x = torch.randn((graph.num_nodes, f), generator=gen, device=device)
+        timer = StepTimer()
+        for _ in range(TIMING_ITERS):
+            with timer.time("k1", sync=True, result=x):
+                op @ x
+        out[f] = {"event_ms": cuda_ms(lambda: op @ x, TIMING_ITERS),
+                  "time_fn_ms": time_fn(lambda: op @ x, iters=TIMING_ITERS,
+                                        warmup=3) * 1e3,
+                  "step_timer_ms": timer.summary()["k1"]["mean_s"] * 1e3}
+    cfg, sds, _ = sgp_setup(raw, graph)
+    x = torch.as_tensor(encoder_input_array(
+        sds, cfg["preprocess_exogenous"])[:SGP_CHUNK], device=device)
+    enc = sgp_encoder(cfg, x.shape[-1], "bsr", device)
+    streaming_encode(enc, x, graph, time_chunk=SGP_CHUNK)   # warm
+    with tempfile.TemporaryDirectory() as tmp:
+        bsr_spmm.launches = 0
+        with profile_trace(tmp):
+            streaming_encode(enc, x, graph, time_chunk=SGP_CHUNK)
+        launches = bsr_spmm.launches
+        events = json.loads((Path(tmp) / "trace.json").read_text())[
+            "traceEvents"]
+    named = [e for e in events if e.get("cat") == "kernel"
+             and "bsr_spmm_kernel" in e.get("name", "")]
+    out["trace"] = {"k1_launches": launches, "k1_kernels_traced": len(named),
+                    "device_kernels_traced": sum(
+                        e.get("cat") == "kernel" for e in events)}
+    print(f"[phase 20] (d) timing and traces: {json.dumps(out)}")
+    hops = cfg["receptive_field"] * (2 if cfg["bidirectional"] else 1)
+    assert launches == hops and len(named) == launches, out["trace"]
+    return out
+
+
+def band_graph_big():
+    """``bench.py::section_bsr``'s graph: N 40,960, each node's 10
+    neighbours on either side (wrapping), row-normalized."""
+    from sgp_tpu_torch.graph import Graph, coalesce, normalize_adj
+    idx = np.arange(BAND_NODES, dtype=np.int64)
+    offsets = list(range(1, BAND_WIDTH + 1)) + list(range(-BAND_WIDTH, 0))
+    src = np.concatenate([idx] * len(offsets))
+    dst = np.concatenate([(idx + d) % BAND_NODES for d in offsets])
+    return normalize_adj(coalesce(Graph(
+        src, dst, np.ones(len(src), np.float32), BAND_NODES)), "row")
+
+
+def phase20_roofline(graph, device) -> dict:
+    """(e) The card's random-row gather, measured as the JAX module's
+    comment describes (1 KiB rows, rows a second: ``ROW_GATHER_LAT_S``);
+    K1's time per stored block at F 128 on the N 40,960 banded graph; and
+    ``bsr_spmm_bound`` (``k1_bound``) beside K1's time at that shape and
+    the 100-nn graph's F 128 and 8,192: a floor, so never above it."""
+    from sgp_tpu_torch.encode import prepare_propagation_graphs
+    from sgp_tpu_torch.ops import bsr_spmm_plain, build_operator
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    table = torch.randn((GATHER_ROWS, 256), generator=gen, device=device)
+    idx = torch.randint(0, GATHER_ROWS, (GATHER_DRAWS,), generator=gen,
+                        device=device)
+    gather_ms = cuda_ms(lambda: table.index_select(0, idx), TIMING_ITERS)
+    del table
+    row_s = gather_ms / 1e3 / GATHER_DRAWS
+    out = {"gather_ms": gather_ms, "gather_rows_per_s": 1.0 / row_s,
+           "row_gather_s": row_s,
+           "row_bytes_s": 2 * 1024 / roofline.HBM_BYTES_PER_S,
+           "module_row_gather_s": roofline.ROW_GATHER_LAT_S}
+    g_big = band_graph_big()
+    band_op = build_operator(g_big, "bsr", precision="highest",
+                             device=device)
+    slice_op = build_operator(prepare_propagation_graphs(graph)[0], "bsr",
+                              device=device)
+    out["bounds"] = {}
+    for name, op, f in (("band", band_op, 128), ("100-nn", slice_op, 128),
+                        ("100-nn", slice_op, 8192)):
+        n_br = op.row_ptr.numel() - 1
+        x = torch.randn((op.num_nodes, f), generator=gen, device=device)
+        rel = rel_err(op @ x, bsr_spmm_plain(
+            op.blocks, op.block_cols, op.block_rows, n_br, x))[1]
+        ms = cuda_ms(lambda: op @ x, TIMING_ITERS)
+        b = k1_bound(op, x)
+        row = {"ms": ms, "nnzb": op.blocks.shape[0], "block_s":
+               ms / 1e3 / op.blocks.shape[0], "rel_err": rel,
+               "bound_ms": b["bound_ms"], "bound_pipe": b["bound_pipe"],
+               "share": b["bound_ms"] / ms}
+        out["bounds"][f"{name} F {f}"] = row
+        assert rel <= TOL_F32 and row["share"] <= 1.0, (name, f, row)
+    out["band_edges"] = g_big.num_edges
+    print(f"[phase 20] (e) roofline: {json.dumps(out)}")
+    assert 0 < row_s < 1e-6, out
+    return out
+
+
+def phase20_tooling(raw, graph, device) -> dict:
+    """The host graph core and the tooling (every cut is in the phase-20
+    constants): (a) the native core on the runners' graphs; (b) the
+    supervised runner and (c) the search; (d) the timers and a trace; (e)
+    the roofline's floors. Prints its wall."""
+    t0 = time.perf_counter()
+    out = {"native": timed("phase 20 (a)", phase20_native, raw, graph),
+           "supervised": timed("phase 20 (b), (c)", phase20_supervised,
+                               device),
+           "timing": timed("phase 20 (d)", phase20_timing, raw, graph,
+                           device),
+           "roofline": timed("phase 20 (e)", phase20_roofline, graph,
+                             device)}
+    print(f"[phase 20] wall {time.perf_counter() - t0:.1f} s (budget 90 s)")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -5682,7 +6198,7 @@ def timed(label: str, fn, *args):
     return out
 
 
-def main():
+def run_phases():
     smi = phase0_card()
     device = torch.device("cuda", 0)
     timed("phase 1", phase1_build)
@@ -5709,6 +6225,7 @@ def main():
         ("100-nn", graph), ("100-nn rcm", rcm), ("full", full)], ragged,
         device)
     timed("phase 10", phase10_transformer, ds, graph, device)
+    phase2_library()
     sgp = timed("phase 11", phase11_sgp, ds, graph, device)
     runners = timed("phase 12", phase12_runners, device)
     diffusion = timed("phase 13", phase13_diffusion, ds, graph, device)
@@ -5719,6 +6236,7 @@ def main():
                 device)
     p18 = timed("phase 18", phase18_zoo, ds, graph, scaler, device)
     p19 = timed("phase 19", phase19_datasets, device)
+    timed("phase 20", phase20_tooling, ds, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -5822,6 +6340,13 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def main():
+    try:
+        run_phases()
+    finally:
+        stop_library_warm()
 
 
 if __name__ == "__main__":

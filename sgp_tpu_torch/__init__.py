@@ -15,6 +15,8 @@ __version__ = "0.1.0"
 
 epsilon = 1e-8
 
+from sgp_tpu_torch.utils.logging import logger  # noqa: E402,F401
+
 # float32 products run in full f32 on the card, as the JAX package's
 # precision="highest" does: no TF32 in matmuls or in cuDNN.
 torch.backends.cuda.matmul.allow_tf32 = False

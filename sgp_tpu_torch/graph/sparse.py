@@ -2,7 +2,8 @@
 
 A numpy copy of the part of ``sgp_tpu/graph/sparse.py`` that the serving,
 GatedGN training, subgraph-sampling and support-materialization paths reach, held bit-exact against
-it by the parity tests. Graphs are prepared once on the host; device compute consumes a
+it by the parity tests; large edge lists go to the host C++ core
+(``sgp_tpu_torch/native``) where the JAX functions take theirs. Graphs are prepared once on the host; device compute consumes a
 dense operator, the packed block-sparse tiles of :meth:`Graph.to_bsr`, the
 ELL table of :func:`padded_incoming` or a dense mask with the band windows
 of :func:`band_windows` / :func:`auto_band` (``sgp_tpu_torch.ops``).
@@ -20,6 +21,11 @@ from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
+
+from sgp_tpu_torch import native
+
+# edges from which coalesce takes the host core, as the JAX function does
+NATIVE_MIN_EDGES = 100_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,9 +106,16 @@ class Graph:
 def coalesce(g: Graph, reduce: str = "sum") -> Graph:
     """Sort edges by (dst, src) and merge duplicates.
 
-    Only the numpy branch of ``sgp_tpu.graph.coalesce``: the JAX package
-    hands large edge lists to its native library (``sgp_tpu.native``),
-    which the port does not load. Both branches give the same result."""
+    At ``reduce="sum"`` and :data:`NATIVE_MIN_EDGES` edges or more the host
+    core does it (:func:`sgp_tpu_torch.native.coalesce_edges`), as in
+    ``sgp_tpu.graph.coalesce``; below that, or at ``"max"``, numpy. The two
+    routes give the same edges, but their ``std::sort`` and numpy's stable
+    ``argsort`` order duplicates differently, so an edge that occurs three
+    times or more may sum its weights to other last bits."""
+    if reduce == "sum" and g.num_edges >= NATIVE_MIN_EDGES:
+        src, dst, w = native.coalesce_edges(g.src, g.dst, g.weight,
+                                            g.num_nodes)
+        return Graph(src, dst, w, g.num_nodes)
     key = g.dst.astype(np.int64) * g.num_nodes + g.src
     order = np.argsort(key, kind="stable")
     key, src, dst, w = key[order], g.src[order], g.dst[order], g.weight[order]
@@ -240,7 +253,10 @@ def k_hop_subgraph(g: Graph, roots: np.ndarray, k: int,
     With ``flow="target_to_source"`` the frontier expands from targets to
     their sources (the nodes whose features flow into the roots). ``rows``
     is :func:`adjacency_rows` of ``g`` for ``flow``, built here when not
-    given.
+    given. The host core's BFS walks ``rows`` (:func:`sgp_tpu_torch.native.
+    khop_mask`) at every flow and size: the JAX function walks its own at
+    ``"target_to_source"`` from 100,000 edges and numpy below, and the
+    reached set, and so the result, is the same on every route.
 
     Returns ``(nodes, sub, root_positions)``: the sorted node set, the
     induced subgraph relabelled to positions in ``nodes`` (edges in ``g``'s
@@ -252,17 +268,7 @@ def k_hop_subgraph(g: Graph, roots: np.ndarray, k: int,
         rows = adjacency_rows(g, flow)
     elif rows.shape != (n, n):
         raise ValueError(f"rows is {rows.shape}, the graph has {n} nodes")
-    mask = np.zeros(n, bool)
-    mask[roots] = True
-    frontier = roots
-    for _ in range(k):
-        reach = np.zeros(n, bool)
-        reach[rows[frontier].indices] = True
-        reach &= ~mask
-        frontier = np.flatnonzero(reach)
-        if len(frontier) == 0:
-            break
-        mask |= reach
+    mask = native.khop_mask(rows.indptr, rows.indices, n, roots, k)
     nodes = np.flatnonzero(mask)
     relabel = np.full(n, -1, np.int64)
     relabel[nodes] = np.arange(len(nodes))

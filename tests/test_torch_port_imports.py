@@ -108,6 +108,13 @@ DATASETS = (
     "sgp_tpu_torch.utils.config")
 
 
+# the host graph core and the tooling (A12, A11)
+TOOLING = (
+    "sgp_tpu_torch.native", "sgp_tpu_torch.utils.logging",
+    "sgp_tpu_torch.obs.profiling", "sgp_tpu_torch.obs.roofline",
+    "sgp_tpu_torch.exp.supervise", "sgp_tpu_torch.exp.hyperopt")
+
+
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
@@ -126,6 +133,7 @@ def test_port_never_imports_jax():
     assert set(IMPUTATION) <= set(words[2:])
     assert set(ZOO) <= set(words[2:])
     assert set(DATASETS) <= set(words[2:])
+    assert set(TOOLING) <= set(words[2:])
 
 
 @pytest.mark.parametrize("path", sorted(
