@@ -37,6 +37,16 @@ class ScalerParams:
     def inverse_transform(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale + self.bias
 
+    def index_nodes(self, node_index: torch.Tensor,
+                    node_axis: int = -2) -> "ScalerParams":
+        """Node-resolved params cut to a node subset (a node shard);
+        params shared by all nodes stay as they are."""
+        def maybe_take(p):
+            if p.ndim >= 2 and p.shape[node_axis] > 1:
+                return p.index_select(node_axis % p.ndim, node_index)
+            return p
+        return ScalerParams(maybe_take(self.bias), maybe_take(self.scale))
+
     def index_nodes_iid(self, node_index: torch.Tensor) -> "ScalerParams":
         """Per-(time, node)-sample params for IID batches: node-resolved
         params ``[..., N, C]`` become ``[B, 1, C]`` to broadcast against

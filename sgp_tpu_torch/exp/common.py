@@ -30,6 +30,7 @@ from sgp_tpu_torch.data.splitters import (AtTimeStepSplitter, Splitter,
                                           TemporalSplitter)
 from sgp_tpu_torch.utils.config import config as global_config
 from sgp_tpu_torch.utils.config import read_flat_yaml
+from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -121,10 +122,24 @@ class Experiment:
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
         logger.info(f"SEED: {args.seed}")
-        if getattr(args, "num_processes", None):
-            raise NotImplementedError(
-                "--num-processes (multi-process runs) is not ported yet "
-                "(ROADMAP A10)")
+        if getattr(args, "num_processes", None) or \
+                os.environ.get("WORLD_SIZE"):
+            # one process a rank: the flags, or torchrun's environment;
+            # NCCL on the card, gloo on the CPU
+            from sgp_tpu_torch.parallel import init_distributed
+            device = resolve_device(getattr(args, "device", None))
+            backend = "nccl" if device.type == "cuda" else "gloo"
+            n = init_distributed(
+                backend, coordinator_address=args.coordinator_address,
+                num_processes=args.num_processes,
+                process_id=args.process_id, device=device)
+            logger.info(f"distributed: {n} process(es) on {backend}")
+        rank = torch.distributed.get_rank() \
+            if torch.distributed.is_initialized() else 0
+        if rank > 0:
+            # only rank 0 logs and writes the run's files
+            for name in ("", "sgp_tpu_torch"):   # root, the package's
+                logging.getLogger(name).setLevel(logging.WARNING)
 
         exp_name = (datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
                     + f"_{args.seed}")
@@ -132,12 +147,13 @@ class Experiment:
                               getattr(args, "dataset_name", "run"),
                               getattr(args, "model_name", "model"),
                               exp_name)
-        os.makedirs(logdir, exist_ok=True)
-        with open(os.path.join(logdir, "exp_config.json"), "w") as fp:
-            json.dump(vars(args), fp, indent=2, sort_keys=True)
+        if rank == 0:
+            os.makedirs(logdir, exist_ok=True)
+            with open(os.path.join(logdir, "exp_config.json"), "w") as fp:
+                json.dump(vars(args), fp, indent=2, sort_keys=True)
         args.logdir = logdir
         result = self.run_fn(args)
-        if result is not None:
+        if result is not None and rank == 0:
             with open(os.path.join(logdir, "results.json"), "w") as fp:
                 json.dump(result, fp, indent=2, default=float)
             logger.info(f"results: {json.dumps(result, default=float)}")

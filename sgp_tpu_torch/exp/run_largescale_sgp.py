@@ -17,7 +17,12 @@ each training step (``make_fused_iid_stratified_step``), for series too
 long to expand. ``--search-lr``/``--search-seeds`` train every lr x seed
 trial on shared batches (``train/multi_trial.py``), select on the fused
 validation MAE and report the best trial's test metrics.
-``--data-sharding nodes`` is not ported yet (ROADMAP A10).
+``--data-sharding nodes`` trains over every rank of the process group
+(``--num-processes`` or ``torchrun``; one process a rank): each rank
+encodes as above, keeps only its node slab of the rows, draws its share
+of each batch from it and sums the gradients (``parallel/sharding.py``);
+the test evaluation runs node-sharded too, and only rank 0 logs and
+writes results.
 
 Usage::
 
@@ -27,6 +32,8 @@ Usage::
     # the stratified trainer: add --iid-stratified true
     # the trial search: add --search-lr 0.01,0.001 --search-seeds 0,1
     # on the CPU: add --device cpu
+    # node-sharded over 2 cards: torchrun --nproc-per-node 2 -m
+    #   sgp_tpu_torch.exp.run_largescale_sgp ... --data-sharding nodes
 """
 from __future__ import annotations
 
@@ -61,6 +68,9 @@ from sgp_tpu_torch.train.iid import (fused_iid_inputs,
 from sgp_tpu_torch.train.multi_trial import (best_trial, eval_trials,
                                              init_trial_params, load_trial,
                                              make_fused_iid_multi_trial_step)
+from sgp_tpu_torch.parallel import (local_mesh, make_sharded_iid_eval,
+                                    make_sharded_iid_step, rank_device,
+                                    rank_generator, shard_nodes)
 from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -71,11 +81,11 @@ def _searching(args) -> bool:
                 or getattr(args, "search_seeds", None))
 
 
-def _unported(args):
+def _unported_stratified(args):
     if getattr(args, "data_sharding", "none") != "none":
         raise NotImplementedError(
-            "--data-sharding (multi-device training) is not ported yet "
-            "(ROADMAP A10)")
+            "--data-sharding with --iid-stratified (the sharded stratified "
+            "step) is not ported yet (ROADMAP A10)")
 
 
 def _sync(device):
@@ -146,8 +156,16 @@ def run_experiment(args):
         if getattr(args, "data_sharding", "none") != "none":
             raise ValueError("--data-sharding is not supported with the "
                              "vmapped --search-lr/--search-seeds path")
-    _unported(args)
-    device = resolve_device(getattr(args, "device", None))
+    sharded = getattr(args, "data_sharding", "none") == "nodes"
+    device = rank_device(getattr(args, "device", None))
+    if sharded:
+        mesh = local_mesh(1)
+        if mesh.size("data") > 1 and (getattr(args, "checkpoint_every", 0)
+                                      or getattr(args, "resume", False)):
+            raise NotImplementedError(
+                "--checkpoint-every/--resume over several ranks (one "
+                "generator a rank) is not ported yet (ROADMAP A10)")
+        logger.info(f"data-sharding=nodes over {mesh.size('data')} ranks")
     ds, split, exog = _dataset(args, device)
     order = derive_order(args)
     est_gb = (ds.n_steps * ds.n_nodes * order * args.reservoir_size
@@ -219,29 +237,84 @@ def run_experiment(args):
             packed, streaming_packed, x_size, u_size, scaler, device)
     optimizer = torch.optim.Adam(model.parameters(), lr=args.lr,
                                  betas=(0.9, 0.999), eps=1e-8)
-    step = make_fused_iid_multi_step(
-        model, optimizer, enc, tgt, mask, train_steps, h_off, scaler, u=u,
-        batch_size=args.batch_size, scale_target=args.scale_target,
-        steps_per_call=batches_epoch, packed=packed,
-        gather_block=getattr(args, "gather_block", 1),
-        grad_clip=args.grad_clip_val)
-    # full-graph evaluation on the test split; the packed rows carry the
-    # features first, so eval slices them out of the one packed array
-    test_eval_fn = make_fused_eval(
-        model, packed if streaming_packed else enc, tgt, mask,
-        ds.indices()[split.test], ds.windowing.window_offsets(), h_off,
-        scaler, MaskedMetrics.forecasting(), u=u,
-        batch_size=args.batch_inference or 16,
-        x_slice=x_size if streaming_packed else None)
+    if sharded:
+        step, test_eval_fn = _node_sharded(
+            args, ds, split, model, optimizer, mesh, enc, tgt, mask, packed,
+            h_off, u, scaler, x_size, batches_epoch)
+        # this rank's slabs are all the step keeps: free the whole arrays
+        enc = tgt = mask = packed = u = None
+        generator = rank_generator(args.seed, mesh.index["data"], device)
+    else:
+        step = make_fused_iid_multi_step(
+            model, optimizer, enc, tgt, mask, train_steps, h_off, scaler,
+            u=u, batch_size=args.batch_size, scale_target=args.scale_target,
+            steps_per_call=batches_epoch, packed=packed,
+            gather_block=getattr(args, "gather_block", 1),
+            grad_clip=args.grad_clip_val)
+        # full-graph evaluation on the test split; the packed rows carry
+        # the features first, so eval slices them out of the one packed
+        # array
+        test_eval_fn = make_fused_eval(
+            model, packed if streaming_packed else enc, tgt, mask,
+            ds.indices()[split.test], ds.windowing.window_offsets(), h_off,
+            scaler, MaskedMetrics.forecasting(), u=u,
+            batch_size=args.batch_inference or 16,
+            x_slice=x_size if streaming_packed else None)
+        generator = torch.Generator(device=device).manual_seed(args.seed)
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
     best_state, fit_state = _run_restartable_fit(
         args, model, optimizer, step, generator, batches_epoch)
     model.load_state_dict(best_state)
     results = {f"test_{k}": v for k, v in test_eval_fn().items()}
     results["train_time_s"] = fit_state["train_time_s"]
+    if sharded:
+        results["data_sharding"] = "nodes"
     logger.info(f"test: {results}")
     return results
+
+
+def _node_sharded(args, ds, split, model, optimizer, mesh, enc, tgt, mask,
+                  packed, h_off, u, scaler, x_size: int, batches_epoch: int):
+    """The ``--data-sharding nodes`` step and test evaluation on this
+    rank's node slabs: ``packed`` is the whole prebuilt packed array (the
+    streaming encode's) or the ``--packed-gather`` flag. Returns ``(step,
+    test_eval_fn)``; the slabs are copies, so the caller may free the
+    whole arrays."""
+    def cut(a):
+        return None if a is None else shard_nodes(a, mesh, "data",
+                                                  node_axis=1)
+
+    prebuilt = isinstance(packed, torch.Tensor)
+    step = make_sharded_iid_step(
+        model, optimizer, cut(enc), cut(tgt), cut(mask),
+        ds.indices()[split.train], h_off,
+        scaler, mesh, u=cut(u) if u is not None and u.ndim == 3 else u,
+        batch_size=args.batch_size, scale_target=args.scale_target,
+        axis="data", steps_per_call=batches_epoch,
+        packed=cut(packed) if prebuilt else packed,
+        grad_clip=args.grad_clip_val, n_nodes=ds.n_nodes)
+    w_off = ds.windowing.window_offsets()
+    u_sh = step.data[-1] if u is not None else None
+    kwargs = dict(u=u_sh, axis="data", batch_size=args.batch_inference or 16,
+                  n_nodes=ds.n_nodes)
+    items = ds.indices()[split.test]
+    metrics = MaskedMetrics.forecasting()
+    if step.packed and len(w_off) == 1:
+        # features, shifted targets and masks all from the packed slab
+        ev = make_sharded_iid_eval(
+            model, step.data[0], None, None, items, w_off, h_off, scaler,
+            metrics, mesh, x_slice=x_size, unpack_targets=True, **kwargs)
+    elif step.packed:
+        # a multi-step window cannot read the packed lanes: the explicit
+        # target and mask slabs, the feature lanes sliced out
+        ev = make_sharded_iid_eval(
+            model, step.data[0], cut(tgt), cut(mask), items, w_off, h_off,
+            scaler, metrics, mesh, x_slice=x_size, **kwargs)
+    else:
+        ev = make_sharded_iid_eval(
+            model, step.data[0], step.data[1], step.data[2], items, w_off,
+            h_off, scaler, metrics, mesh, **kwargs)
+    return step, ev
 
 
 def _train_config(args, batches_epoch):
@@ -397,7 +470,7 @@ def run_experiment_stratified(args):
         raise ValueError("--search-lr/--search-seeds are not supported "
                          "with --iid-stratified (the trial search runs on "
                          "the precompute path)")
-    _unported(args)
+    _unported_stratified(args)
     device = resolve_device(getattr(args, "device", None))
     ds, split, exog = _dataset(args, device)
     input_size = ds.n_channels + (exog.shape[-1]
@@ -482,8 +555,8 @@ def configure_parser_largescale():
     parser.add_argument("--times-per-batch", type=int, default=32)
     parser.add_argument("--data-sharding", type=str, default="none",
                         choices=("none", "nodes"),
-                        help="'nodes': multi-device training, not ported "
-                             "yet (ROADMAP A10)")
+                        help="'nodes': train over the process group's "
+                             "ranks, each holding a node slab of the rows")
     parser.add_argument("--checkpoint-every", type=int, default=0,
                         help="save weights, optimizer, generator and best "
                              "every N epochs (atomic; 0 disables)")

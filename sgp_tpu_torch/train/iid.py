@@ -125,6 +125,9 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
       masked loss on gathered rows, with ``model``'s own parameters or
       with ``params`` (a name -> tensor dict, through
       ``torch.func.functional_call``);
+    - ``sample_and_loss.sums_on(sampled, params=None) -> (sum, count)``:
+      the masked loss's sum and count before the division (the node-sharded
+      step divides by the count over every rank);
     - ``sample_and_loss.loss(t, n)``: gather and loss on given draws,
       which the parity tests take from the JAX package.
 
@@ -212,7 +215,7 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
             u_rows = u[t, n] if u.ndim == 3 else u[t]
         return x, y, m, n, u_rows
 
-    def loss_on(sampled, params: Optional[dict] = None):
+    def sums_on(sampled, params: Optional[dict] = None):
         x, y, m, n, u_rows = sampled
         kwargs = {} if u_rows is None else {"u": u_rows}
         if compute_dtype is not None:
@@ -234,7 +237,10 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
             y_ref = sc.transform(y)
         else:
             y_hat, y_ref = sc.inverse_transform(y_hat), y
-        v, cnt = _masked_reduce(loss_pt, y_hat, y_ref, m)
+        return _masked_reduce(loss_pt, y_hat, y_ref, m)
+
+    def loss_on(sampled, params: Optional[dict] = None):
+        v, cnt = sums_on(sampled, params)
         return v / torch.clamp(cnt, min=1.0)
 
     def sample_and_loss(generator):
@@ -243,6 +249,7 @@ def _build_iid_sample_and_loss(model, encoded, target, mask,
     sample_and_loss.sample = sample
     sample_and_loss.gather = gather
     sample_and_loss.loss_on = loss_on
+    sample_and_loss.sums_on = sums_on
     sample_and_loss.loss = lambda t, n: loss_on(gather(t, n))
     sample_and_loss.packed = packed
     return data, sample_and_loss

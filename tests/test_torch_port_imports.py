@@ -115,6 +115,25 @@ TOOLING = (
     "sgp_tpu_torch.exp.supervise", "sgp_tpu_torch.exp.hyperopt")
 
 
+# node-sharded SGP over torch.distributed (A10's first slice) and its
+# rank functions, which spawned processes import
+PARALLEL = (
+    "sgp_tpu_torch.parallel", "sgp_tpu_torch.parallel.mesh",
+    "sgp_tpu_torch.parallel.collectives", "sgp_tpu_torch.parallel.halo",
+    "sgp_tpu_torch.parallel.encode", "sgp_tpu_torch.parallel.sharding",
+    "sgp_tpu_torch.parallel.launch", "sgp_tpu_torch.parallel.workers")
+
+RANKS = """
+from sgp_tpu_torch.parallel import run_ranks
+from sgp_tpu_torch.parallel.workers import imported_modules
+for mods in run_ranks(imported_modules, 2, "gloo", "cpu"):
+    bad = [m for m in mods if m in ("jax", "jaxlib", "flax", "sgp_tpu",
+                                    "yaml", "pandas", "h5py")]
+    assert "sgp_tpu_torch" in mods and not bad, bad
+print("ok")
+"""
+
+
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
@@ -134,6 +153,18 @@ def test_port_never_imports_jax():
     assert set(ZOO) <= set(words[2:])
     assert set(DATASETS) <= set(words[2:])
     assert set(TOOLING) <= set(words[2:])
+    assert set(PARALLEL) <= set(words[2:])
+
+
+def test_spawned_ranks_import_no_jax():
+    """A rank process that ``run_ranks`` spawns (the sharded path's
+    workers) imports none of them either."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", RANKS], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0 and "ok" in proc.stdout, \
+        proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("path", sorted(
