@@ -42,8 +42,11 @@ graph core (``sgp_tpu_torch/native``), the runner under the supervisor, the
 trial search, the timers and traces and the roofline's floors; and
 node-sharded SGP over ``torch.distributed`` (the halo K-hop with K1 on each
 rank's blocks, the sharded encode, IID step and eval, the runner's
-``--data-sharding nodes``) on 1, 2 and 4 ranks. In phases;
-any failure raises and the exit code is not 0:
+``--data-sharding nodes``) on 1, 2 and 4 ranks; and data-parallel training
+for the other runners (the sharded stratified step and its eval with K1
+under the supports, the window step, ``Predictor(mesh=)`` with K4 under
+GatedGN) on 1 and 2 ranks. In phases; any failure raises and the exit code
+is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
 1. build the four kernels, one ``nvcc`` each, in parallel
@@ -343,6 +346,27 @@ any failure raises and the exit code is not 0:
    ``bsr``; (e) ``run_largescale_sgp --data-sharding nodes`` on one NCCL
    rank against the unsharded runner from the same seed. Each rank's peak
    memory is printed.
+22. data-parallel training (the ``DP_*`` constants; at most 90 s, its wall
+   printed): in one spawn of 2 gloo ranks sharing the card, (a) the
+   sharded stratified step at sgp_pv.yaml's widths (batch 4,096 = 32
+   shared starts x 64 nodes a rank; the reservoir's 128-wide embedding of
+   phase 11's data, T cut to 160) on BSR supports (K1 under them) and on
+   dense ones, each against the single-device step on the union of the
+   draws (the loss, the weights beyond the gradient floor, the replicas'
+   bits, K1's launches), steps timed; (b) the sharded eval with the
+   supports and the global mean against ``make_fused_eval``; (d) the window
+   step at sgp_la.yaml's widths (batch 64, 32 a rank; 9 BSR supports on a
+   207-node set) against the single-device step; (e) ``run_traffic_baselines
+   --data-sharding batch`` at ``traffic/gatedgn_la.yaml`` on the ELL table
+   (K4 at 8 windows a rank) against the same command on one process, and
+   GraphWaveNet (2 layers) through ``Predictor(mesh=)`` with its batch
+   statistics summed over the ranks against one process; then K1 at the
+   step's F 4,096 and the evaluation's F 2,048 and K4 at the runner's
+   per-rank shape against their plain versions, with the bound and the
+   library call; (c) ``run_largescale_sgp --iid-stratified true
+   --data-sharding nodes`` and (d) ``run_traffic_sgp --data-sharding
+   batch`` (``--sgp-preprocessing true`` on K1's route) on one NCCL rank,
+   each bit for bit the unsharded runner.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part, the rates read from ``sgp_tpu_torch/obs/roofline.py``, K1's
@@ -361,7 +385,10 @@ inside the loaded artifacts, and ``grin`` sub-entry, GRIN's hop widths,
 from phase 17; its ``stcn`` sub-entry, F 49,152, with the GCN decoder's F
 4,096 under ``rnn2gcn``, from phase 18; its ``cer`` sub-entry, N 6,435,
 F 6,144, from phase 19; its ``halo`` sub-entry, K1 on a shard's tiles
-at F 1,024, from phase 21); the last is ``{"ok":
+at F 1,024, from phase 21; its ``stratified_dp`` sub-entry, F 4,096 a
+rank, with the sharded evaluation's F 2,048 under ``eval``, from phase 22;
+K4's ``dp`` sub-entries, 8 windows a rank, from phase 22); the last is
+``{"ok":
 true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -3263,12 +3290,12 @@ def la_argv(nodes: int, steps: int, device, *flags) -> list:
             "--seed", str(SEED), "--device", str(device), *flags]
 
 
-def run_traffic(argv) -> dict:
+def run_traffic(argv, fn=None) -> dict:
     """``run_traffic_sgp`` through ``Experiment(...).run(argv)``, as its
-    command line runs it."""
+    command line runs it (``fn`` in place of ``run_experiment``)."""
     import sgp_tpu_torch.exp.run_traffic_sgp as runner
     from sgp_tpu_torch.exp.common import Experiment
-    return Experiment(runner.run_experiment,
+    return Experiment(fn or runner.run_experiment,
                       runner.configure_parser()).run(argv)
 
 
@@ -6488,6 +6515,353 @@ def phase21_sharded(raw, graph, device) -> dict:
     return out
 
 
+# phase 22, data-parallel training (parallel/sharding.py, Predictor(mesh=))
+# at sgp_pv.yaml's, sgp_la.yaml's and gatedgn_la.yaml's widths: (a), (b),
+# (d), (e) on 2 gloo ranks sharing the card (one spawn), (c) and (d)'s
+# runner on one NCCL rank against the unsharded runners
+DP_WORLD = 2
+DP_STRAT_STEPS = 160    # (a), (b) the embedding's series: T cut from 640
+DP_EVAL_ITEMS = 32      # (b) eval windows (2 batches of 16)
+DP_TIME_STEPS = 8       # (a), (d) steps timed after the checked one
+DP_RUN_STEPS = 320      # (c) the stratified runner's series and epochs
+DP_RUN_EPOCHS = 2
+DP_LA_STEPS = 576       # (d), (e) the traffic series: 2 days at 207 nodes
+DP_LA_RUN = ["--epochs", "1", "--batches-epoch", "8"]    # (d)'s runner
+DP_GN_RUN = ["--epochs", "1", "--batches-epoch", "4"]    # (e)'s runner
+DP_GWNET = {"model": "gwnet", "windowing": {"window": 12, "horizon": 12},
+            "batch_size": 16, "lr": 1e-3, "epochs": 1, "seed": SEED,
+            "kw": {"hidden_size": 32, "ff_size": 64, "n_layers": 2,
+                   "emb_size": 10}}   # (e): traffic/gwnet.yaml, 2 layers
+DP_GWNET_ITEMS = 41     # (e) windows: batches of 16, 16 and a ragged 9
+
+
+def dp_inputs(raw, graph, tmp: Path) -> tuple:
+    """Phase 22's inputs in ``tmp``: (a), (b) the sgp_pv.yaml encoder's
+    input series on phase 11's data (cut to DP_STRAT_STEPS), targets, mask,
+    the scaled raw series as node-level u, the 100-nn graph; (d) the
+    sgp_la.yaml reservoir's states on a 207-node synthetic set, its
+    similarity graph; (e) that set's series for GraphWaveNet. Returns
+    ``(path, config, la)``, ``la`` the 207-node set's arrays for the main
+    process's K4 row."""
+    import argparse
+    from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
+                                    TemporalSplitter, Windowing)
+    from sgp_tpu_torch.data.datasets import SyntheticDiffusion
+    from sgp_tpu_torch.encode import Reservoir, encoder_input_array
+    from sgp_tpu_torch.exp.run_traffic_sgp import derive_order
+    cfg, ds, _ = sgp_setup(raw, graph)
+    t = DP_STRAT_STEPS
+    x_series = encoder_input_array(ds, cfg["preprocess_exogenous"])[:t]
+    h_off = ds.windowing.horizon_offsets()
+    valid = np.arange(t - int(h_off.max()))
+    sc = ds.scaler_params(device="cpu")
+    res_kw = dict(input_size=x_series.shape[-1],
+                  hidden_size=cfg["reservoir_size"],
+                  num_layers=cfg["reservoir_layers"],
+                  leaking_rate=cfg["leaking_rate"],
+                  spectral_radius=cfg["spectral_radius"],
+                  density=cfg["density"], alpha_decay=cfg["alpha_decay"],
+                  seed=SEED)
+    ht = cfg["reservoir_size"] * cfg["reservoir_layers"]
+    n_sup = cfg["receptive_field"]          # A, A^2: one direction
+    strat = {"reservoir": res_kw, "k": cfg["receptive_field"],
+             "modes": ("bsr", "dense"), "times_per_batch": 32,
+             "nodes_per_time": cfg["batch_size"] // 32,
+             "eval_batch": cfg["batch_inference"],
+             "model": dict(
+                 input_size=ht * (1 + n_sup + 1),
+                 order=derive_order(argparse.Namespace(**cfg)),
+                 n_nodes=ds.n_nodes, hidden_size=cfg["hidden_size"],
+                 mlp_size=cfg["mlp_size"], output_size=ds.n_channels,
+                 n_layers=cfg["n_layers"],
+                 horizon=ds.windowing.horizon_steps,
+                 positional_encoding=cfg["positional_encoding"],
+                 emb_size=cfg["emb_size"], exog_size=1,
+                 resnet=cfg["resnet"],
+                 fully_connected=cfg["fully_connected"], dropout=0.0)}
+    # (d): sgp_la.yaml's reservoir states, supports and decoder
+    la = la_config()
+    la_raw = SyntheticDiffusion(num_nodes=LA_NODES, num_steps=DP_LA_STEPS,
+                                seed=SEED)
+    g_la = la_raw.get_connectivity(threshold=0.1, knn=None,
+                                   include_self=False)
+    la_ds = SpatioTemporalDataset(
+        la_raw.target, index=la_raw.index, mask=la_raw.mask, graph=g_la,
+        covariates={"u": la_raw.datetime_encoded("day")},
+        windowing=Windowing(window=la["window"], horizon=la["horizon"]))
+    la_split = TemporalSplitter(0.1, 0.2).split(la_ds)
+    la_ds.fit_scaler(StandardScaler(axis=(0, 1)),
+                     step_index=la_ds.indices()[la_split.train])
+    la_in = encoder_input_array(la_ds, la["preprocess_exogenous"])
+    la_states = Reservoir(
+        input_size=la_in.shape[-1], hidden_size=la["reservoir_size"],
+        num_layers=la["reservoir_layers"], leaking_rate=la["leaking_rate"],
+        spectral_radius=la["spectral_radius"], density=la["density"],
+        alpha_decay=la["alpha_decay"], seed=SEED, device="cpu")(
+            torch.as_tensor(la_in)).numpy()
+    la_sc = la_ds.scaler_params(device="cpu")
+    sup = dict(k=la["receptive_field"], bidirectional=la["bidirectional"],
+               global_attr=la["global_attr"])
+    n_la_sup = la["receptive_field"] * (2 if la["bidirectional"] else 1) \
+        + int(la["global_attr"])
+    width = la_states.shape[-1] * (1 + n_la_sup)
+    window = {"supports": sup, "batch": la["batch_size"], "model": dict(
+        input_size=width, order=1 + n_la_sup, n_nodes=LA_NODES,
+        hidden_size=la["hidden_size"], mlp_size=la["mlp_size"],
+        output_size=1, n_layers=la["n_layers"], horizon=la["horizon"],
+        positional_encoding=la["positional_encoding"],
+        emb_size=la["emb_size"], exog_size=1, resnet=la["resnet"],
+        fully_connected=la["fully_connected"], dropout=0.0)}
+    path = tmp / "dp.npz"
+    np.savez(path, g_src=graph.src, g_dst=graph.dst, g_weight=graph.weight,
+             g_num_nodes=graph.num_nodes, x_series=x_series,
+             target=np.ascontiguousarray(ds.target[:t], np.float32),
+             mask=np.ascontiguousarray(ds.mask[:t]),
+             u=np.ascontiguousarray(x_series[..., :1]), h_off=h_off,
+             valid=valid, items=valid[:DP_EVAL_ITEMS],
+             bias=sc.bias.numpy(), scale=sc.scale.numpy(),
+             la_src=g_la.src, la_dst=g_la.dst, la_weight=g_la.weight,
+             la_num_nodes=g_la.num_nodes, la_x=la_states,
+             la_target=np.ascontiguousarray(la_ds.target, np.float32),
+             la_mask=np.ascontiguousarray(la_ds.mask),
+             la_u=np.ascontiguousarray(la_in[..., :1]),
+             la_starts=la_ds.indices()[la_split.train],
+             la_h_off=la_ds.windowing.horizon_offsets(),
+             la_bias=la_sc.bias.numpy(), la_scale=la_sc.scale.numpy())
+    gw_path = tmp / "gwnet.npz"
+    np.savez(gw_path, series=np.ascontiguousarray(la_raw.target,
+                                                  np.float32),
+             items=np.arange(DP_GWNET_ITEMS), src=g_la.src, dst=g_la.dst,
+             weight=g_la.weight, num_nodes=g_la.num_nodes)
+    config = {"seed": SEED, "lr": cfg["lr"], "grad_clip": GRAD_CLIP,
+              "grad_floor": SHARD_GRAD_FLOOR, "time_steps": DP_TIME_STEPS,
+              "strat": strat, "window": window,
+              "runner_argv": dp_gn_argv(),
+              "gwnet": {"path": str(gw_path), "cases": [DP_GWNET]}}
+    return path, config, {"graph": g_la, "x": la_states}
+
+
+def dp_gn_argv() -> list:
+    """(e)'s command: the GatedGN traffic runner at gatedgn_la.yaml on the
+    207-node synthetic set, the ELL table (K4)."""
+    return ["--config", str(ROOT / "configs" / "traffic" / "gatedgn_la.yaml"),
+            "--model-name", "gatedgn", "--dataset-name", "synthetic",
+            "--synthetic-nodes", str(LA_NODES), "--synthetic-steps",
+            str(DP_LA_STEPS), "--gn-aggregation", "ell", "--seed", str(SEED),
+            *DP_GN_RUN]
+
+
+def k4_at(b: int, n: int, d: int, h: int, device, tag: str) -> dict:
+    """K4 forward and backward at a layer's shape (f32) against their plain
+    versions: errors, interleaved CUDA-event times, the bound."""
+    from sgp_tpu_torch.ops import gn_ell
+    args, ghat = ell_inputs(np.random.default_rng(SEED), b, n, d, h // 2, h,
+                            torch.float32, device)
+    out, grads = gn_ell.gn_ell_fwd(*args), gn_ell.gn_ell_bwd(*args, ghat)
+    ref = gn_ell.gn_ell_fwd_plain(*args)
+    refg = gn_ell.gn_ell_bwd_plain(*args, ghat)
+    torch.cuda.synchronize()
+    errs = {"out": rel_err(out, ref)}
+    for name, g, r in zip(("d_pi", "d_pjn", "dw2", "db2", "dwg", "dbg"),
+                          grads, refg):
+        errs[name] = rel_err(g, r)
+    times = {}
+    for half, kernel, plain in (
+            ("fwd", lambda: gn_ell.gn_ell_fwd(*args),
+             lambda: gn_ell.gn_ell_fwd_plain(*args)),
+            ("bwd", lambda: gn_ell.gn_ell_bwd(*args, ghat),
+             lambda: gn_ell.gn_ell_bwd_plain(*args, ghat))):
+        k, p = interleaved_ms(kernel, plain, 2, 10)
+        times.update({f"{half}_ms": k["median"], f"{half}_plain_ms":
+                      p["median"], f"{half}_q1_q3": [k["q1"], k["q3"]]})
+    row = dict(case=tag, b=b, n=n, d=d, h2=h // 2, h=h, dtype="float32",
+               tol=TOL_GN_F32, rel_err={k: v[1] for k, v in errs.items()},
+               max_abs_err={k: v[0] for k, v in errs.items()}, **times,
+               **ell_bounds(args, ghat, out, grads))
+    print(f"[phase 22] K4: {json.dumps(row)}")
+    bad = {k: v[1] for k, v in errs.items() if not v[1] <= TOL_GN_F32}
+    assert not bad, f"K4 disagrees with plain at {tag}: {bad}"
+    return row
+
+
+def phase22_pair(raw, graph, device) -> dict:
+    """(a), (b), (d), (e) on 2 gloo ranks (``card_checks.dp_worker``): the
+    checks, then K1 at the step's and the evaluation's widths and K4 at
+    the runner's per-rank shape in this process, alone on the card."""
+    from sgp_tpu_torch.data.sgp_loader import build_support_operators
+    from sgp_tpu_torch.encode import Reservoir
+    from sgp_tpu_torch.graph import padded_incoming
+    from sgp_tpu_torch.parallel import run_ranks
+    from sgp_tpu_torch.parallel.card_checks import dp_worker
+    tmp = ROOT / "build" / "phase22"
+    tmp.mkdir(parents=True, exist_ok=True)
+    path, config, la = dp_inputs(raw, graph, tmp)
+    config.update(device=str(device), logs_dir=str(tmp / "logs"))
+    config["runner_argv"] += ["--device", str(device)]
+    config["gwnet"]["device"] = str(device)
+    ranks = run_ranks(dp_worker, DP_WORLD, "gloo", device, str(path), config)
+    r0 = ranks[0]
+    for mode, row in r0["strat"].items():
+        if mode == "encode_s":
+            continue
+        row["k1_launches_by_rank"] = [
+            (r["strat"][mode]["k1_launches_step"],
+             r["strat"][mode]["k1_launches_eval"]) for r in ranks]
+        row["step_ms_by_rank"] = [r["strat"][mode]["step_ms"]["median"]
+                                  for r in ranks]
+        print(f"[phase 22] (a), (b) stratified {mode}: {json.dumps(row)}")
+    win = r0["window"]
+    win["step_ms_by_rank"] = [r["window"]["step_ms"]["median"]
+                              for r in ranks]
+    print(f"[phase 22] (d) window step, BSR supports: {json.dumps(win)}")
+    run = r0["runner"]
+    run["launches_by_rank"] = [r["runner"]["launches"] for r in ranks]
+    print(f"[phase 22] (e) run_traffic_baselines --data-sharding batch: "
+          f"{json.dumps(run)}")
+    gw = {"sharded": r0["gwnet"][0], "single": r0["gwnet_single"][0],
+          "replicas_equal": all(
+              r["gwnet"][0] == r0["gwnet"][0] and all(
+                  np.array_equal(v, r0["gwnet"][1][k])
+                  for k, v in r["gwnet"][1].items()) for r in ranks)}
+    # (a metric over a zero target, MAPE, is infinite on both)
+    gw["rel_err"] = max(abs(gw["sharded"][k] - v) / abs(v)
+                        for k, v in gw["single"].items() if np.isfinite(v))
+    gw["nonfinite_equal"] = all(gw["sharded"][k] == v for k, v in
+                                gw["single"].items() if not np.isfinite(v))
+    print(f"[phase 22] (e) GraphWaveNet Predictor(mesh=), synced batch "
+          f"statistics: {json.dumps(gw)}")
+    walls = [tuple(r[f"{k}_s"] for k in ("strat", "window", "runner",
+                                          "gwnet")) for r in ranks]
+    print(f"[phase 22] peak MiB by rank: {[r['peak_mib'] for r in ranks]} "
+          f"(stratified {[r['strat_peak_mib'] for r in ranks]}); walls "
+          f"(strat, window, runner, gwnet) s: {walls}")
+    # K1 at the sharded step's and evaluation's widths, K4 at the runner's
+    # per-rank batch, each alone on the card
+    x = Reservoir(**config["strat"]["reservoir"], device=device)(
+        torch.as_tensor(np.load(path)["x_series"], device=device),
+        out_dtype=torch.bfloat16)
+    ops = {mode: build_support_operators(graph, k=config["strat"]["k"],
+                                         operator_mode=mode, device=device)
+           for mode in ("bsr", "dense")}
+    k1 = {}
+    for tb, lead, case in ((32, (), "sharded stratified hop"),
+                           (config["strat"]["eval_batch"], (1,),
+                            "sharded evaluation hop")):
+        # x widened to f32, as the wrapper does
+        xs = x[:tb].reshape((tb,) + lead + x.shape[1:]).float()
+        row = k1_at_support_width(ops["bsr"][0], ops["dense"][0], xs,
+                                  "phase 22", case)
+        k1[row["f"]] = row
+    del x, ops
+    gn_h = 64      # the traffic runner's --hidden-size default
+    d = padded_incoming(la["graph"])[0].shape[1]
+    b = read_flat_yaml(ROOT / "configs" / "traffic" / "gatedgn_la.yaml")[
+        "batch_size"] // DP_WORLD
+    k4 = k4_at(b, LA_NODES, d, gn_h, device, "runner per rank")
+    for mode, row in r0["strat"].items():
+        if mode == "encode_s":
+            continue
+        assert all(r["strat"][mode]["replicas_equal"] for r in ranks), row
+        assert row["loss_rel_err"] <= TOL_SHARD, row
+        assert row["param_err_beyond_floor"] <= TOL_SHARD, row
+        assert row["param_err_max"] <= row["two_lr"] * (1 + TOL_SHARD), row
+        assert row["eval_rel_err"] <= TOL_SHARD, row
+        assert all(r["strat"][mode]["eval"] == row["eval"] for r in ranks)
+        # K1 under the BSR supports on every rank, none on the dense ones
+        assert device.type != "cuda" or (min(min(v) for v in row[
+            "k1_launches_by_rank"]) > 0) == (mode == "bsr"), row
+    assert all(r["window"]["replicas_equal"] for r in ranks), win
+    assert win["loss_rel_err"] <= TOL_SHARD, win
+    assert win["param_err_beyond_floor"] <= TOL_SHARD, win
+    assert win["param_err_max"] <= win["two_lr"] * (1 + TOL_SHARD), win
+    assert device.type != "cuda" or min(
+        r["window"]["k1_launches_step"] for r in ranks) > 0, win
+    assert all(r["runner"]["sharded"] == run["sharded"] for r in ranks), run
+    assert all(np.isfinite(v) for v in run["sharded"].values()), run
+    assert run["rel_err"] <= TOL_LOSS, run
+    assert device.type != "cuda" or min(
+        min(v.values()) for v in run["launches_by_rank"]) > 0, run
+    assert gw["replicas_equal"] and gw["nonfinite_equal"], gw
+    assert gw["rel_err"] <= TOL_SHARD, gw
+    return {"ranks": ranks, "k1": k1, "k4": k4,
+            "k1_launches_step": r0["strat"]["bsr"]["k1_launches_step"],
+            "k1_launches_eval": r0["strat"]["bsr"]["k1_launches_eval"],
+            "k4_launches": run["launches"]}
+
+
+def phase22_runners(device) -> dict:
+    """(c) ``run_largescale_sgp --iid-stratified true --data-sharding
+    nodes`` and (d) ``run_traffic_sgp --data-sharding batch`` (its
+    supports on K1: ``--sgp-preprocessing true``, ``operator_mode="bsr"``
+    on the namespace) on one NCCL rank (a group of this process alone),
+    each against the unsharded runner from the same seed and command."""
+    import tempfile
+    import torch.distributed as dist
+    import sgp_tpu_torch.exp.run_traffic_sgp as traffic
+    from sgp_tpu_torch.ops import bsr_spmm
+
+    def traffic_bsr(args):
+        args.operator_mode = "bsr"
+        return traffic.run_experiment(args)
+
+    strat = strat_argv(N_NODES, DP_RUN_STEPS, device, "--epochs",
+                       str(DP_RUN_EPOCHS))
+    la = la_argv(LA_NODES, DP_LA_STEPS, device, "--sgp-preprocessing",
+                 "true", *DP_LA_RUN)
+    runs = {"c": (lambda a: run_largescale(a), strat, "nodes"),
+            "d": (lambda a: run_traffic(a, traffic_bsr), la, "batch")}
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    out = {}
+    with cached_datasets("phase 22"), \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        base = {}
+        for key, (run, argv, _) in runs.items():
+            t0 = time.perf_counter()
+            base[key] = (run(argv), time.perf_counter() - t0)
+        dist.init_process_group(
+            backend, store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1, device_id=device if backend == "nccl" else None)
+        try:
+            for key, (run, argv, flag) in runs.items():
+                bsr_spmm.launches = 0
+                t0 = time.perf_counter()
+                res = run(argv + ["--data-sharding", flag])
+                row = {"backend": backend, "sharded": res,
+                       "unsharded": base[key][0],
+                       "unsharded_s": base[key][1],
+                       "sharded_s": time.perf_counter() - t0,
+                       "k1_launches": bsr_spmm.launches,
+                       "bitwise": all(res[k] == v for k, v in
+                                      base[key][0].items()
+                                      if k.startswith("test_"))}
+                print(f"[phase 22] ({key}) runner --data-sharding {flag}, "
+                      f"one {backend} rank vs unsharded: {json.dumps(row)}")
+                out[key] = row
+        finally:
+            dist.destroy_process_group()
+    for key, row in out.items():
+        assert row["bitwise"], row
+        assert all(np.isfinite(v) for k, v in row["sharded"].items()
+                   if k.startswith("test_")), row
+    assert device.type != "cuda" or out["d"]["k1_launches"] > 0, out["d"]
+    return out
+
+
+def phase22_data_parallel(raw, graph, device) -> dict:
+    """Data-parallel training (``parallel/sharding.py``'s stratified and
+    window steps, the eval's supports, ``Predictor(mesh=)``): (a), (b),
+    (d), (e) on 2 gloo ranks, (c) and (d)'s runner on NCCL; prints its
+    wall (budget 90 s)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"pair": timed("phase 22 (a), (b), (d), (e)", phase22_pair, raw,
+                         graph, device),
+           "runners": timed("phase 22 (c), (d) runners", phase22_runners,
+                            device)}
+    print(f"[phase 22] wall {time.perf_counter() - t0:.1f} s (budget 90 s)")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -6551,6 +6925,7 @@ def run_phases():
     p19 = timed("phase 19", phase19_datasets, device)
     timed("phase 20", phase20_tooling, ds, graph, device)
     p21 = timed("phase 21", phase21_sharded, ds, graph, device)
+    p22 = timed("phase 22", phase22_data_parallel, ds, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -6628,6 +7003,18 @@ def run_phases():
         p21["pair"]["k1"])
     kernels[0]["halo"]["f"] = p21["pair"]["k1"]["f"]
     kernels[0]["halo"]["nnzb"] = p21["pair"]["k1"]["nnzb"]
+    # the sharded stratified step's hops on BSR supports, F 4,096 a rank,
+    # and the sharded evaluation's, F 2,048, under ``eval`` (phase 22 (a),
+    # (b)); launches of rank 0's step and evaluation
+    dp = p22["pair"]
+    kernels[0]["stratified_dp"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", dp["k1_launches_step"],
+        dp["k1"][4096])
+    kernels[0]["stratified_dp"]["eval"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", dp["k1_launches_eval"],
+        dp["k1"][2048])
     # K4's launches from the traffic runner's run (a), K3 forward's from
     # the large-scale runner's run (c); the slices' own counts beside them
     run_a, run_c = runners["runs"]["a"], runners["runs"]["c"]
@@ -6638,6 +7025,12 @@ def run_phases():
             f"sgp_tpu/ops/gn_ell.py:{line}", run_a["launches"][name], k4,
             half))
         kernels[-1]["slice_launches"] = train["launches"][name]
+        # under Predictor(mesh=), 8 windows a rank (phase 22 (e)); rank 0's
+        # launches in the runner's run
+        kernels[-1]["dp"] = kernel_entry(
+            name, "sgp_tpu_torch/csrc/gn_ell.cu",
+            f"sgp_tpu/ops/gn_ell.py:{line}", dp["k4_launches"][name],
+            dp["k4"], half)
     # (run (c) trains on its subgraphs' edge lists: K3's backward runs on
     # phase 7's path only)
     for name, line, half, launches in (

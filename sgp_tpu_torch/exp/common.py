@@ -134,8 +134,8 @@ class Experiment:
                 num_processes=args.num_processes,
                 process_id=args.process_id, device=device)
             logger.info(f"distributed: {n} process(es) on {backend}")
-        rank = torch.distributed.get_rank() \
-            if torch.distributed.is_initialized() else 0
+        from sgp_tpu_torch.parallel import process_rank
+        rank = process_rank()
         if rank > 0:
             # only rank 0 logs and writes the run's files
             for name in ("", "sgp_tpu_torch"):   # root, the package's
@@ -194,6 +194,19 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
     return parser
+
+
+def dp_mesh(args):
+    """``--data-sharding batch``: the data-parallel ``parallel.Mesh`` over
+    the process group's ranks (one rank when the process joined none) for
+    ``Predictor(mesh=)``; ``None`` otherwise."""
+    if getattr(args, "data_sharding", "none") != "batch":
+        return None
+    from sgp_tpu_torch.parallel import local_mesh
+    mesh = local_mesh(1)
+    logger.info(f"data-sharding=batch over {mesh.size('data')} ranks "
+                f"(Predictor DP)")
+    return mesh
 
 
 def dataset_kwargs(args) -> dict:

@@ -23,7 +23,9 @@ JAX runner silently computes on clamped indices). ``stcn`` and
 ``rnn2gcn`` raise with either loader: the JAX runner hands them the full
 graph's operator beside subgraph batches, which fails on the node count
 unless the padded subgraph holds every node, and then its relabelled
-nodes need not be the graph's.
+nodes need not be the graph's. ``--data-sharding batch`` trains
+data-parallel over the process group's ranks (``Predictor(mesh=)``: each
+rank a slice of every batch, the subgraph arrays whole).
 
 Usage::
 
@@ -42,14 +44,14 @@ import numpy as np
 from sgp_tpu_torch.data import (RobustScaler, SpatioTemporalDataset,
                                 SubgraphLoader, SubsetLoader, WindowedLoader,
                                 Windowing)
-from sgp_tpu_torch.exp.common import (Experiment, dataset_kwargs,
+from sgp_tpu_torch.exp.common import (Experiment, dataset_kwargs, dp_mesh,
                                       get_dataset, get_splitter)
 from sgp_tpu_torch.exp.run_traffic_baselines import (
-    build_model_and_forward, check_ported, configure_parser,
-    diffusion_kwargs, gn_kwargs, gn_static)
+    build_model_and_forward, configure_parser, diffusion_kwargs, gn_kwargs,
+    gn_static)
 from sgp_tpu_torch.models import diff_conv_support_from_arrays
+from sgp_tpu_torch.parallel import rank_device
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
-from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -129,9 +131,8 @@ def build_subgraph_forward(args, ds, u_size, device=None):
 
 
 def run_experiment(args):
-    check_ported(args)
     check_loader(args)
-    device = resolve_device(getattr(args, "device", None))
+    device = rank_device(getattr(args, "device", None))
     dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
     exog = dataset.datetime_encoded("day")
     graph = dataset.get_connectivity(knn=args.adj_knn, threshold=None,
@@ -174,8 +175,8 @@ def run_experiment(args):
         lr_milestones=args.lr_milestones if args.use_lr_schedule else None,
         lr_gamma=args.lr_gamma, steps_per_epoch=batches_epoch,
         scale_target=args.scale_target, metrics=MaskedMetrics.forecasting(),
-        batch_to_call=to_call, seed=args.seed, static_batch=static,
-        device=device)
+        batch_to_call=to_call, seed=args.seed, mesh=dp_mesh(args),
+        static_batch=static, device=device)
 
     infer_bs = args.batch_inference or args.batch_size
     test_loader = WindowedLoader(ds, split.test, batch_size=infer_bs)

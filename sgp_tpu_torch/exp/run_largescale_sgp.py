@@ -19,7 +19,8 @@ trial on shared batches (``train/multi_trial.py``), select on the fused
 validation MAE and report the best trial's test metrics.
 ``--data-sharding nodes`` trains over every rank of the process group
 (``--num-processes`` or ``torchrun``; one process a rank): each rank
-encodes as above, keeps only its node slab of the rows, draws its share
+encodes as above, keeps only its node slab of the rows (with
+``--iid-stratified true``: of the temporal embedding), draws its share
 of each batch from it and sums the gradients (``parallel/sharding.py``);
 the test evaluation runs node-sharded too, and only rank 0 logs and
 writes results.
@@ -34,6 +35,7 @@ Usage::
     # on the CPU: add --device cpu
     # node-sharded over 2 cards: torchrun --nproc-per-node 2 -m
     #   sgp_tpu_torch.exp.run_largescale_sgp ... --data-sharding nodes
+    #   (with --iid-stratified true too)
 """
 from __future__ import annotations
 
@@ -69,9 +71,10 @@ from sgp_tpu_torch.train.multi_trial import (best_trial, eval_trials,
                                              init_trial_params, load_trial,
                                              make_fused_iid_multi_trial_step)
 from sgp_tpu_torch.parallel import (local_mesh, make_sharded_iid_eval,
-                                    make_sharded_iid_step, rank_device,
+                                    make_sharded_iid_step,
+                                    make_sharded_iid_stratified_step,
+                                    process_rank, rank_device,
                                     rank_generator, shard_nodes)
-from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -79,13 +82,6 @@ logger = logging.getLogger(__name__)
 def _searching(args) -> bool:
     return bool(getattr(args, "search_lr", None)
                 or getattr(args, "search_seeds", None))
-
-
-def _unported_stratified(args):
-    if getattr(args, "data_sharding", "none") != "none":
-        raise NotImplementedError(
-            "--data-sharding with --iid-stratified (the sharded stratified "
-            "step) is not ported yet (ROADMAP A10)")
 
 
 def _sync(device):
@@ -156,16 +152,9 @@ def run_experiment(args):
         if getattr(args, "data_sharding", "none") != "none":
             raise ValueError("--data-sharding is not supported with the "
                              "vmapped --search-lr/--search-seeds path")
-    sharded = getattr(args, "data_sharding", "none") == "nodes"
     device = rank_device(getattr(args, "device", None))
-    if sharded:
-        mesh = local_mesh(1)
-        if mesh.size("data") > 1 and (getattr(args, "checkpoint_every", 0)
-                                      or getattr(args, "resume", False)):
-            raise NotImplementedError(
-                "--checkpoint-every/--resume over several ranks (one "
-                "generator a rank) is not ported yet (ROADMAP A10)")
-        logger.info(f"data-sharding=nodes over {mesh.size('data')} ranks")
+    mesh = _nodes_mesh(args)
+    sharded = mesh is not None
     ds, split, exog = _dataset(args, device)
     order = derive_order(args)
     est_gb = (ds.n_steps * ds.n_nodes * order * args.reservoir_size
@@ -273,6 +262,27 @@ def run_experiment(args):
     return results
 
 
+def _nodes_mesh(args):
+    """``--data-sharding nodes``: the mesh over the process group's ranks
+    (None otherwise)."""
+    if getattr(args, "data_sharding", "none") != "nodes":
+        return None
+    mesh = local_mesh(1)
+    if mesh.size("data") > 1 and (getattr(args, "checkpoint_every", 0)
+                                  or getattr(args, "resume", False)):
+        raise NotImplementedError(
+            "--checkpoint-every/--resume over several ranks (one generator "
+            "a rank, not in the checkpoint) is not ported yet (ROADMAP "
+            "A10, checkpoint/resume over ranks)")
+    logger.info(f"data-sharding=nodes over {mesh.size('data')} ranks")
+    return mesh
+
+
+def _cut(a, mesh):
+    """This rank's node slab of ``[T, N, ...]`` (None stays None)."""
+    return None if a is None else shard_nodes(a, mesh, "data", node_axis=1)
+
+
 def _node_sharded(args, ds, split, model, optimizer, mesh, enc, tgt, mask,
                   packed, h_off, u, scaler, x_size: int, batches_epoch: int):
     """The ``--data-sharding nodes`` step and test evaluation on this
@@ -281,8 +291,7 @@ def _node_sharded(args, ds, split, model, optimizer, mesh, enc, tgt, mask,
     test_eval_fn)``; the slabs are copies, so the caller may free the
     whole arrays."""
     def cut(a):
-        return None if a is None else shard_nodes(a, mesh, "data",
-                                                  node_axis=1)
+        return _cut(a, mesh)
 
     prebuilt = isinstance(packed, torch.Tensor)
     step = make_sharded_iid_step(
@@ -470,8 +479,8 @@ def run_experiment_stratified(args):
         raise ValueError("--search-lr/--search-seeds are not supported "
                          "with --iid-stratified (the trial search runs on "
                          "the precompute path)")
-    _unported_stratified(args)
-    device = resolve_device(getattr(args, "device", None))
+    device = rank_device(getattr(args, "device", None))
+    mesh = _nodes_mesh(args)
     ds, split, exog = _dataset(args, device)
     input_size = ds.n_channels + (exog.shape[-1]
                                   if args.preprocess_exogenous else 0)
@@ -522,29 +531,65 @@ def run_experiment_stratified(args):
     mask = torch.as_tensor(ds.mask, device=device)
     h_off = ds.windowing.horizon_offsets()
     scaler = ds.scaler_params(device=device)
-    step = make_fused_iid_stratified_step(
-        model, optimizer, h_temporal, tgt, mask, ds.indices()[split.train],
-        h_off, scaler, ops, global_attr=args.global_attr, u=u,
-        times_per_batch=times_per_batch, nodes_per_time=nodes_per_time,
-        scale_target=args.scale_target, steps_per_call=batches_epoch,
-        grad_clip=args.grad_clip_val)
-    # the full-graph test evaluation: the temporal embedding propagated
-    # through the same supports and the global mean, as in the step
-    test_eval_fn = make_fused_eval(
-        model, h_temporal, tgt, mask, ds.indices()[split.test],
-        ds.windowing.window_offsets(), h_off, scaler, metrics, u=u,
-        support_ops=eval_ops, batch_size=args.batch_inference or 16)
+    infer_bs = args.batch_inference or 16
+    if mesh is not None:
+        # the embedding, targets and masks as node slabs: a step
+        # all-gathers only its sampled steps' rows, the evaluation each
+        # batch's windows
+        s = mesh.size("data")
+        npt = max(-(-nodes_per_time // s) * s, s)
+        if npt != nodes_per_time:
+            logger.info(f"nodes_per_time {nodes_per_time} -> {npt} "
+                        f"(rounded up to {s} ranks; effective batch "
+                        f"{times_per_batch * npt})")
+        h_temporal, tgt, mask = (_cut(a, mesh)
+                                 for a in (h_temporal, tgt, mask))
+        if u is not None and u.ndim == 3:
+            u = _cut(u, mesh)
+        step = make_sharded_iid_stratified_step(
+            model, optimizer, h_temporal, tgt, mask,
+            ds.indices()[split.train], h_off, scaler, ops, mesh,
+            global_attr=args.global_attr, u=u,
+            times_per_batch=times_per_batch, nodes_per_time=npt,
+            scale_target=args.scale_target, steps_per_call=batches_epoch,
+            grad_clip=args.grad_clip_val, seed=args.seed,
+            n_nodes=ds.n_nodes)
+        test_eval_fn = make_sharded_iid_eval(
+            model, h_temporal, tgt, mask, ds.indices()[split.test],
+            ds.windowing.window_offsets(), h_off, scaler, metrics, mesh,
+            u=u, batch_size=infer_bs, support_ops=eval_ops,
+            n_nodes=ds.n_nodes)
+    else:
+        step = make_fused_iid_stratified_step(
+            model, optimizer, h_temporal, tgt, mask,
+            ds.indices()[split.train], h_off, scaler, ops,
+            global_attr=args.global_attr, u=u,
+            times_per_batch=times_per_batch, nodes_per_time=nodes_per_time,
+            scale_target=args.scale_target, steps_per_call=batches_epoch,
+            grad_clip=args.grad_clip_val)
+        # the full-graph test evaluation: the temporal embedding
+        # propagated through the same supports and the global mean, as in
+        # the step
+        test_eval_fn = make_fused_eval(
+            model, h_temporal, tgt, mask, ds.indices()[split.test],
+            ds.windowing.window_offsets(), h_off, scaler, metrics, u=u,
+            support_ops=eval_ops, batch_size=infer_bs)
 
+    # every rank steps the same stream: the shared starts (the sharded
+    # step draws a rank's own nodes from its rank generator)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     best_state, fit_state = _run_restartable_fit(
         args, model, optimizer, step, generator, batches_epoch)
     logger.info(f"train done in {fit_state['train_time_s']:.1f}s")
     model.load_state_dict(best_state)
-    Predictor(model, metrics=metrics, device=device).save(
-        f"{args.logdir}/best.pt")
+    if process_rank() == 0:     # the ranks hold the same weights
+        Predictor(model, metrics=metrics, device=device).save(
+            f"{args.logdir}/best.pt")
     results = {f"test_{k}": v for k, v in test_eval_fn().items()}
     results["train_mae"] = fit_state["best_loss"]
     results["train_time_s"] = fit_state["train_time_s"]
+    if mesh is not None:
+        results["data_sharding"] = "nodes"
     logger.info(f"results: {results}")
     return results
 

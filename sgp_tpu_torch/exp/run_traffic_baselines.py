@@ -16,8 +16,9 @@ and ``gwnet`` on the diffusion supports of ``diff_conv_support``, and
 ``build_operator(normalize_adj(g, "row"))`` under their GraphConvs. Both
 are built once on the run's device (``auto``: dense up to 512 MB, so on
 the runners' graphs the hops are matrix products; a BSR operator would run
-kernel K1). ``--data-sharding batch`` raises naming its ROADMAP item
-(A10).
+kernel K1). ``--data-sharding batch`` trains data-parallel over the
+process group's ranks (``--num-processes`` or ``torchrun``; one process a
+rank): ``Predictor(mesh=dp_mesh(args))`` splits every batch.
 
 Usage::
 
@@ -26,6 +27,8 @@ Usage::
         --synthetic-nodes 5016 --synthetic-steps 640 --adj-knn 100 \\
         --gn-aggregation ell --epochs 2
     # on the CPU: add --device cpu
+    # data-parallel over 2 cards: torchrun --nproc-per-node 2 -m
+    #   sgp_tpu_torch.exp.run_traffic_baselines ... --data-sharding batch
 """
 from __future__ import annotations
 
@@ -39,15 +42,15 @@ import torch
 from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
                                 WindowedLoader, Windowing)
 from sgp_tpu_torch.exp.common import (Experiment, add_common_args,
-                                      dataset_kwargs, get_dataset,
+                                      dataset_kwargs, dp_mesh, get_dataset,
                                       get_splitter, str2bool)
 from sgp_tpu_torch.graph import auto_band, normalize_adj, padded_incoming
 from sgp_tpu_torch.models import (DCRNNModel, FCRNNModel, GraphWaveNetModel,
                                   RNNModel, TCNModel, diff_conv_support,
                                   get_model_class)
 from sgp_tpu_torch.ops import build_operator, dense_adj_mask
+from sgp_tpu_torch.parallel import rank_device
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
-from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -102,16 +105,9 @@ def configure_parser() -> argparse.ArgumentParser:
     parser.add_argument("--subgraph-k", type=int, default=2)
     parser.add_argument("--data-sharding", type=str, default="none",
                         choices=("none", "batch"),
-                        help="'batch': data-parallel training, not ported "
-                             "yet (ROADMAP A10)")
+                        help="'batch': data-parallel training over the "
+                             "process group's ranks, each batch split")
     return parser
-
-
-def check_ported(args):
-    if getattr(args, "data_sharding", "none") != "none":
-        raise NotImplementedError(
-            "--data-sharding (multi-device training) is not ported yet "
-            "(ROADMAP A10)")
 
 
 def input_size(ds, u_size: int) -> int:
@@ -249,8 +245,7 @@ def build_model_and_forward(args, ds, u_size, device=None):
 
 
 def run_experiment(args):
-    check_ported(args)
-    device = resolve_device(getattr(args, "device", None))
+    device = rank_device(getattr(args, "device", None))
     dataset = get_dataset(args.dataset_name, **dataset_kwargs(args))
     exog = dataset.datetime_encoded("day")
     graph = dataset.get_connectivity(
@@ -282,8 +277,8 @@ def run_experiment(args):
         steps_per_epoch=batches_epoch or max(
             1, len(split.train) // args.batch_size),
         scale_target=args.scale_target, metrics=metrics,
-        batch_to_call=to_call, seed=args.seed, static_batch=static,
-        device=device)
+        batch_to_call=to_call, seed=args.seed, mesh=dp_mesh(args),
+        static_batch=static, device=device)
 
     train_loader = WindowedLoader(ds, split.train,
                                   batch_size=args.batch_size, shuffle=True,

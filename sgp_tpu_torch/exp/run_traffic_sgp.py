@@ -24,14 +24,21 @@ Routes, as in the JAX runner:
   through ``operator_mode`` (``auto``: dense at traffic sizes; ``"bsr"``
   set on the parsed namespace runs K1 under them).
 
-``--data-sharding batch`` (multi-device training) is not ported yet
-(ROADMAP A10).
+``--data-sharding batch`` trains the fused SGP route over the process
+group's ranks (``--num-processes`` or ``torchrun``; one process a rank):
+``parallel/sharding.py::make_sharded_window_step``, each rank its share of
+a batch from its own generator on the whole series; the evaluations run
+whole on every rank, rank 0's validation metric decides the best epoch
+and the early stop on every rank, and rank 0 writes the weights. Any other route
+raises, as in the JAX runner.
 
 Usage::
 
     python -m sgp_tpu_torch.exp.run_traffic_sgp --config traffic/sgp_la.yaml \\
         --dataset-name synthetic --synthetic-nodes 207 --epochs 5
     # on the CPU: add --device cpu
+    # data-parallel over 2 cards: torchrun --nproc-per-node 2 -m
+    #   sgp_tpu_torch.exp.run_traffic_sgp ... --data-sharding batch
 """
 from __future__ import annotations
 
@@ -54,10 +61,13 @@ from sgp_tpu_torch.exp.common import (Experiment, add_common_args,
                                       get_dataset, get_splitter, str2bool)
 from sgp_tpu_torch.models import ESNModel, SGPModel, SGPOnlineModel
 from sgp_tpu_torch.ops import build_operator
+from sgp_tpu_torch.parallel import (local_mesh, make_sharded_window_step,
+                                    process_rank, rank_device,
+                                    rank_generator)
+from sgp_tpu_torch.parallel.collectives import broadcast_
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.train.fused_window import (make_fused_eval,
                                               make_fused_window_step)
-from sgp_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -111,7 +121,8 @@ def configure_parser(data_sharding_choices=("none", "batch")
         parser.add_argument(
             "--data-sharding", type=str, default="none",
             choices=data_sharding_choices,
-            help="multi-device training: not ported yet (ROADMAP A10)")
+            help="'batch': the fused SGP route data-parallel over the "
+                 "process group's ranks")
     return parser
 
 
@@ -158,11 +169,8 @@ def build_encoded_dataset(args, device):
     return ds, split
 
 
-def check_ported(args):
-    if getattr(args, "data_sharding", "none") != "none":
-        raise NotImplementedError(
-            "--data-sharding (multi-device training) is not ported yet "
-            "(ROADMAP A10)")
+def _batch_sharded(args) -> bool:
+    return getattr(args, "data_sharding", "none") == "batch"
 
 
 def _state_copy(model) -> dict:
@@ -218,8 +226,18 @@ def build_model(args, ds, x_size: int, u_size: int, device):
 
 
 def run_experiment(args):
-    check_ported(args)
-    device = resolve_device(getattr(args, "device", None))
+    fused = (args.fused and args.model_name == "sgp"
+             and not args.iid_sampling)
+    if _batch_sharded(args) and not fused:
+        # the data-parallel window step backs the fused SGP route only;
+        # the loader-based models take --data-sharding batch on the
+        # baseline runners (Predictor(mesh=))
+        raise ValueError(
+            "--data-sharding batch on run_traffic_sgp requires the fused "
+            "SGP path (--fused true, --model-name sgp, --iid-sampling "
+            "false); for loader-based baselines use run_traffic_baselines "
+            "--data-sharding batch")
+    device = rank_device(getattr(args, "device", None))
     ds, split = build_encoded_dataset(args, device)
 
     support_ops = None
@@ -252,14 +270,13 @@ def run_experiment(args):
         batch_to_call=to_call, seed=args.seed, device=device)
     scaler = ds.scaler_params(device=device)
 
-    fused = (args.fused and args.model_name == "sgp"
-             and not args.iid_sampling)
     if fused:
         dev = device_arrays(ds, device)   # moved once: the train step and
         #                                   both evaluations share them
         _fit_fused(args, ds, split, predictor, support_ops, batches_epoch,
                    dev, scaler)
-        predictor.save(f"{args.logdir}/best.pt")
+        if process_rank() == 0:     # the ranks hold the same weights
+            predictor.save(f"{args.logdir}/best.pt")
         test_eval = fused_eval_for(ds, predictor, split.test, support_ops,
                                    args.batch_inference or args.batch_size,
                                    dev, scaler)
@@ -332,20 +349,35 @@ def _fit_fused(args, ds, split, predictor, support_ops, batches_epoch, dev,
     first = ds.gather_batch(np.array([0, 1]))
     predictor.init(first, scaler)
     model = predictor.model
-    step = make_fused_window_step(
-        model, predictor.optimizer, dev["x"], dev["y"], dev["m"],
-        ds.indices()[split.train], ds.windowing.window_offsets(),
-        ds.windowing.horizon_offsets(), scaler, u=dev["u"],
-        support_ops=support_ops, batch_size=args.batch_size,
-        scale_target=args.scale_target,
-        steps_per_call=batches_epoch or 300, grad_clip=predictor.grad_clip,
-        scheduler=predictor.scheduler)
+    fixed = (model, predictor.optimizer, dev["x"], dev["y"], dev["m"],
+             ds.indices()[split.train], ds.windowing.window_offsets(),
+             ds.windowing.horizon_offsets(), scaler)
+    common = dict(u=dev["u"], support_ops=support_ops,
+                  batch_size=args.batch_size, scale_target=args.scale_target,
+                  steps_per_call=batches_epoch or 300,
+                  grad_clip=predictor.grad_clip,
+                  scheduler=predictor.scheduler)
+    device = dev["x"].device
+    if _batch_sharded(args):
+        # each rank draws its share of every batch from its own generator
+        mesh = local_mesh(1)
+        n = mesh.size("data")
+        if args.batch_size % n:
+            raise ValueError(
+                f"--data-sharding batch needs batch_size ({args.batch_size}"
+                f") divisible by the rank count ({n})")
+        logger.info(f"data-sharding=batch over {n} ranks")
+        step = make_sharded_window_step(*fixed, mesh=mesh, **common)
+        generator = rank_generator(args.seed, mesh.index["data"], device)
+        group = mesh.group("data")
+    else:
+        step = make_fused_window_step(*fixed, **common)
+        generator = torch.Generator(device=device).manual_seed(args.seed)
+        group = None
     val_eval = fused_eval_for(
         ds, predictor, split.val, support_ops,
         args.batch_inference or args.batch_size, dev, scaler) \
         if len(split.val) else None
-    generator = torch.Generator(device=dev["x"].device).manual_seed(
-        args.seed)
     best, best_state, bad = np.inf, _state_copy(model), 0
     for epoch in range(args.epochs):
         t0 = time.time()
@@ -355,6 +387,12 @@ def _fit_fused(args, ds, split, predictor, support_ops, batches_epoch, dev,
             current = logs["val_mae"]
         else:
             current = logs["train_loss"]
+        if group is not None:
+            # every rank evaluated the whole validation split, and the card
+            # may round the ranks' values apart: rank 0's decides, so the
+            # ranks keep the same best weights and stop at the same epoch
+            current = float(broadcast_(torch.tensor(
+                current, dtype=torch.float64, device=device), group))
         if current < best:
             best, best_state, bad = current, _state_copy(model), 0
         else:

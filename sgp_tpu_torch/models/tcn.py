@@ -5,10 +5,16 @@ and ``tsl/nn/blocks/encoders/tcn.py``) and of ``TCNModel`` from
 ``sgp_tpu/models/stgn_extra.py``: dilated, optionally causal and optionally
 gated-tanh convolutions over the time axis of ``[b s n c]`` tensors, each
 one ``nn.Conv1d`` over the ``b * n`` series, and the stateless batch norm.
+
+Under ``Predictor(mesh=)`` each rank holds a slice of the batch, and the
+batch norm's statistics are those of the whole batch, as GSPMD computes
+them in the JAX package: the trainer sets :class:`Norm`'s
+``sum_over_ranks`` (as ``nn.SyncBatchNorm`` holds a process group), which
+sums the count, the sums and the squared deviations over the ranks.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -90,13 +96,34 @@ class TemporalConvNet(nn.Module):
         return x
 
 
+def _split_moments(xf, axes, w, cnt, sum_over_ranks):
+    """The mean and population variance over ``axes`` of the batch split
+    over the ranks: this rank's (weighted) sums and ``cnt`` summed by
+    ``sum_over_ranks``."""
+    xw = xf if w is None else xf * w
+    s = xw.sum(axes, keepdim=True)
+    both = sum_over_ranks(
+        torch.cat([s.reshape(-1), cnt.reshape(1).to(s.dtype)]))
+    count = torch.clamp(both[-1], min=1.0)
+    mean = both[:-1].reshape(s.shape) / count
+    dev = (xf - mean).square()
+    dev = dev if w is None else dev * w
+    var = sum_over_ranks(dev.sum(axes, keepdim=True)) / count
+    return mean, var
+
+
 class Norm(nn.Module):
     """``none``, ``layer`` (flax's LayerNorm, in f32) or ``batch``: a batch
     norm without state, whose mean and population variance are taken over
     every axis but the channels in f32, at train and at eval alike (not
     ``torch.nn.BatchNorm``, which keeps running statistics), with eps 1e-5.
     ``time_mask [s]`` (bool) restricts the batch statistics to the valid
-    time steps of ``x [b s n c]``."""
+    time steps of ``x [b s n c]``. ``sum_over_ranks`` (None: the
+    statistics are this process's batch) is a differentiable sum over the
+    ranks that each hold a slice of the batch, set by the trainer while it
+    runs such a slice: the statistics are then the whole batch's."""
+
+    sum_over_ranks: Optional[Callable] = None
 
     def __init__(self, kind: str = "none", size: Optional[int] = None):
         super().__init__()
@@ -125,7 +152,15 @@ class Norm(nn.Module):
             return self.layer_norm(x.float()).to(x.dtype)
         xf = x.float()
         axes = tuple(range(x.ndim - 1))
-        if time_mask is None:
+        if self.sum_over_ranks is not None:
+            w = None if time_mask is None else time_mask.to(
+                torch.float32).reshape((1, -1) + (1,) * (x.ndim - 2))
+            cnt = torch.tensor(float(x.numel() // x.shape[-1]),
+                               device=x.device) if w is None else \
+                w.sum() * (x.numel() // (x.shape[1] * x.shape[-1]))
+            mean, var = _split_moments(xf, axes, w, cnt,
+                                       self.sum_over_ranks)
+        elif time_mask is None:
             mean = xf.mean(axes, keepdim=True)
             var = (xf - mean).square().mean(axes, keepdim=True)
         else:

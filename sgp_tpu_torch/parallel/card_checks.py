@@ -1,4 +1,4 @@
-"""Rank functions that check the node-sharded path on one machine's card.
+"""Rank functions that check the multi-device paths on one machine's card.
 
 ``chip_smoke.py`` runs them through :func:`~sgp_tpu_torch.parallel.launch.
 run_ranks` (2 or 4 gloo ranks sharing ``cuda:0``; NCCL refuses two ranks
@@ -114,8 +114,10 @@ def _hops(op, x: torch.Tensor, k: int) -> torch.Tensor:
 
 def _k1_row(spec, plan, x_fold, device, iters) -> dict:
     """K1 on one shard's stored tiles at the width the halo folds to: the
-    kernel against its plain version, their times, the dense matmul of
-    the same block (the library call) and the counts for the bound."""
+    kernel against its plain version, their times, the library call
+    (torch's BSR product of the same tiles, ``torch.sparse_bsr_tensor @
+    x``) beside the dense matmul of the block, and the counts for the
+    bound."""
     blocks, cols, ptr, rows = plan["local"]
     n_br = spec.nodes_per_shard // 128
     got = bsr_spmm(blocks, cols, ptr, rows, x_fold)
@@ -128,14 +130,18 @@ def _k1_row(spec, plan, x_fold, device, iters) -> dict:
                                                           )[None, None, :]
     dense[br.expand_as(blocks), bc.expand_as(blocks)] = blocks.float()
     lib = dense @ x_fold
+    npad = n_br * 128
+    bsr = torch.sparse_bsr_tensor(ptr, cols, blocks, size=(npad, npad))
     return {
         "max_abs_err": float((got - plain).abs().max()),
-        "rel_err": _rel(got, plain), "library_rel_err": _rel(lib, plain),
+        "rel_err": _rel(got, plain), "dense_rel_err": _rel(lib, plain),
+        "library_rel_err": _rel(bsr @ x_fold, plain),
         "ms": _ms(lambda: bsr_spmm(blocks, cols, ptr, rows, x_fold),
                   device, iters),
         "plain_ms": _ms(lambda: bsr_spmm_plain(blocks, cols, rows, n_br,
                                                x_fold), device, iters),
-        "library_ms": _ms(lambda: dense @ x_fold, device, iters),
+        "library_ms": _ms(lambda: bsr @ x_fold, device, iters),
+        "dense_ms": _ms(lambda: dense @ x_fold, device, iters),
         "nnzb": int(blocks.shape[0]), "n_block_rows": n_br,
         "n": int(x_fold.shape[0]), "f": int(x_fold.shape[1]),
         "nonzeros": int((blocks != 0).sum()),
@@ -383,5 +389,279 @@ def band_worker(rank, world, path, config):
     out["khop_ms"] = _ms(lambda: halo_khop(spec, xs, mesh, k=config["k"],
                                            axis="model"), device,
                          config["iters"])
+    out["peak_mib"] = _peak_mib(device)
+    return out
+
+
+def _union(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``[Tb, P_l]`` draws side by side: ``[Tb, S * P_l]``."""
+    return collectives.all_gather(t.T.contiguous(), group).T.contiguous()
+
+
+def _replicas_equal(model, group) -> bool:
+    flat = torch.cat([p.detach().reshape(1, -1) for p in model.parameters()],
+                     dim=1)
+    every = collectives.all_gather(flat, group)
+    return bool((every == every[:1]).all())
+
+
+def _held(model, ref, floor: float, lr: float) -> dict:
+    """``model``'s weights after one step against ``ref``'s (the same step
+    on one device, its gradients still on it): the worst error where the
+    gradient lies beyond ``floor`` of the largest, relative to the largest
+    weight, and the worst anywhere beside two steps of lr."""
+    g_top = max(float(p.grad.abs().max()) for p in ref.parameters())
+    p_top = max(float(p.detach().abs().max()) for p in ref.parameters())
+    worst_beyond, worst = 0.0, 0.0
+    for p, q in zip(model.parameters(), ref.parameters()):
+        err = (p - q).abs()
+        beyond = q.grad.abs() > floor * g_top
+        if beyond.any():
+            worst_beyond = max(worst_beyond, float(err[beyond].max()))
+        worst = max(worst, float(err.max()))
+    return {"param_err_beyond_floor": worst_beyond / p_top,
+            "param_err_max": worst, "two_lr": 2 * lr}
+
+
+def _step_ms(step, gen, device, n: int, barrier: bool = True) -> dict:
+    """The median and quartiles of ``n`` synchronized steps' ms (host
+    clock), from a common start of every rank unless ``barrier`` is
+    False (one rank timing alone)."""
+    _sync(device)
+    if barrier:
+        dist.barrier()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(gen)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    return {"median": float(med), "q1": float(q1), "q3": float(q3)}
+
+
+def _strat_routes(rank, world, d, config, device) -> dict:
+    """(a) The sharded stratified step (2 supports and the global mean)
+    from each rank's draws (the starts shared) against the single-device
+    step on their union (rank 0), on each of ``config["modes"]``'
+    supports: the loss, the weights, the replicas' bits, K1's launches in
+    the sharded step, steps timed; (b) the sharded eval with the supports
+    and the global mean against ``make_fused_eval`` (rank 0), K1's
+    launches in it."""
+    from sgp_tpu_torch.data.scalers import ScalerParams
+    from sgp_tpu_torch.data.sgp_loader import build_support_operators
+    from sgp_tpu_torch.encode import Reservoir
+    from sgp_tpu_torch.models import SGPModel
+    from sgp_tpu_torch.ops import GlobalMeanOperator
+    from sgp_tpu_torch.parallel.sharding import (
+        make_sharded_iid_eval, make_sharded_iid_stratified_step)
+    from sgp_tpu_torch.train import MaskedMetrics
+    from sgp_tpu_torch.train.fused_window import make_fused_eval
+    from sgp_tpu_torch.train.iid import make_fused_iid_stratified_step
+    mesh = make_mesh(world, 1)
+    group = mesh.group("data")
+    c = config["strat"]
+    t0 = time.perf_counter()
+    h = Reservoir(**c["reservoir"], device=device)(
+        torch.as_tensor(d["x_series"], device=device),
+        out_dtype=torch.bfloat16)
+    _sync(device)
+    encode_s = time.perf_counter() - t0
+    tgt, mask, u = (torch.as_tensor(d[k], device=device)
+                    for k in ("target", "mask", "u"))
+    n = h.shape[1]
+    h_s, tgt_s, mask_s, u_s = (shard_nodes(a, mesh, "data", node_axis=1)
+                               for a in (h, tgt, mask, u))
+    scaler = ScalerParams(torch.as_tensor(d["bias"], device=device),
+                          torch.as_tensor(d["scale"], device=device))
+    g = _graph(d, "g_")
+
+    def model_at_init():
+        return SGPModel(**c["model"], generator=torch.Generator(
+        ).manual_seed(config["seed"])).to(device)
+
+    common = dict(global_attr=True, times_per_batch=c["times_per_batch"],
+                  grad_clip=config["grad_clip"])
+    out = {"encode_s": encode_s}
+    for mode in c["modes"]:
+        ops = build_support_operators(g, k=c["k"], operator_mode=mode,
+                                      device=device)
+        model = model_at_init()
+        opt = torch.optim.Adam(model.parameters(), lr=config["lr"],
+                               betas=(0.9, 0.999), eps=1e-8)
+        step = make_sharded_iid_stratified_step(
+            model, opt, h_s, tgt_s, mask_s, d["valid"], d["h_off"], scaler,
+            ops, mesh, u=u_s, nodes_per_time=c["nodes_per_time"],
+            seed=config["seed"], n_nodes=n, **common)
+        gen = torch.Generator(device=device).manual_seed(config["seed"])
+        t, n_loc = step.sample(gen)
+        _sync(device)
+        bsr_kernel.bsr_spmm.launches = 0
+        loss = float(step.train_on(t, n_loc))
+        row = {"mode": mode, "loss": loss,
+               "k1_launches_step": bsr_kernel.bsr_spmm.launches,
+               "replicas_equal": _replicas_equal(model, group)}
+        n_all = _union(mesh.index["data"] * step.n_local + n_loc, group)
+        if rank == 0:
+            ref = model_at_init()
+            ref_opt = torch.optim.Adam(ref.parameters(), lr=config["lr"],
+                                       betas=(0.9, 0.999), eps=1e-8)
+            ref_step = make_fused_iid_stratified_step(
+                ref, ref_opt, h, tgt, mask, d["valid"], d["h_off"], scaler,
+                ops, u=u, nodes_per_time=n_all.shape[1], **common)
+            ref_loss = float(ref_step.train_on(t, n_all))
+            row.update(ref_loss=ref_loss,
+                       loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+                       **_held(model, ref, config["grad_floor"],
+                               config["lr"]))
+            # the single-device step at the whole batch, alone on the card
+            row["single_step_ms"] = _step_ms(
+                ref_step, torch.Generator(device=device).manual_seed(
+                    config["seed"]), device, config["time_steps"], False)
+            del ref, ref_opt, ref_step
+        row["step_ms"] = _step_ms(step, gen, device, config["time_steps"])
+        eval_ops = list(ops) + [GlobalMeanOperator(n)]
+        metrics = MaskedMetrics.forecasting()
+        ev = make_sharded_iid_eval(
+            model, h_s, tgt_s, mask_s, d["items"], np.array([0]),
+            d["h_off"], scaler, metrics, mesh, u=u_s,
+            batch_size=c["eval_batch"], support_ops=eval_ops, n_nodes=n)
+        _sync(device)
+        dist.barrier()
+        bsr_kernel.bsr_spmm.launches = 0
+        t0 = time.perf_counter()
+        row["eval"] = ev()
+        row["eval_s"] = time.perf_counter() - t0
+        row["k1_launches_eval"] = bsr_kernel.bsr_spmm.launches
+        if rank == 0:
+            ref_eval = make_fused_eval(
+                model, h, tgt, mask, d["items"], np.array([0]), d["h_off"],
+                scaler, metrics, u=u, support_ops=eval_ops,
+                batch_size=c["eval_batch"])()
+            row["eval_rel_err"] = max(abs(row["eval"][k] - v) / abs(v)
+                                      for k, v in ref_eval.items())
+        out[mode] = row
+        del model, opt, step, ev
+    return out
+
+
+def _window_route(rank, world, d, config, device) -> dict:
+    """(d) The data-parallel window step on the BSR supports of the
+    traffic graph from each rank's own starts against the single-device
+    step on their union (rank 0): the loss, the weights, the replicas'
+    bits, K1's launches, steps timed."""
+    from sgp_tpu_torch.data.scalers import ScalerParams
+    from sgp_tpu_torch.data.sgp_loader import build_support_operators
+    from sgp_tpu_torch.models import SGPModel
+    from sgp_tpu_torch.parallel.sharding import (make_sharded_window_step,
+                                                 rank_generator)
+    from sgp_tpu_torch.train.fused_window import make_fused_window_step
+    mesh = make_mesh(world, 1)
+    group = mesh.group("data")
+    c = config["window"]
+    x, tgt, mask, u = (torch.as_tensor(d[k], device=device)
+                       for k in ("la_x", "la_target", "la_mask", "la_u"))
+    scaler = ScalerParams(torch.as_tensor(d["la_bias"], device=device),
+                          torch.as_tensor(d["la_scale"], device=device))
+    ops = build_support_operators(_graph(d, "la_"), operator_mode="bsr",
+                                  device=device, **c["supports"])
+
+    def model_at_init():
+        return SGPModel(**c["model"], generator=torch.Generator(
+        ).manual_seed(config["seed"])).to(device)
+
+    args = (x, tgt, mask, d["la_starts"], np.array([0]), d["la_h_off"],
+            scaler)
+    common = dict(u=u, support_ops=ops, grad_clip=config["grad_clip"])
+    model = model_at_init()
+    opt = torch.optim.Adam(model.parameters(), lr=config["lr"],
+                           betas=(0.9, 0.999), eps=1e-8)
+    step = make_sharded_window_step(model, opt, *args, mesh,
+                                    batch_size=c["batch"], **common)
+    gen = rank_generator(config["seed"], mesh.index["data"], device)
+    items = step.sample(gen)
+    _sync(device)
+    bsr_kernel.bsr_spmm.launches = 0
+    loss = float(step.train_on(items))
+    row = {"loss": loss, "k1_launches_step": bsr_kernel.bsr_spmm.launches,
+           "replicas_equal": _replicas_equal(model, group),
+           "supports": len(ops)}
+    every = collectives.all_gather(items, group)
+    if rank == 0:
+        ref = model_at_init()
+        ref_opt = torch.optim.Adam(ref.parameters(), lr=config["lr"],
+                                   betas=(0.9, 0.999), eps=1e-8)
+        ref_step = make_fused_window_step(
+            ref, ref_opt, *args, batch_size=c["batch"], **common)
+        ref_loss = float(ref_step.train_on(every))
+        row.update(ref_loss=ref_loss,
+                   loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+                   **_held(model, ref, config["grad_floor"], config["lr"]))
+        row["single_step_ms"] = _step_ms(
+            ref_step, torch.Generator(device=device).manual_seed(
+                config["seed"]), device, config["time_steps"], False)
+    row["step_ms"] = _step_ms(step, gen, device, config["time_steps"])
+    return row
+
+
+def _runner_pair(rank, world, argv, config, device) -> dict:
+    """(e) ``run_traffic_baselines --data-sharding batch`` over the ranks
+    (K4's launches on each), then, on rank 0 alone, the same command
+    unsharded: the test metrics of both."""
+    from sgp_tpu_torch.ops import gn_ell
+    from sgp_tpu_torch.parallel.workers import runner_worker
+    for fn in (gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res, _ = runner_worker(rank, world, argv + ["--data-sharding", "batch"],
+                           {"runner": "traffic_baselines",
+                            "logs_dir": config["logs_dir"]})
+    row = {"sharded": res, "sharded_s": time.perf_counter() - t0,
+           "launches": {fn.__name__: fn.launches for fn in (
+               gn_ell.gn_ell_fwd, gn_ell.gn_ell_bwd)}}
+    dist.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        row["unsharded"] = runner_worker(rank, world, argv, {
+            "runner": "traffic_baselines",
+            "logs_dir": config["logs_dir"]})[0]
+        row["unsharded_s"] = time.perf_counter() - t0
+        row["rel_err"] = max(abs(res[k] - v) / abs(v)
+                             for k, v in row["unsharded"].items()
+                             if np.isfinite(v))
+    return row
+
+
+def dp_worker(rank, world, path, config):
+    """Phase 22's rank function (2 gloo ranks sharing the card): (a), (b)
+    the sharded stratified step and eval, (d) the window step, (e) the
+    baseline runner over the ranks and GraphWaveNet's ``Predictor(mesh=)``
+    against one process. Returns the rank's rows and its peak memory
+    (MiB)."""
+    from sgp_tpu_torch.parallel.workers import predictor_worker
+    device = torch.device(config["device"])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    d = dict(np.load(path))
+    out = {}
+    t0 = time.perf_counter()
+    out["strat"] = _strat_routes(rank, world, d, config, device)
+    out["strat_s"] = time.perf_counter() - t0
+    out["strat_peak_mib"] = _peak_mib(device)
+    t0 = time.perf_counter()
+    out["window"] = _window_route(rank, world, d, config, device)
+    out["window_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["runner"] = _runner_pair(rank, world, config["runner_argv"], config,
+                                 device)
+    out["runner_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gw = config["gwnet"]
+    out["gwnet"] = predictor_worker(rank, world, gw["path"], gw)[0]
+    dist.barrier()
+    if rank == 0:
+        out["gwnet_single"] = predictor_worker(
+            0, 1, gw["path"], {**gw, "mesh": False})[0]
+    out["gwnet_s"] = time.perf_counter() - t0
     out["peak_mib"] = _peak_mib(device)
     return out

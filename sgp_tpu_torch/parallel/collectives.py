@@ -34,6 +34,27 @@ def all_reduce_(t: torch.Tensor, group: Optional[dist.ProcessGroup]
     return t
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.group), None
+
+
+def all_reduce_sum(t: torch.Tensor, group: Optional[dist.ProcessGroup]
+                   ) -> torch.Tensor:
+    """``t`` summed over ``group`` (a new tensor), differentiable: its
+    gradient is summed over the ranks too, since every rank's loss
+    depends on every rank's ``t``."""
+    if group is None:
+        return t
+    return _AllReduceSum.apply(t, group)
+
+
 def all_gather(t: torch.Tensor, group: Optional[dist.ProcessGroup]
                ) -> torch.Tensor:
     """Every rank's ``t`` stacked along dim 0 in rank order."""

@@ -29,7 +29,7 @@ rank holds only its slab ``[..., Nl, F]``: :func:`shard_nodes` cuts it
 from the whole array (applying the plan's node permutation, where the
 whole array exists) and :func:`gather_nodes` assembles and un-permutes a
 node-sharded result. The two-level (host, chip) plan is not ported yet
-(ROADMAP A10).
+(ROADMAP A10, item 5).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ _PAYLOADS = {"float32": 4, "bfloat16": 2, "int8": 1}
 def _hier_unported():
     return NotImplementedError(
         "the two-level (host, chip) halo exchange is not ported yet "
-        "(ROADMAP A10)")
+        "(ROADMAP A10, item 5)")
 
 
 @dataclasses.dataclass

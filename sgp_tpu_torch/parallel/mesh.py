@@ -69,6 +69,12 @@ def init_distributed(backend: str, coordinator_address: str = None,
     return world
 
 
+def process_rank() -> int:
+    """This process's rank in the process group (0 outside one): the rank
+    that logs and writes a run's files."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def rank_device(device=None) -> torch.device:
     """The device of this rank for a ``--device`` flag: as
     ``resolve_device`` gives it, except that in a process group a CUDA

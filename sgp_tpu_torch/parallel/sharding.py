@@ -1,30 +1,37 @@
-"""Node-sharded fused IID training and evaluation.
+"""Data-parallel fused training and evaluation: node-sharded and batched.
 
-Counterpart of ``make_sharded_iid_step`` and ``make_sharded_iid_eval`` of
-``sgp_tpu/parallel/sharding.py``. The large arrays (the encoding or its
-packed rows, the targets, the masks, node-level exogenous inputs) are
-held as node slabs, one per rank of a mesh axis (``shard_nodes`` cuts
-them): multi-device scales memory, not only operations.
+Counterpart of ``make_sharded_iid_step``, ``make_sharded_iid_stratified_step``,
+``make_sharded_window_step`` and ``make_sharded_iid_eval`` of
+``sgp_tpu/parallel/sharding.py``. The IID and stratified steps and the eval
+hold the large arrays (the encoding or its packed rows, the temporal
+embedding, the targets, the masks, node-level exogenous inputs) as node
+slabs, one per rank of a mesh axis (``shard_nodes`` cuts them):
+multi-device scales memory, not only operations. The window step keeps the
+traffic-sized series whole on every rank and splits each batch.
 
-A training step: each rank draws ``batch_size / S`` (time, local node)
-pairs from its own slab with its own generator, gathers and runs the
-forward; the masked loss's sum and count are summed over the ranks, the
-gradients are summed with one ``all_reduce`` (a parameter the local
-samples do not reach gets zeros first), then come the clip by global norm
-and Adam, the same on every rank, so the parameters stay bit-identical
-across ranks. The parameters are broadcast from rank 0 when the step is
-built. The eval: each rank evaluates every window on its node slab and
-keeps its metric states; they are summed once at the end.
+A training step: each rank draws its share of the batch with its own
+generator, gathers and runs the forward; the masked loss's sum and count
+are summed over the ranks, the gradients are summed with one
+``all_reduce`` (a parameter the local samples do not reach gets zeros
+first), then come the clip by global norm and Adam, the same on every
+rank, so the parameters stay bit-identical across ranks. The parameters
+are broadcast from rank 0 when the step is built. The stratified step's
+ranks share the batch's time steps and all-gather only those steps' rows
+of the embedding before propagating them through the supports (K1 for a
+``BSROperator``). The eval: each rank evaluates every window on its node
+slab and keeps its metric states; they are summed once at the end. With
+``support_ops`` it all-gathers each batch's windows over the nodes and
+contracts its own rows of each support against them.
 
 Padding rows (past the true N) carry ``mask=False``: ``shard_nodes``
-pads with zeros, and the node ids the model and the scaler see are
-clamped to N - 1 there (JAX clamps the gather the same way). The JAX
-package derives each shard's draws with ``fold_in(rng, shard_id)``, which
-torch cannot repeat; :func:`rank_generator` seeds rank 0 with the seed
-itself, so at one rank the step draws what ``make_fused_iid_multi_step``
-draws. The stratified and windowed sharded steps, the on-the-fly
-``support_ops`` of the eval and the tensor-parallel placements are not
-ported yet (ROADMAP A10).
+pads with zeros, and the node ids the model, the scaler and the supports
+see are clamped to N - 1 there (JAX clamps ``op.mat[ids]`` the same way;
+its ``take`` fills NaN). The JAX package derives each shard's draws with
+``fold_in(rng, shard_id)``, which torch cannot repeat:
+:func:`rank_generator` seeds rank 0 with the seed itself, so at one rank
+every step draws what its single-device counterpart draws. The
+tensor-parallel placements (``shard_operator``, ``shard_params_tp``, ...)
+are not ported yet (ROADMAP A10, item 3).
 """
 from __future__ import annotations
 
@@ -36,10 +43,16 @@ import torch
 from sgp_tpu_torch.data.scalers import ScalerParams
 from sgp_tpu_torch.parallel import collectives
 from sgp_tpu_torch.parallel.mesh import Mesh
-from sgp_tpu_torch.train.fused_window import make_offset_gather, pad_eval_items
-from sgp_tpu_torch.train.iid import _build_iid_sample_and_loss, unpack_iid_rows
-from sgp_tpu_torch.train.metrics import MaskedMetrics
-from sgp_tpu_torch.train.predictor import clip_by_global_norm_
+from sgp_tpu_torch.ops.spmm import DenseOperator
+from sgp_tpu_torch.train.fused_window import (make_fused_window_step,
+                                              make_offset_gather,
+                                              pad_eval_items)
+from sgp_tpu_torch.train.iid import (_build_iid_sample_and_loss, _host,
+                                     assemble_stratified, stratified_sums,
+                                     unpack_iid_rows)
+from sgp_tpu_torch.train.metrics import _METRIC_FNS, MaskedMetrics
+from sgp_tpu_torch.train.predictor import (apply_gradients,
+                                           clip_by_global_norm_)
 
 # rank r > 0 seeds its generator with seed + r * this (odd, < 2^62)
 _RANK_STRIDE = 0x2545F4914F6CDD1D
@@ -59,8 +72,8 @@ def broadcast_module_(model: torch.nn.Module, group) -> None:
             collectives.broadcast_(t.data, group)
 
 
-def all_reduce_grads_(params, group) -> None:
-    """Sum the gradients over ``group`` in one flat ``all_reduce``; a
+def _flat_grads_(params, group, collective) -> None:
+    """``collective(flat, group)`` on every gradient in one flat tensor; a
     parameter without a gradient takes zeros first, so every rank's
     optimizer updates the same parameters."""
     for p in params:
@@ -69,7 +82,7 @@ def all_reduce_grads_(params, group) -> None:
     if group is None:
         return
     flat = torch.cat([p.grad.reshape(-1) for p in params])
-    collectives.all_reduce_(flat, group)
+    collective(flat, group)
     offset = 0
     for p in params:
         n = p.numel()
@@ -77,10 +90,41 @@ def all_reduce_grads_(params, group) -> None:
         offset += n
 
 
+def all_reduce_grads_(params, group) -> None:
+    """Sum the gradients over ``group`` in one flat ``all_reduce``."""
+    _flat_grads_(params, group, collectives.all_reduce_)
+
+
+def broadcast_grads_(params, group) -> None:
+    """Rank 0's gradients on every rank of ``group``: after a batch that
+    every rank computed whole, whose gradients the card's atomic sums may
+    round apart."""
+    _flat_grads_(params, group, collectives.broadcast_)
+
+
 def _node_ids(mesh: Mesh, axis: str, n_local: int, n_nodes: int, device):
     """Global ids of this rank's slab rows and which are real nodes."""
     ids = mesh.index[axis] * n_local + torch.arange(n_local, device=device)
     return ids.clamp_max(n_nodes - 1), ids < n_nodes
+
+
+def _gather_nodes(x: torch.Tensor, dim: int, n_nodes: int, group):
+    """Every rank's node slab of ``x`` along ``dim`` in rank order, cut to
+    the true N, contiguous; at one rank ``x`` itself."""
+    if group is None:
+        return x
+    whole = collectives.all_gather(x.movedim(dim, 0), group)
+    return whole[:n_nodes].movedim(0, dim).contiguous()
+
+
+def _summed_loss(v, cnt, group):
+    """``(v / count, the loss over every rank)`` with the count summed over
+    ``group``: the first's gradient, summed over the ranks, is the whole
+    batch's."""
+    total = collectives.all_reduce_(
+        torch.stack([v.detach(), cnt.detach().float()]), group)
+    count = torch.clamp(total[1], min=1.0)
+    return v / count, total[0] / count
 
 
 def make_sharded_iid_step(model, optimizer, encoded, target, mask,
@@ -128,11 +172,7 @@ def make_sharded_iid_step(model, optimizer, encoded, target, mask,
         # padding rows have mask False; their ids are clamped for the
         # embedding and the scaler
         n_glob = (offset + n_loc).clamp_max(n_nodes - 1)
-        v, cnt = core.sums_on((x, y, m, n_glob, u_rows))
-        total = collectives.all_reduce_(
-            torch.stack([v.detach(), cnt.detach().float()]), group)
-        count = torch.clamp(total[1], min=1.0)
-        return v / count, total[0] / count
+        return _summed_loss(*core.sums_on((x, y, m, n_glob, u_rows)), group)
 
     def train_on(t, n_loc):
         optimizer.zero_grad(set_to_none=True)
@@ -157,6 +197,180 @@ def make_sharded_iid_step(model, optimizer, encoded, target, mask,
     return step
 
 
+def make_sharded_iid_stratified_step(model, optimizer, h_temporal, target,
+                                     mask, valid_starts, horizon_offsets,
+                                     scaler: ScalerParams, support_ops,
+                                     mesh: Mesh, global_attr: bool = True,
+                                     u=None, times_per_batch: int = 32,
+                                     nodes_per_time: int = 128,
+                                     loss: str = "mae",
+                                     scale_target: bool = False,
+                                     steps_per_call: int = 1,
+                                     axis: str = "data",
+                                     grad_clip: Optional[float] = None,
+                                     seed: int = 0,
+                                     n_nodes: int = None) -> Callable:
+    """Build ``step(generator) -> mean loss`` (a device tensor) over
+    ``steps_per_call`` stratified steps (``train/iid.py::
+    make_fused_iid_stratified_step``) on this rank's node slabs of the
+    temporal embedding ``h_temporal [T, Nl, Ht]`` and of ``target``/``mask
+    [T, Nl, C]`` (``u`` node-level ``[T, Nl, F]`` or global ``[T, F]``);
+    ``n_nodes`` is the true N (default: the slabs' rows times the axis
+    size). The supports stay whole on every rank.
+
+    A step draws ``times_per_batch`` starts shared by every rank and
+    ``nodes_per_time / S`` local nodes a start on each rank, all-gathers
+    only the selected steps' rows of the embedding (``[Tb, N, Ht]``) and
+    assembles ``[h, A_1 h, ..., mean(h)]`` at its own nodes: a dense
+    support's rows at those nodes, any other operator ``op @ h_sel`` over
+    every node (K1 at F ``Tb * Ht`` for a ``BSROperator``). Every rank
+    calls ``step`` with a generator seeded alike (the shared stream): the
+    starts and rank 0's nodes come from it, in the single-device step's
+    order, so at one rank the step draws what that step draws; a rank r >
+    0 also steps it for rank 0's nodes and draws its own from
+    ``rank_generator(seed, r)``.
+
+    Hooks for the tests: ``step.train_on(t, n_loc)`` takes one step on
+    given draws (``n_loc [Tb, P/S]`` local rows), ``step.sample(generator)``
+    draws them."""
+    s = mesh.size(axis)
+    if nodes_per_time % s:
+        raise ValueError(f"nodes_per_time {nodes_per_time} is not a "
+                         f"multiple of the {s} ranks of axis {axis!r}")
+    group = mesh.group(axis)
+    rank = mesh.index[axis]
+    device = h_temporal.device
+    n_local = h_temporal.shape[1]
+    n_nodes = n_local * s if n_nodes is None else n_nodes
+    p_local = nodes_per_time // s
+    batch_local = times_per_batch * p_local
+    loss_pt = _METRIC_FNS[loss]
+    ops = list(support_ops)
+    valid = torch.as_tensor(valid_starts, device=device)
+    h_off = torch.as_tensor(_host(horizon_offsets), device=device)
+    offset = rank * n_local
+    own = rank_generator(seed, rank, device) if rank else None
+    params = [p for p in model.parameters() if p.requires_grad]
+    broadcast_module_(model, group)
+
+    def global_ids(n_loc):
+        # padding rows have mask False; their ids are clamped for the
+        # supports, the embedding and the scaler
+        return (offset + n_loc).clamp_max(n_nodes - 1)
+
+    @torch.no_grad()
+    def features(t, n_loc):
+        h_sel = _gather_nodes(h_temporal[t], 1, n_nodes, group)
+        return assemble_stratified(h_sel, global_ids(n_loc), ops,
+                                   global_attr).reshape(batch_local, -1)
+
+    def loss_fn(t, n_loc):
+        """``(this rank's part, the loss over every rank)``."""
+        n_flat = n_loc.reshape(-1)
+        v, cnt = stratified_sums(
+            model, features(t, n_loc), target, mask, u,
+            t.repeat_interleave(p_local), n_flat, global_ids(n_flat), h_off,
+            scaler, loss_pt, scale_target)
+        return _summed_loss(v, cnt, group)
+
+    def train_on(t, n_loc):
+        optimizer.zero_grad(set_to_none=True)
+        part, loss_val = loss_fn(t, n_loc)
+        part.backward()
+        all_reduce_grads_(params, group)
+        if grad_clip is not None:
+            clip_by_global_norm_([p.grad for p in params], grad_clip)
+        optimizer.step()
+        return loss_val
+
+    def sample(generator: torch.Generator):
+        t = valid[torch.randint(len(valid), (times_per_batch,),
+                                generator=generator, device=device)]
+        n_loc = torch.randint(n_local, (times_per_batch, p_local),
+                              generator=generator, device=device)
+        if own is not None:
+            n_loc = torch.randint(n_local, (times_per_batch, p_local),
+                                  generator=own, device=device)
+        return t, n_loc
+
+    def step(generator: torch.Generator):
+        return torch.stack([train_on(*sample(generator))
+                            for _ in range(max(steps_per_call, 1))]).mean()
+
+    step.train_on = train_on
+    step.sample = sample
+    step.n_local = n_local
+    return step
+
+
+def make_sharded_window_step(model, optimizer, x_full, target, mask,
+                             item_starts, window_offsets, horizon_offsets,
+                             scaler: ScalerParams, mesh: Mesh, u=None,
+                             support_ops=None, batch_size: int = 64,
+                             loss: str = "mae", scale_target: bool = False,
+                             steps_per_call: int = 1, axis: str = "data",
+                             grad_clip: float = 5.0,
+                             scheduler=None) -> Callable:
+    """Build ``step(generator) -> mean loss`` (a device tensor) over
+    ``steps_per_call`` windowed steps: the multi-device
+    ``train/fused_window.py::make_fused_window_step``, whose arguments it
+    takes, on the whole series held by every rank. Each rank draws
+    ``batch_size / S`` window starts from its own generator
+    (:func:`rank_generator`), appends ``op @ x`` for each support (K1 for a
+    ``BSROperator``) and takes the masked loss; the loss's sum and count
+    and the gradients are summed over the axis before the update (zero
+    gradients for unreached parameters, the clip at ``grad_clip``, the
+    optimizer, ``scheduler``). ``step.train_on(items)`` takes one step on
+    this rank's given starts."""
+    s = mesh.size(axis)
+    if batch_size % s:
+        raise ValueError(f"batch_size {batch_size} is not a multiple of "
+                         f"the {s} ranks of axis {axis!r}")
+    group = mesh.group(axis)
+    local = make_fused_window_step(
+        model, optimizer, x_full, target, mask, item_starts, window_offsets,
+        horizon_offsets, scaler, u=u, support_ops=support_ops,
+        batch_size=batch_size // s, loss=loss, scale_target=scale_target,
+        grad_clip=grad_clip, scheduler=scheduler)
+    params = [p for p in model.parameters() if p.requires_grad]
+    broadcast_module_(model, group)
+
+    def train_on(items):
+        optimizer.zero_grad(set_to_none=True)
+        part, loss_val = _summed_loss(*local.sums_on(
+            torch.as_tensor(items, device=x_full.device)), group)
+        part.backward()
+        all_reduce_grads_(params, group)
+        apply_gradients(model, optimizer, grad_clip, scheduler)
+        return loss_val
+
+    def step(generator: torch.Generator):
+        return torch.stack([train_on(local.sample(generator))
+                            for _ in range(steps_per_call)]).mean()
+
+    step.train_on = train_on
+    step.sample = local.sample
+    return step
+
+
+def _propagate_rows(ops, x: torch.Tensor, node_ids, n_nodes: int,
+                    group) -> list:
+    """Each support's hop of the node-sharded windows ``x [B, W, Nl, F]``
+    at this rank's rows ``node_ids``, in x's dtype, as
+    ``make_fused_eval`` propagates the whole windows."""
+    x_all = _gather_nodes(x, 2, n_nodes, group)           # [B, W, N, F]
+    hops = []
+    for op in ops:
+        if isinstance(op, DenseOperator):
+            xm = x_all.to(torch.bfloat16) if op.precision == "default" \
+                else x_all
+            block = op.mat[node_ids]                       # [Nl, N]
+            hops.append(torch.matmul(block, xm.to(block.dtype)).to(x.dtype))
+        else:
+            hops.append((op @ x_all).index_select(2, node_ids))
+    return hops
+
+
 def make_sharded_iid_eval(model, encoded, target, mask, item_starts,
                           window_offsets, horizon_offsets,
                           scaler: ScalerParams, metrics: MaskedMetrics,
@@ -174,11 +388,14 @@ def make_sharded_iid_eval(model, encoded, target, mask, item_starts,
     ``unpack_targets`` (a one-step window) the horizon targets and masks
     come from the packed lanes too and ``target``/``mask`` may be None.
     ``n_nodes`` is the true N (default: the slab's rows times the axis
-    size); rows past it count nowhere."""
-    if support_ops is not None:
-        raise NotImplementedError(
-            "make_sharded_iid_eval(support_ops=...) (the stratified layout) "
-            "is not ported yet (ROADMAP A10)")
+    size); rows past it count nowhere.
+
+    ``support_ops`` propagates the windows on the fly (the stratified
+    layout): each batch all-gathers its windows ``[B, W, N, F]`` over the
+    ranks, a ``DenseOperator`` contracts this rank's rows of the support
+    against them, any other operator runs ``op @ x`` over every node (K1
+    at F ``B * W * F`` for a ``BSROperator``) and keeps this rank's
+    rows."""
     s = mesh.size(axis)
     group = mesh.group(axis)
     device = encoded.device
@@ -200,6 +417,7 @@ def make_sharded_iid_eval(model, encoded, target, mask, item_starts,
         raise ValueError("target/mask required unless unpack_targets=True")
     node_ids, real = _node_ids(mesh, axis, n_local, n_nodes, device)
     sc = scaler.index_nodes(node_ids)
+    ops = None if support_ops is None else list(support_ops)
     starts, valid = pad_eval_items(item_starts, batch_size, device)
     gw = make_offset_gather(window_offsets)
     gh = make_offset_gather(horizon_offsets)
@@ -226,6 +444,9 @@ def make_sharded_iid_eval(model, encoded, target, mask, item_starts,
             m = m & ok[:, None, None, None] & real[None, None, :, None]
             if x_slice is not None:
                 x = x[..., :x_slice]
+            if ops is not None:
+                x = torch.cat([x] + _propagate_rows(ops, x, node_ids,
+                                                    n_nodes, group), -1)
             kwargs = {} if u is None else {"u": gw(u, items)}
             y_hat = sc.inverse_transform(model(
                 x.float(), node_index=node_ids, training=False, **kwargs))

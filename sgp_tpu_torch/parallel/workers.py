@@ -161,7 +161,8 @@ def eval_worker(rank, world, path, config):
     """``make_sharded_iid_eval`` with the weights in ``config["state"]``
     on the rank's slabs, once for each of ``config["variants"]``
     (``packed``: pack the slabs first, ``x_slice`` the encoding's width;
-    ``unpack_targets``). Every rank returns its metrics of each."""
+    ``unpack_targets``; ``supports``: ``_eval_supports``). Every rank
+    returns its metrics of each."""
     from sgp_tpu_torch.parallel.sharding import make_sharded_iid_eval
     from sgp_tpu_torch.train import MaskedMetrics
     from sgp_tpu_torch.train.iid import pack_iid_data
@@ -182,9 +183,191 @@ def eval_worker(rank, world, path, config):
             d["items"], d["w_off"], d["h_off"], _scaler(d, dev),
             MaskedMetrics.forecasting(), mesh, axis="data",
             batch_size=config["batch_size"], x_slice=x_slice,
-            unpack_targets=unpack, n_nodes=d["encoded"].shape[1])
+            unpack_targets=unpack, n_nodes=d["encoded"].shape[1],
+            support_ops=_eval_supports(d, variant, dev))
         outs.append(ev())
     return outs
+
+
+def _eval_supports(d: dict, variant: dict, dev):
+    """An eval variant's ``support_ops``: ``build_support_operators`` of
+    the file's graph at ``variant["supports"]``'s keywords (``global_attr``
+    there adds the global mean last, as the stratified runner does);
+    None without them."""
+    if "supports" not in variant:
+        return None
+    from sgp_tpu_torch.data.sgp_loader import build_support_operators
+    from sgp_tpu_torch.ops import GlobalMeanOperator
+    kw = dict(variant["supports"])
+    mean = kw.pop("global_attr", False)
+    ops = build_support_operators(_graph(d), device=dev, **kw)
+    return ops + ([GlobalMeanOperator(int(d["num_nodes"]))] if mean else [])
+
+
+def stratified_worker(rank, world, path, config):
+    """``make_sharded_iid_stratified_step`` from the weights in
+    ``config["state"]`` (Adam at ``config["lr"]``) on the rank's slabs of
+    ``h``, ``target``, ``mask`` (and ``u_node``, or the global ``u``) with
+    the supports ``build_support_operators(graph, k=config["k"],
+    operator_mode=config["mode"])``, stepped on the file's draws ``t[i]``
+    (shared) and ``n[rank, i]`` (local rows); returns the losses, the
+    final weights and the last step's clipped gradients (numpy, by
+    name)."""
+    from sgp_tpu_torch.data.sgp_loader import build_support_operators
+    from sgp_tpu_torch.parallel.sharding import \
+        make_sharded_iid_stratified_step
+    d = _inputs(path)
+    dev = _device(config)
+    mesh = _axis_mesh(world, "data")
+    h, tgt, msk, u = _slabs(d, mesh, dev, ("h", "target", "mask", "u_node"))
+    if "u" in d:
+        u = torch.as_tensor(d["u"], device=dev)
+    ops = build_support_operators(_graph(d), k=config["k"],
+                                  operator_mode=config["mode"], device=dev)
+    model = _sgp_model(config, dev)
+    opt = torch.optim.Adam(model.parameters(), lr=config["lr"],
+                           betas=(0.9, 0.999), eps=1e-8)
+    t = torch.as_tensor(d["t"], device=dev)
+    n = torch.as_tensor(d["n"], device=dev)
+    step = make_sharded_iid_stratified_step(
+        model, opt, h, tgt, msk, d["valid"], d["h_off"], _scaler(d, dev),
+        ops, mesh, global_attr=config["global_attr"], u=u,
+        times_per_batch=t.shape[1], nodes_per_time=n.shape[-1] * world,
+        grad_clip=config.get("grad_clip"), n_nodes=d["h"].shape[1])
+    losses = [float(step.train_on(t[i], n[rank, i]))
+              for i in range(t.shape[0])]
+    return losses, _weights(model), {
+        k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+
+
+def window_worker(rank, world, path, config):
+    """``make_sharded_window_step`` from the weights in ``config["state"]``
+    (Adam at ``config["lr"]``, the clip at ``config["grad_clip"]``) on the
+    whole series ``x``/``target``/``mask``/``u`` with the supports of
+    ``config["supports"]`` (``build_support_operators``'s keywords; none
+    without it), stepped on the rank's window starts ``items[rank, i]``;
+    returns the losses and the final weights."""
+    from sgp_tpu_torch.data.sgp_loader import build_support_operators
+    from sgp_tpu_torch.parallel.sharding import make_sharded_window_step
+    d = _inputs(path)
+    dev = _device(config)
+    mesh = _axis_mesh(world, "data")
+    x, tgt, msk, u = (torch.as_tensor(d[k], device=dev)
+                      for k in ("x", "target", "mask", "u"))
+    ops = None if "supports" not in config else build_support_operators(
+        _graph(d), device=dev, **config["supports"])
+    model = _sgp_model(config, dev)
+    opt = torch.optim.Adam(model.parameters(), lr=config["lr"],
+                           betas=(0.9, 0.999), eps=1e-8)
+    items = torch.as_tensor(d["items"], device=dev)
+    step = make_sharded_window_step(
+        model, opt, x, tgt, msk, d["starts"], d["w_off"], d["h_off"],
+        _scaler(d, dev), mesh, u=u, support_ops=ops,
+        batch_size=items.shape[-1] * world, grad_clip=config["grad_clip"])
+    losses = [float(step.train_on(items[rank, i]))
+              for i in range(items.shape[1])]
+    return losses, _weights(model)
+
+
+def _weights(model) -> dict:
+    return {k: v.detach().cpu().numpy()
+            for k, v in model.state_dict().items()}
+
+
+def _carry_init(params_path):
+    """A ``Predictor.init`` that carries the pickled flax tree in
+    ``params_path`` into the model after drawing its own weights (None:
+    ``Predictor.init`` itself)."""
+    import pickle
+    from sgp_tpu_torch.models import flax_to_torch
+    from sgp_tpu_torch.train.predictor import Predictor
+    init = Predictor.init
+    if params_path is None:
+        return init
+    with open(params_path, "rb") as fp:
+        params = pickle.load(fp)
+
+    def carry(self, *args, **kwargs):
+        out = init(self, *args, **kwargs)
+        flax_to_torch(params, self.model)
+        return out
+    return carry
+
+
+def _dp_case(case: dict, d: dict, dev):
+    """``(model, to_call, static, train loader, eval loader, scaler)`` of a
+    ``predictor_worker`` case: ``rnn`` (``RNNModel`` on windows of the
+    file's ``series``; ``items`` train and evaluate) or ``gwnet``
+    (``GraphWaveNetModel`` on the file's graph with its diffusion
+    supports, weights from ``case["seed"]``)."""
+    from sgp_tpu_torch.data import (SpatioTemporalDataset, StandardScaler,
+                                    WindowedLoader, Windowing)
+    from sgp_tpu_torch.models import (GraphWaveNetModel, RNNModel,
+                                      diff_conv_support)
+    graph = _graph(d) if case["model"] == "gwnet" else None
+    ds = SpatioTemporalDataset(d["series"], graph=graph,
+                               windowing=Windowing(**case["windowing"]))
+    ds.fit_scaler(StandardScaler(axis=(0, 1)))
+    train = WindowedLoader(ds, d["items"], batch_size=case["batch_size"],
+                           shuffle=True, seed=case.get("loader_seed", 0))
+    evaluate = WindowedLoader(ds, d["items"], batch_size=case["batch_size"])
+    horizon = ds.windowing.horizon_steps
+    if case["model"] == "rnn":
+        return (RNNModel(ds.n_channels, output_size=ds.n_channels,
+                         horizon=horizon, **case["kw"]), None, None, train,
+                evaluate, ds.scaler_params(device=dev))
+    model = GraphWaveNetModel(
+        ds.n_channels, output_size=ds.n_channels, horizon=horizon,
+        n_nodes=ds.n_nodes, **case["kw"],
+        generator=torch.Generator().manual_seed(case["seed"]))
+
+    def call(batch, training):
+        return (batch["x"], batch["supports"]), {
+            "training": training, "node_index": batch.get("node_index")}
+    return (model, call, {"supports": diff_conv_support(graph, device=dev)},
+            train, evaluate, ds.scaler_params(device=dev))
+
+
+def predictor_worker(rank, world, path, config):
+    """``Predictor(mesh=)`` over the ranks (``config["mesh"]`` False: no
+    mesh, one process) for each of ``config["cases"]`` (``_dp_case``; the
+    pickled flax tree ``init`` carried in; ``lr``, ``epochs``;
+    ``local_stats`` leaves the batch norm's statistics rank-local
+    (``sync_batch_stats=False``), to show they must not be; ``bad_batch`` a loader batch size the ranks do
+    not divide): ``fit`` on the train loader, ``evaluate`` on the eval
+    loader. Returns, for each, the metrics and the final weights, or the
+    error ``fit`` raised."""
+    from sgp_tpu_torch.train.predictor import Predictor
+    d = _inputs(path)
+    dev = _device(config)
+    mesh = _axis_mesh(world, "data") if config.get("mesh", True) else None
+    outs = []
+    for case in config["cases"]:
+        model, call, static, train, evaluate, scaler = _dp_case(case, d,
+                                                                dev)
+        if "bad_batch" in case:
+            train.batch_size = case["bad_batch"]
+        pred = Predictor(model, lr=case["lr"], seed=0, mesh=mesh,
+                         sync_batch_stats=not case.get("local_stats"),
+                         batch_to_call=call, static_batch=static,
+                         device=dev)
+        init = Predictor.init
+        Predictor.init = _carry_init(case.get("init"))
+        try:
+            pred.fit(train, epochs=case["epochs"], scaler=scaler)
+            outs.append((pred.evaluate(evaluate), _weights(pred.model)))
+        except ValueError as e:
+            outs.append(str(e))
+        finally:
+            Predictor.init = init
+    return outs
+
+
+def jobs_worker(rank, world, jobs):
+    """Several of this module's rank functions in one world (one spawn):
+    ``jobs`` a list of ``(function name, *arguments)``; returns their
+    results in order."""
+    return [globals()[name](rank, world, *args) for name, *args in jobs]
 
 
 def mesh_worker(rank, world, path, config):
@@ -202,25 +385,84 @@ def mesh_worker(rank, world, path, config):
 
 def runner_worker(rank, world, argv, config=None):
     """``run_largescale_sgp`` from its command line ``argv`` on this rank
-    of the group already joined; returns the results and the decoder's
-    final weights (numpy, by name)."""
+    of the group already joined, or the runner ``config["runner"]``
+    (``"traffic_sgp"``, ``"traffic_baselines"``, ``"largescale_baselines"``;
+    the pickled flax tree ``config["init"]`` carried into
+    ``Predictor.init``; the run directories under ``config["logs_dir"]``);
+    returns the results and the model's final weights (numpy, by name).
+    ``config["skew_val_rank"]``: on that rank the fused validation MAE of
+    ``run_traffic_sgp`` falls every epoch whatever the weights, and the
+    runner's "early stop" log lines are returned third."""
+    import importlib
+    import logging
     from sgp_tpu_torch.exp import run_largescale_sgp as rls
     from sgp_tpu_torch.exp.common import Experiment
+    from sgp_tpu_torch.train.predictor import Predictor
+    from sgp_tpu_torch.utils.config import config as global_config
+    config = config or {}
+    if "logs_dir" in config:
+        global_config["logs_dir"] = config["logs_dir"]
+    name = config.get("runner", "largescale_sgp")
+    mod = importlib.import_module(f"sgp_tpu_torch.exp.run_{name}")
+    # the large-scale baselines take the traffic baselines' flags
+    parser = rls.configure_parser_largescale() if name == "largescale_sgp" \
+        else importlib.import_module({
+            "traffic_sgp": "sgp_tpu_torch.exp.run_traffic_sgp"}.get(
+                name, "sgp_tpu_torch.exp.run_traffic_baselines")
+        ).configure_parser()
     kept = {}
-    fit = rls._run_restartable_fit
+    fit, init = rls._run_restartable_fit, Predictor.init
+    carry = _carry_init(config.get("init"))
 
     def keep_model(args, model, *rest):
         kept["model"] = model
         return fit(args, model, *rest)
 
+    def keep_predictor(self, *args, **kwargs):
+        kept["model"] = self.model
+        return carry(self, *args, **kwargs)
+
     rls._run_restartable_fit = keep_model
+    Predictor.init = keep_predictor
+    skew = "skew_val_rank" in config
+    evals, stops = getattr(mod, "fused_eval_for", None), []
+    if skew:
+        if rank == config["skew_val_rank"]:
+            mod.fused_eval_for = _falling_val(evals)
+        log = logging.getLogger(mod.__name__)
+        level = log.level
+        log.setLevel(logging.INFO)
+        handler = logging.Handler()
+        handler.addFilter(lambda r: "early stop" in r.getMessage())
+        handler.emit = lambda r: stops.append(r.getMessage())
+        log.addHandler(handler)
     try:
-        res = Experiment(rls.run_experiment,
-                         rls.configure_parser_largescale()).run(argv)
+        res = Experiment(mod.run_experiment, parser).run(argv)
     finally:
-        rls._run_restartable_fit = fit
-    return res, {k: v.detach().cpu().numpy()
-                 for k, v in kept["model"].state_dict().items()}
+        rls._run_restartable_fit, Predictor.init = fit, init
+        if skew:
+            mod.fused_eval_for = evals
+            log.removeHandler(handler)
+            log.setLevel(level)
+    if skew:
+        return res, _weights(kept["model"]), stops
+    return res, _weights(kept["model"])
+
+
+def _falling_val(fused_eval_for):
+    """``fused_eval_for`` whose first evaluation (the validation split's)
+    reports an MAE that falls every call; later ones (the test split's)
+    are left as they are."""
+    calls = []
+
+    def skewed(*args, **kwargs):
+        evaluate = fused_eval_for(*args, **kwargs)
+        calls.append(None)
+        if len(calls) > 1:
+            return evaluate
+        epochs = iter(range(1 << 30))
+        return lambda: {**evaluate(), "mae": -float(next(epochs))}
+    return skewed
 
 
 def imported_modules(rank, world):

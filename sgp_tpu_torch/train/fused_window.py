@@ -68,14 +68,16 @@ def make_fused_window_step(model, optimizer,
     gradients for unreached parameters, the clip by global norm at
     ``grad_clip``, ``optimizer.step()``, ``scheduler.step()``): the JAX
     step's optax chain. ``step.train_on(items)`` takes one step on given
-    window starts; features reach the model as f32."""
+    window starts, ``step.sums_on(items)`` gives the masked loss's sum and
+    count before the division; features reach the model as f32."""
     loss_pt = _METRIC_FNS[loss]
     device = x_full.device
     starts = torch.as_tensor(np.asarray(item_starts), device=device)
     gw = make_offset_gather(window_offsets)
     gh = make_offset_gather(horizon_offsets)
 
-    def loss_on(items):
+    def sums_on(items):
+        """The masked loss's ``(sum, count)`` on window starts ``items``."""
         x = gw(x_full, items).float()                 # [B, W, N, Cin]
         if support_ops is not None:
             x = torch.cat([x] + [op @ x for op in support_ops], dim=-1)
@@ -87,7 +89,10 @@ def make_fused_window_step(model, optimizer,
             y_ref = scaler.transform(y)
         else:
             y_hat, y_ref = scaler.inverse_transform(y_hat), y
-        v, cnt = _masked_reduce(loss_pt, y_hat, y_ref, m)
+        return _masked_reduce(loss_pt, y_hat, y_ref, m)
+
+    def loss_on(items):
+        v, cnt = sums_on(items)
         return v / torch.clamp(cnt, min=1.0)
 
     def train_on(items):
@@ -107,6 +112,7 @@ def make_fused_window_step(model, optimizer,
 
     step.train_on = train_on
     step.sample = sample
+    step.sums_on = sums_on
     return step
 
 

@@ -328,6 +328,57 @@ def make_fused_iid_multi_step(model, optimizer, encoded, target, mask,
     return multi_step
 
 
+def assemble_stratified(h_sel: torch.Tensor, n: torch.Tensor, support_ops,
+                        global_attr: bool,
+                        assembly: str = "gather_rows") -> torch.Tensor:
+    """The sampled rows ``[Tb, P, D]`` of ``[h, A_1 h, ..., mean(h)]`` in
+    ``h_sel``'s dtype, from the selected steps ``h_sel [Tb, N, Ht]`` (every
+    node) and the sampled node ids ``n [Tb, P]``; ``assembly`` as in
+    :func:`make_fused_iid_stratified_step`."""
+    h_dim = h_sel.shape[-1]
+    rows_of = n[:, :, None].expand(-1, -1, h_dim)
+    parts = [torch.gather(h_sel, 1, rows_of)]          # [Tb, P, Ht]
+    for op in support_ops:
+        if isinstance(op, DenseOperator) and assembly == "gather_rows":
+            # only the sampled destination rows of the support
+            hs = (h_sel.to(torch.bfloat16) if op.precision == "default"
+                  else h_sel)
+            hop = torch.bmm(op.mat[n], hs.to(op.mat.dtype))
+        else:
+            hop = torch.gather(op @ h_sel, 1, rows_of)
+        parts.append(hop.to(h_sel.dtype))
+    if global_attr:
+        mean = GlobalMeanOperator(h_sel.shape[1]) @ h_sel   # a broadcast
+        parts.append(mean[:, :1].expand_as(parts[0]))
+    return torch.cat(parts, -1)
+
+
+def stratified_sums(model, x, target, mask, u, t_flat, rows, node_ids,
+                    h_off, scaler: ScalerParams, loss_pt,
+                    scale_target: bool):
+    """The masked loss's ``(sum, count)`` on assembled rows ``x [B, D]``
+    drawn at steps ``t_flat [B]``: the horizon targets, masks and a
+    node-level ``u`` read at ``rows [B]`` of their arrays' node axis, the
+    model's node embedding and the scaler at ``node_ids [B]`` (the same
+    ids, unless the arrays are a node slab)."""
+    steps = t_flat[:, None] + h_off[None, :]
+    y = target[steps, rows[:, None]]                   # [B, H, C]
+    m = mask[steps, rows[:, None]]
+    kwargs = {}
+    if u is not None:
+        # node-level [T, N, F] or global [T, F]
+        kwargs["u"] = u[t_flat, rows] if u.ndim == 3 else u[t_flat]
+    model.train(True)
+    y_hat = model(x.float(), node_index=node_ids, training=True, iid=True,
+                  **kwargs).float()
+    sc = scaler.index_nodes_iid(node_ids)
+    if scale_target:
+        y_ref = sc.transform(y)
+    else:
+        y_hat, y_ref = sc.inverse_transform(y_hat), y
+    return _masked_reduce(loss_pt, y_hat, y_ref, m)
+
+
 def make_fused_iid_stratified_step(model, optimizer,
                                    h_temporal: torch.Tensor,  # [T, N, Ht]
                                    target: torch.Tensor,      # [T, N, C]
@@ -384,7 +435,7 @@ def make_fused_iid_stratified_step(model, optimizer,
                        for op in support_ops]
     loss_pt = _METRIC_FNS[loss]
     device = h_temporal.device
-    n_nodes, h_dim = h_temporal.shape[1:]
+    n_nodes = h_temporal.shape[1]
     batch_size = times_per_batch * nodes_per_time
     valid = torch.as_tensor(valid_starts, device=device)
     h_off = torch.as_tensor(_host(horizon_offsets), device=device)
@@ -392,43 +443,15 @@ def make_fused_iid_stratified_step(model, optimizer,
 
     @torch.no_grad()
     def features(t, n):
-        h_sel = h_temporal[t]                          # [Tb, N, Ht]
-        rows_of = n[:, :, None].expand(-1, -1, h_dim)
-        parts = [torch.gather(h_sel, 1, rows_of)]      # [Tb, P, Ht]
-        for op in support_ops:
-            if isinstance(op, DenseOperator) and assembly == "gather_rows":
-                # only the sampled destination rows of the support
-                hs = (h_sel.to(torch.bfloat16) if op.precision == "default"
-                      else h_sel)
-                hop = torch.bmm(op.mat[n], hs.to(op.mat.dtype))
-            else:
-                hop = torch.gather(op @ h_sel, 1, rows_of)
-            parts.append(hop.to(h_sel.dtype))
-        if global_attr:
-            mean = GlobalMeanOperator(n_nodes) @ h_sel   # a broadcast
-            parts.append(mean[:, :1].expand_as(parts[0]))
-        return torch.cat(parts, -1).reshape(batch_size, -1)
+        return assemble_stratified(h_temporal[t], n, support_ops,
+                                   global_attr, assembly
+                                   ).reshape(batch_size, -1)
 
     def loss_on(t, n):
-        x = features(t, n)
-        t_flat = t.repeat_interleave(nodes_per_time)
-        n_flat = n.reshape(-1)
-        steps = t_flat[:, None] + h_off[None, :]
-        y = target[steps, n_flat[:, None]]             # [B, H, C]
-        m = mask[steps, n_flat[:, None]]
-        kwargs = {}
-        if u is not None:
-            # node-level [T, N, F] or global [T, F]
-            kwargs["u"] = u[t_flat, n_flat] if u.ndim == 3 else u[t_flat]
-        model.train(True)
-        y_hat = model(x.float(), node_index=n_flat, training=True, iid=True,
-                      **kwargs).float()
-        sc = scaler.index_nodes_iid(n_flat)
-        if scale_target:
-            y_ref = sc.transform(y)
-        else:
-            y_hat, y_ref = sc.inverse_transform(y_hat), y
-        v, cnt = _masked_reduce(loss_pt, y_hat, y_ref, m)
+        v, cnt = stratified_sums(
+            model, features(t, n), target, mask, u,
+            t.repeat_interleave(nodes_per_time), n.reshape(-1),
+            n.reshape(-1), h_off, scaler, loss_pt, scale_target)
         return v / torch.clamp(cnt, min=1.0)
 
     def train_on(t, n):

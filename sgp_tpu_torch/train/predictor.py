@@ -21,13 +21,27 @@ distributions, not its bits — the tests carry flax weights across with
 state through ``train/checkpoint.py``. ``compute_dtype`` runs the forward
 and backward with the parameters and the float batch tensors cast (through
 ``torch.func.functional_call``), as the JAX trainer casts them.
-Data-parallel meshes are not ported yet.
+
+``mesh`` (a ``parallel.Mesh``, one process a rank) makes the loader-based
+steps data-parallel: every rank's loader yields the same batches, and each
+rank keeps its contiguous slice of the sample-dimension entries
+(``_SAMPLE_DIM_KEYS``); the static batch, subgraph arrays, ``node_index``
+and scalers stay whole. The loss's sum and count are summed over the
+ranks, the gradients are summed before the clip and Adam, ``evaluate``
+sums the metric states once, and a batch norm inside the step takes the
+whole batch's statistics (``_split_batch_norms``). A ragged
+tail batch (its size no multiple of the ranks) runs whole on every rank,
+as the JAX trainer replicates it: nothing is summed over the ranks then,
+and ``evaluate`` counts it on rank 0 only. ``predict`` runs whole batches
+on every rank.
 
 Subgraph batches (``data/subgraph.py``) carry ``target_nodes``, the roots'
 positions: the training loss and :meth:`evaluate` read those nodes only.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import inspect
 import logging
 import os
@@ -156,18 +170,28 @@ class Predictor:
                  metrics: Optional[MaskedMetrics] = None,
                  batch_to_call: Optional[Callable] = None,
                  seed: int = 0,
+                 mesh=None,
+                 sync_batch_stats: bool = True,
                  static_batch: Optional[dict] = None,
                  compute_dtype: Optional[str] = None,
                  device=None):
-        """``static_batch``: per-run graph state (ELL neighbour tables,
-        edge lists) merged into every batch, moved to the device once.
-        Keys already present in a batch win. ``compute_dtype``
-        (``"bfloat16"``): mixed-precision steps, the forward and backward
-        with the f32 parameters and float batch tensors cast to it and the
-        output cast back to f32; the master weights, Adam, the loss and the
-        metrics stay f32. ``device``: where the model and the batches live
-        (default ``cuda:0``; ``"cpu"`` for the CPU)."""
+        """``mesh``: a ``parallel.Mesh`` whose ``data`` axis splits every
+        loader batch over its ranks (the module docstring); the parameters
+        are broadcast from rank 0 at :meth:`init`. ``sync_batch_stats``
+        False leaves a batch norm's statistics under a mesh those of the
+        rank's slice (``nn.BatchNorm`` against ``nn.SyncBatchNorm``): not
+        the one-process run's, nor the JAX trainer's. ``static_batch``:
+        per-run graph state (ELL neighbour tables, edge lists) merged into
+        every batch, moved to the device once. Keys already present in a
+        batch win. ``compute_dtype`` (``"bfloat16"``): mixed-precision
+        steps, the forward and backward with the f32 parameters and float
+        batch tensors cast to it and the output cast back to f32; the
+        master weights, Adam, the loss and the metrics stay f32.
+        ``device``: where the model and the batches live (default
+        ``cuda:0``; ``"cpu"`` for the CPU)."""
         self.model = model
+        self.mesh = mesh
+        self.sync_batch_stats = sync_batch_stats
         self.device = resolve_device(device)
         self.compute_dtype = None if compute_dtype is None else \
             getattr(torch, str(compute_dtype).replace("torch.", ""))
@@ -203,11 +227,71 @@ class Predictor:
             params, self.lr, self.weight_decay, self._boundaries,
             self.lr_gamma)
         self.scaler = _to_device(scaler, self.device)
+        if self.mesh is not None:
+            from sgp_tpu_torch.parallel.sharding import broadcast_module_
+            broadcast_module_(self.model, self.mesh.group("data"))
         n_params = sum(p.numel() for p in params)
         logger.info(f"Initialized model with {n_params:,} parameters")
         return self
 
     # -- steps -------------------------------------------------------------
+    # The entries whose leading dimension is the sample dimension, cut over
+    # the ranks under a mesh; every other entry (node_index, target_nodes,
+    # the subgraph arrays, scalers) is shared by the batch's samples. By
+    # key, not by shape, as in the JAX trainer.
+    _SAMPLE_DIM_KEYS = frozenset(
+        {"x", "y", "mask", "u", "u_horizon", "eval_mask"})
+
+    def _rank_share(self, batch):
+        """``(the batch this rank runs, whether it is split)``: under a mesh
+        a batch whose size the ranks divide is cut into their contiguous
+        slices (this rank's kept); a ragged one stays whole."""
+        if self.mesh is None:
+            return batch, False
+        s = self.mesh.size("data")
+        b = np.shape(batch["x"])[0]
+        if b % s:
+            return batch, False
+        lo = self.mesh.index["data"] * (b // s)
+        return {k: v[lo:lo + b // s]
+                if k in self._SAMPLE_DIM_KEYS and np.ndim(v)
+                and np.shape(v)[0] == b else v
+                for k, v in batch.items()}, True
+
+    @contextlib.contextmanager
+    def _split_batch_norms(self, split: bool):
+        """Within the block, while this rank runs its slice of a batch
+        (``split``), the model's batch norms (each module with a
+        ``sum_over_ranks`` slot: ``models/tcn.py::Norm``) take their
+        statistics over every rank's slice."""
+        norms = [m for m in self.model.modules()
+                 if hasattr(m, "sum_over_ranks")] \
+            if split and self.sync_batch_stats else []
+        if norms:
+            from sgp_tpu_torch.parallel import collectives
+            total = functools.partial(collectives.all_reduce_sum,
+                                      group=self.mesh.group("data"))
+        for m in norms:
+            m.sum_over_ranks = total
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.sum_over_ranks = None
+
+    def _check_dp_batch_size(self, loader):
+        """Under a mesh the batches must split: a loader batch size the
+        ranks do not divide would run every batch whole on every rank."""
+        if self.mesh is None:
+            return
+        s = self.mesh.size("data")
+        bs = getattr(loader, "batch_size", None)
+        if bs is not None and bs % s:
+            raise ValueError(
+                f"Predictor DP: batch_size ({bs}) must be divisible by the "
+                f"mesh's data-axis size ({s}); otherwise every batch runs "
+                f"whole on every rank")
+
     def _place(self, batch) -> dict:
         out = dict(self.static_batch)
         out.update({k: _to_device(v, self.device) for k, v in batch.items()})
@@ -235,8 +319,9 @@ class Predictor:
             mask = None if mask is None else mask.index_select(-2, tn)
         return y_hat, y, mask
 
-    def compute_loss(self, batch) -> torch.Tensor:
-        """The masked training loss of a placed batch (with autograd)."""
+    def loss_sums(self, batch):
+        """The masked training loss's ``(sum, count)`` on a placed batch
+        (with autograd)."""
         y_hat, y, mask = self._slice_targets(batch,
                                              self._forward(batch, True))
         sc = batch.get("scaler", self.scaler)
@@ -244,15 +329,42 @@ class Predictor:
             y_ref = sc.transform(y)
         else:
             y_hat, y_ref = sc.inverse_transform(y_hat), y
-        v, n = _masked_reduce(_METRIC_FNS[self.loss_kind], y_hat, y_ref, mask)
+        return _masked_reduce(_METRIC_FNS[self.loss_kind], y_hat, y_ref, mask)
+
+    def compute_loss(self, batch) -> torch.Tensor:
+        """The masked training loss of a placed batch (with autograd)."""
+        v, n = self.loss_sums(batch)
         return v / torch.clamp(n, min=1.0)
 
     def train_step(self, batch) -> torch.Tensor:
-        """One update on a host batch; returns the loss (a device tensor)."""
+        """One update on a host batch; returns the loss (a device tensor).
+        Under a mesh, the loss over every rank's slice."""
         assert self.optimizer is not None, "call init() first"
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.compute_loss(self._place(batch))
-        loss.backward()
+        batch, split = self._rank_share(batch)
+        if self.mesh is None:
+            loss = self.compute_loss(self._place(batch))
+            loss.backward()
+        else:
+            from sgp_tpu_torch.parallel.sharding import (_summed_loss,
+                                                         all_reduce_grads_,
+                                                         broadcast_grads_)
+            group = self.mesh.group("data")
+            params = [p for p in self.model.parameters() if p.requires_grad]
+            if split:
+                with self._split_batch_norms(True):
+                    part, loss = _summed_loss(
+                        *self.loss_sums(self._place(batch)), group)
+                    part.backward()
+                all_reduce_grads_(params, group)
+            else:
+                # every rank ran the whole batch: rank 0's gradients and
+                # loss keep the replicas and their epochs bit-identical
+                from sgp_tpu_torch.parallel import collectives
+                loss = self.compute_loss(self._place(batch))
+                loss.backward()
+                broadcast_grads_(params, group)
+                loss = collectives.broadcast_(loss.detach().clone(), group)
         # (the last GraphWaveNet layer's diffusion branch reaches no loss)
         apply_gradients(self.model, self.optimizer, self.grad_clip,
                         self.scheduler)
@@ -260,6 +372,7 @@ class Predictor:
 
     # -- loops -------------------------------------------------------------
     def train_epoch(self, loader) -> float:
+        self._check_dp_batch_size(loader)
         total, count = 0.0, 0
         for batch in loader:
             total += float(self.train_step(batch))
@@ -268,13 +381,31 @@ class Predictor:
 
     @torch.no_grad()
     def evaluate(self, loader, prefix: str = "") -> Dict[str, float]:
+        """Masked metrics over the loader's batches; under a mesh each rank
+        evaluates its slices, rank 0 the ragged batches, and the metric
+        states are summed once at the end."""
         state = self.metrics.init()
+        group = None if self.mesh is None else self.mesh.group("data")
         for batch in loader:
+            batch, split = self._rank_share(batch)
+            if self.mesh is not None and not split \
+                    and self.mesh.index["data"]:
+                continue        # a ragged batch counts once, on rank 0
             b = self._place(batch)
             sc = b.get("scaler", self.scaler)
-            y_hat, y, mask = self._slice_targets(b, self._forward(b, False))
+            with self._split_batch_norms(split):
+                y_hat = self._forward(b, False)
+            y_hat, y, mask = self._slice_targets(b, y_hat)
             state = self.metrics.update(state, sc.inverse_transform(y_hat),
                                         y, mask)
+        if group is not None:
+            from sgp_tpu_torch.parallel import collectives
+            names = list(state)
+            flat = collectives.all_reduce_(torch.stack([torch.stack([
+                torch.as_tensor(state[k][0], device=self.device).float(),
+                torch.as_tensor(state[k][1], device=self.device).float()])
+                for k in names]), group).cpu()
+            state = {k: (flat[i, 0], flat[i, 1]) for i, k in enumerate(names)}
         out = self.metrics.compute(state)
         return {f"{prefix}{k}": v for k, v in out.items()}
 
@@ -321,7 +452,9 @@ class Predictor:
             raise ValueError(
                 f"monitor={monitor!r} is not a tracked metric; "
                 f"available: {sorted(self.metrics.names)}")
-        run_logger = RunLogger(logdir) if logdir is not None else None
+        # one rank writes the run's metrics
+        run_logger = RunLogger(logdir) if logdir is not None \
+            and self._writes() else None
         best_metric, bad_epochs = np.inf, 0
         best_state = self._state_copy()
         for epoch in range(epochs):
@@ -354,6 +487,11 @@ class Predictor:
     def _state_copy(self) -> dict:
         return {k: v.detach().clone()
                 for k, v in self.model.state_dict().items()}
+
+    def _writes(self) -> bool:
+        """Whether this process writes files: under a mesh, rank 0 alone
+        (every rank holds the same weights)."""
+        return self.mesh is None or not self.mesh.index["data"]
 
     # -- checkpoint --------------------------------------------------------
     def save_state(self, path: str, epoch: int = 0,
@@ -390,7 +528,10 @@ class Predictor:
 
     # -- weights -----------------------------------------------------------
     def save(self, path: str):
-        """The model's weights as a ``state_dict`` (``torch.save``)."""
+        """The model's weights as a ``state_dict`` (``torch.save``); under a
+        mesh rank 0 writes them."""
+        if not self._writes():
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         torch.save(self.model.state_dict(), path)
 

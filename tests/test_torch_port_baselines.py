@@ -180,8 +180,10 @@ def test_graph_model_on_node_subsets_raises(monkeypatch, model):
     # ones, do not take it
     (["--model-name", "esn"], ValueError, "not available"),
     (["--model-name", "sgp"], ValueError, "not available"),
-    (["--model-name", "gatedgn", "--data-sharding", "batch"],
-     NotImplementedError, "A10")],
+    # --data-sharding batch runs (tests/test_torch_port_dp.py); the
+    # baseline runners, as the JAX ones, take no node sharding
+    (["--model-name", "gatedgn", "--data-sharding", "nodes"],
+     SystemExit, "2")],
     ids=["dataset-la", "esn", "sgp", "data-sharding"])
 def test_options_not_ported_raise(argv, error, match):
     with pytest.raises(error, match=match):

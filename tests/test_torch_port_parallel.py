@@ -327,8 +327,8 @@ def test_sharded_runner_on_one_rank_equals_unsharded():
 
 def test_sharded_runner_on_two_ranks_keeps_replicas_equal():
     """Two ranks on 13 nodes: finite test metrics, the same on both
-    ranks, and the same final weights bit for bit; the stratified
-    trainer's sharded branch still raises, naming A10."""
+    ranks, and the same final weights bit for bit (the stratified
+    trainer's sharded branch: ``tests/test_torch_port_dp.py``)."""
     (r0, w0), (r1, w1) = run_ranks(
         runner_worker, 2, "gloo", "cpu",
         RUNNER_ARGV + ["--data-sharding", "nodes"])
@@ -336,8 +336,3 @@ def test_sharded_runner_on_two_ranks_keeps_replicas_equal():
     assert np.isfinite(r0["test_mae"]) and r0["data_sharding"] == "nodes"
     for name in w0:
         np.testing.assert_array_equal(w0[name], w1[name])
-    with pytest.raises(NotImplementedError, match="A10"):
-        Experiment(runner.run_experiment,
-                   runner.configure_parser_largescale()).run(
-            RUNNER_ARGV + ["--data-sharding", "nodes",
-                           "--iid-stratified", "true"])

@@ -394,12 +394,12 @@ def test_experiment_flag_beats_config_beats_default(monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--iid-stratified", "true", "--search-lr", "0.01"], "not supported"),
     (["--search-lr", "0.01", "--checkpoint-every", "1"], "not supported"),
-    # --data-sharding nodes and --num-processes run (tests/
-    # test_torch_port_parallel.py); the stratified trainer's sharded
-    # branch does not, with or without a process count of one
-    (["--data-sharding", "nodes", "--iid-stratified", "true"], "A10"),
+    # --data-sharding nodes and --num-processes run, the stratified
+    # trainer's too (tests/test_torch_port_{parallel,dp}.py); the trial
+    # search refuses the sharding, with or without a process count of one
+    (["--data-sharding", "nodes", "--search-lr", "0.01"], "not supported"),
     (["--num-processes", "1", "--data-sharding", "nodes",
-      "--iid-stratified", "true"], "A10"),
+      "--search-lr", "0.01"], "not supported"),
     (["--dataset-name", "pv"], "not in the repository"),
 ])
 def test_unported_branches_raise(flags, match):

@@ -20,8 +20,8 @@
   step moves one horizon step's readout bias, whose signs nearly cancel,
   by 6.9e-4 in one package and not in the other. Each trained MAE lies
   below its own ``--epochs 0`` run.
-- Every route runs on the CPU; ``--data-sharding batch`` raises naming
-  A10; without ``--device`` the runner asks for the card.
+- Every route runs on the CPU; ``--data-sharding batch`` off the fused
+  route raises; without ``--device`` the runner asks for the card.
 """
 import jax
 import jax.numpy as jnp
@@ -336,8 +336,11 @@ def test_runner_routes_train_on_the_cpu(flags, mode):
 
 
 def test_data_sharding_batch_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        _port(BASE + ["--data-sharding", "batch"])
+    """``--data-sharding batch`` backs the fused SGP route only (it runs:
+    ``tests/test_torch_port_dp.py``); another route raises, as in the JAX
+    runner, before any data."""
+    with pytest.raises(ValueError, match="requires the fused SGP path"):
+        _port(BASE + ["--data-sharding", "batch", "--fused", "false"])
 
 
 def test_runner_defaults_to_the_card(monkeypatch):
