@@ -45,7 +45,11 @@ rank's blocks, the sharded encode, IID step and eval, the runner's
 ``--data-sharding nodes``) on 1, 2 and 4 ranks; and data-parallel training
 for the other runners (the sharded stratified step and its eval with K1
 under the supports, the window step, ``Predictor(mesh=)`` with K4 under
-GatedGN) on 1 and 2 ranks. In phases; any failure raises and the exit code
+GatedGN) on 1 and 2 ranks; and the rest of the multi-device port (the
+two-level (host, chip) halo exchange with K1 on each rank's tiles, the
+scaling model's measured routes, the multi-rank dry run with tensor
+parallelism, checkpoint and resume over ranks) on 2 and 4 ranks. In
+phases; any failure raises and the exit code
 is not 0:
 
 0. the card: ``nvidia-smi`` name and power limit, versions, TF32 off;
@@ -367,6 +371,30 @@ is not 0:
    --data-sharding nodes`` and (d) ``run_traffic_sgp --data-sharding
    batch`` (``--sgp-preprocessing true`` on K1's route) on one NCCL rank,
    each bit for bit the unsharded runner.
+23. the rest of the multi-device port (the ``HIER_*`` and ``RESUME_*``
+   constants; at most 90 s, its wall printed): in one spawn of 4 gloo
+   ranks sharing the card as (host 2, chip 2), (1) the two-level halo
+   K-hop (k 2) in ``mode="bsr"`` on the 100-nn graph at F 1,024, K1
+   under each rank's block, at depths 1 and 2 and the f32, bf16 and int8
+   wire formats, against the single-device dense operator's hops (f32
+   within 1e-5 of the largest value, the wire formats within 2e-2 and
+   8e-2) and against the flat exchange of the same plan on the same ranks
+   (the recv buffers at every slot a halo entry reads: the same bits; the
+   K-hops within 1e-5, since the halo blocks' ``index_add_`` sums in the
+   order of the card's atomics: the flat K-hop run twice differs as much),
+   K1's launches in each rank's two-level run, then K1 on
+   shard 0's tiles against its plain version with the bound, torch's BSR
+   product and the dense matmul of the block; (2) the flat and two-level
+   exchanges' ms a hop and bytes (``b_intra``, ``b_cross``,
+   ``dcn_bytes_per_hop``): gloo's on one card, not NVLink's; (3)
+   ``obs/scaling.py::propagation_scaling`` on 2 and 4 ranks (``bsr``, F
+   128); (4) the dry run (``exp/dryrun.py``: the deep halo, a DP + TP
+   decoder step, the node-sharded IID step packed and unpacked, the
+   stratified step, the eval, the window step, the two-level K-hop bit
+   for bit the flat one); then (5) ``run_largescale_sgp --data-sharding
+   nodes --checkpoint-every 1`` on 2 gloo ranks killed at epoch 2 by its
+   fault hook, resumed, against the uninterrupted run: test metrics and
+   weights bit for bit on both ranks.
 
 Each kernel's bound is the largest of three times (NVIDIA's data sheet,
 SXM part, the rates read from ``sgp_tpu_torch/obs/roofline.py``, K1's
@@ -387,6 +415,8 @@ from phase 17; its ``stcn`` sub-entry, F 49,152, with the GCN decoder's F
 F 6,144, from phase 19; its ``halo`` sub-entry, K1 on a shard's tiles
 at F 1,024, from phase 21; its ``stratified_dp`` sub-entry, F 4,096 a
 rank, with the sharded evaluation's F 2,048 under ``eval``, from phase 22;
+its ``halo_hier`` sub-entry, K1 on a shard's tiles under the two-level
+exchange at F 1,024, from phase 23;
 K4's ``dp`` sub-entries, 8 windows a rank, from phase 22); the last is
 ``{"ok":
 true, "device": {...}}``. Without a CUDA
@@ -6862,6 +6892,146 @@ def phase22_data_parallel(raw, graph, device) -> dict:
     return out
 
 
+# phase 23, the rest of the multi-device port: the two-level halo exchange
+# on the 100-nn graph (4 gloo ranks sharing the card as (host 2, chip 2)),
+# the scaling model's routes, the dry run, then checkpoint/resume over 2
+# ranks at sgp_pv.yaml's widths
+HIER_WORLD = 4
+HIER_HOSTS = 2
+HIER_SCALING_RANKS = (2, 4)   # (3) propagation_scaling's shard counts
+HIER_SCALING_F = 128
+HIER_ITERS = 5          # CUDA-event launches of each timing
+RESUME_WORLD = 2
+RESUME_NODES = 512      # (5) the runner's set: nodes and steps cut from
+RESUME_STEPS = 160      # PV-US's 5,016 x 8,868
+RESUME_RUN = ["--epochs", "3", "--batches-epoch", "4"]
+RESUME_FAULT_EPOCH = 2
+
+
+def phase23_two_level(graph, device) -> dict:
+    """(1)-(4) in one spawn of 4 gloo ranks on the card."""
+    from sgp_tpu_torch.encode import prepare_propagation_graphs
+    from sgp_tpu_torch.parallel import run_ranks
+    from sgp_tpu_torch.parallel.card_checks import multi_device_worker
+    tmp = ROOT / "build" / "phase23"
+    tmp.mkdir(parents=True, exist_ok=True)
+    g = prepare_propagation_graphs(graph)[0]
+    path = tmp / "hier.npz"
+    np.savez(path, src=g.src, dst=g.dst, weight=g.weight,
+             num_nodes=g.num_nodes, x=np.random.default_rng(SEED)
+             .standard_normal((SHARD_HALO_LEAD, g.num_nodes, SHARD_HALO_F))
+             .astype(np.float32))
+    config = {"device": str(device), "hosts": HIER_HOSTS, "k": 2,
+              "halo_cases": SHARD_HALO_CASES, "iters": HIER_ITERS,
+              "scaling_feat": HIER_SCALING_F,
+              "scaling_ranks": HIER_SCALING_RANKS}
+    ranks = run_ranks(multi_device_worker, HIER_WORLD, "gloo", device,
+                      str(path), config)
+    r0 = ranks[0]
+    for i, row in enumerate(r0["halo"]["cases"]):
+        row["launches_by_rank"] = [r["halo"]["cases"][i]["launches"]
+                                   for r in ranks]
+        row["exchange_bitwise_by_rank"] = [
+            r["halo"]["cases"][i]["exchange_bitwise"] for r in ranks]
+        print(f"[phase 23] (1), (2) two-level halo k 2 bsr: "
+              f"{json.dumps(row)}")
+    main = r0["halo"]["cases"][0]
+    k1 = shard_k1_row(r0["halo"]["k1"], main["launches"])
+    print(f"[phase 23] (1) K1 on shard 0's tiles: {json.dumps(k1)}")
+    for row in r0["scaling"]:
+        print(f"[phase 23] (3) propagation_scaling: {json.dumps(row)}")
+    print(f"[phase 23] (4) {r0['dryrun']}")
+    print(f"[phase 23] peak MiB by rank: {[r['peak_mib'] for r in ranks]}; "
+          f"walls (halo, scaling, dryrun) s: "
+          f"{[(r['halo_s'], r['scaling_s'], r['dryrun_s']) for r in ranks]}; "
+          f"rank 0's halo cases s: {r0['halo']['case_s']}, its K1 row s: "
+          f"{r0['halo']['k1_s']}")
+    for row in r0["halo"]["cases"]:
+        err = row["rel_err"] if row["payload"] == "float32" \
+            else row["max_abs_err"]
+        assert err <= TOL_PAYLOAD[row["payload"]], row
+        assert all(row["exchange_bitwise_by_rank"]), row
+        assert row["flat_rel_diff"] <= TOL_SHARD, row
+        assert device.type != "cuda" or min(row["launches_by_rank"]) > 0, row
+    assert k1["rel_err"] <= TOL_F32 and k1["bound_ms"] <= k1["ms"], k1
+    for r in ranks:
+        assert r["scaling"] == r0["scaling"], (r["scaling"], r0["scaling"])
+    for row in r0["scaling"]:
+        assert all(np.isfinite(row[k]) and row[k] > 0 for k in (
+            "edges_per_s_single", "edges_per_s_halo",
+            "edges_per_s_allgather")), row
+    assert r0["dryrun"].endswith("hier_halo_ok=True OK"), r0["dryrun"]
+    return {"k1": k1, "ranks": ranks}
+
+
+def phase23_resume(device) -> dict:
+    """(5) ``run_largescale_sgp --data-sharding nodes`` on 2 gloo ranks on
+    the card, killed by ``SGP_TPU_FAULT`` at the start of epoch 2 after a
+    checkpoint an epoch, resumed from the file; then, in one world, the
+    uninterrupted run and the resumed run: test metrics and weights bit
+    for bit on both ranks."""
+    import tempfile
+    from sgp_tpu_torch.parallel import run_ranks
+    from sgp_tpu_torch.parallel.workers import jobs_worker, runner_worker
+    argv = ["--config", str(CONFIG), "--dataset-name", "synthetic",
+            "--synthetic-nodes", str(RESUME_NODES), "--synthetic-steps",
+            str(RESUME_STEPS), *RESUME_RUN, "--seed", str(SEED),
+            "--device", str(device), "--data-sharding", "nodes"]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        marker = f"{tmp}/fault"
+        cfg = {"logs_dir": f"{tmp}/logs", "env": {
+            "SGP_TPU_FAULT": f"epoch:{RESUME_FAULT_EPOCH},marker:{marker}"}}
+
+        def flags(name):
+            return ["--checkpoint-every", "1", "--checkpoint-path",
+                    f"{tmp}/{name}.ckpt"]
+        t0 = time.perf_counter()
+        try:
+            run_ranks(runner_worker, RESUME_WORLD, "gloo", device,
+                      argv + flags("run"), cfg)
+            died = "ran to its end"
+        except RuntimeError as e:
+            died = str(e).splitlines()[0]
+        fault_s = time.perf_counter() - t0
+        fired = Path(marker).exists() and Path(marker).read_text()
+        t0 = time.perf_counter()
+        pairs = run_ranks(jobs_worker, RESUME_WORLD, "gloo", device, [
+            ("runner_worker", argv + flags("full"), cfg),
+            ("runner_worker", argv + flags("run") + ["--resume", "true"],
+             cfg)])
+        pair_s = time.perf_counter() - t0
+    rows = []
+    for (full, w_full), (res, w_res) in pairs:
+        rows.append({
+            "metrics": {k: (res[k], full[k]) for k in full
+                        if k.startswith("test_")},
+            "metrics_bitwise": all(res[k] == full[k] for k in full
+                                   if k.startswith("test_")),
+            "weights_bitwise": all(np.array_equal(w_res[k], w_full[k])
+                                   for k in w_full)})
+    row = {"fault": died, "fault_epoch": fired, "fault_run_s": fault_s,
+           "full_and_resumed_s": pair_s, "ranks": rows}
+    print(f"[phase 23] (5) resume over {RESUME_WORLD} ranks: "
+          f"{json.dumps(row)}")
+    assert "exit codes [13, 13]" in died and fired == str(
+        RESUME_FAULT_EPOCH), row
+    assert all(r["metrics_bitwise"] and r["weights_bitwise"] for r in rows), \
+        row
+    return row
+
+
+def phase23_multi_device(graph, device) -> dict:
+    """The rest of the multi-device port: (1)-(4) on 4 gloo ranks, (5) the
+    resume on 2; prints its wall (budget 90 s)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"two_level": timed("phase 23 (1)-(4)", phase23_two_level, graph,
+                              device),
+           "resume": timed("phase 23 (5)", phase23_resume, device)}
+    print(f"[phase 23] wall {time.perf_counter() - t0:.1f} s (budget 90 s)")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, half=""):
     """One kernel's line of the kernels JSON from its main-path row."""
     pre = f"{half}_" if half else ""
@@ -6926,6 +7096,7 @@ def run_phases():
     timed("phase 20", phase20_tooling, ds, graph, device)
     p21 = timed("phase 21", phase21_sharded, ds, graph, device)
     p22 = timed("phase 22", phase22_data_parallel, ds, graph, device)
+    p23 = timed("phase 23", phase23_multi_device, graph, device)
     kernels = [kernel_entry("bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
                             "sgp_tpu/ops/bsr_kernel.py:39", res["launches"],
                             k1)]
@@ -7003,6 +7174,15 @@ def run_phases():
         p21["pair"]["k1"])
     kernels[0]["halo"]["f"] = p21["pair"]["k1"]["f"]
     kernels[0]["halo"]["nnzb"] = p21["pair"]["k1"]["nnzb"]
+    # the halo K-hop's local blocks under the two-level (host, chip)
+    # exchange (phase 23 (1)): K1 on shard 0's tiles at F 1,024; launches
+    # of rank 0's two-level run
+    hier_k1 = p23["two_level"]["k1"]
+    kernels[0]["halo_hier"] = kernel_entry(
+        "bsr_spmm", "sgp_tpu_torch/csrc/bsr_spmm.cu",
+        "sgp_tpu/ops/bsr_kernel.py:39", hier_k1["launches"], hier_k1)
+    kernels[0]["halo_hier"]["f"] = hier_k1["f"]
+    kernels[0]["halo_hier"]["nnzb"] = hier_k1["nnzb"]
     # the sharded stratified step's hops on BSR supports, F 4,096 a rank,
     # and the sharded evaluation's, F 2,048, under ``eval`` (phase 22 (a),
     # (b)); launches of rank 0's step and evaluation

@@ -45,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sgp_tpu_torch.data import (RobustScaler, SpatioTemporalDataset,
                                 Windowing)
@@ -61,6 +62,7 @@ from sgp_tpu_torch.models import SGPModel
 from sgp_tpu_torch.ops import GlobalMeanOperator
 from sgp_tpu_torch.train import MaskedMetrics, Predictor
 from sgp_tpu_torch.train.checkpoint import (AsyncCheckpointer,
+                                            gather_rank_states,
                                             restore_run_state)
 from sgp_tpu_torch.train.fused_window import make_fused_eval
 from sgp_tpu_torch.train.iid import (fused_iid_inputs,
@@ -252,7 +254,7 @@ def run_experiment(args):
         generator = torch.Generator(device=device).manual_seed(args.seed)
 
     best_state, fit_state = _run_restartable_fit(
-        args, model, optimizer, step, generator, batches_epoch)
+        args, model, optimizer, step, generator, batches_epoch, mesh)
     model.load_state_dict(best_state)
     results = {f"test_{k}": v for k, v in test_eval_fn().items()}
     results["train_time_s"] = fit_state["train_time_s"]
@@ -268,12 +270,6 @@ def _nodes_mesh(args):
     if getattr(args, "data_sharding", "none") != "nodes":
         return None
     mesh = local_mesh(1)
-    if mesh.size("data") > 1 and (getattr(args, "checkpoint_every", 0)
-                                  or getattr(args, "resume", False)):
-        raise NotImplementedError(
-            "--checkpoint-every/--resume over several ranks (one generator "
-            "a rank, not in the checkpoint) is not ported yet (ROADMAP "
-            "A10, checkpoint/resume over ranks)")
     logger.info(f"data-sharding=nodes over {mesh.size('data')} ranks")
     return mesh
 
@@ -336,7 +332,7 @@ def _train_config(args, batches_epoch):
 
 
 def _run_restartable_fit(args, model, optimizer, step, generator,
-                         batches_epoch):
+                         batches_epoch, mesh=None):
     """The fit loop with restartable checkpoints: every
     ``--checkpoint-every`` epochs the current weights, optimizer state,
     generator state, torch's default generators' states (dropout's),
@@ -344,22 +340,36 @@ def _run_restartable_fit(args, model, optimizer, step, generator,
     continues the exact run (the same generator streams as an
     uninterrupted run; model and train configs asserted). Returns
     ``(best_state, {"train_time_s": ..., "best_loss": ...})``, the time
-    including the epochs before a resume."""
+    including the epochs before a resume.
+
+    Over the ranks of a node-sharded ``mesh`` the weights and the
+    optimizer's state are replicated and rank 0 writes them, with every
+    rank's generator states (the sampler's, the step's own where it has
+    one, torch's defaults) gathered beside the world size; on resume each
+    rank restores its own, and another world size raises."""
     ckpt_every = getattr(args, "checkpoint_every", 0)
     ckpt_path = getattr(args, "checkpoint_path", "") \
         or f"{args.logdir}/train_state.ckpt"
     tc = _train_config(args, batches_epoch)
+    group = None if mesh is None else mesh.group("data")
+    rank = 0 if mesh is None else mesh.index["data"]
+    world = 1 if group is None else mesh.size("data")
+    # the sampler's stream, and the step's own where it keeps one
+    own = list(getattr(step, "generators", ()))
+    generators = [generator] + own if own else generator
     start_epoch, best_loss, elapsed = 0, np.inf, 0.0
     best_state = _state_copy(model)
     if getattr(args, "resume", False) and os.path.exists(ckpt_path):
         start_epoch, best_loss, best_state, elapsed = restore_run_state(
-            ckpt_path, model, optimizer, generator, train_config=tc)
+            ckpt_path, model, optimizer, generators, train_config=tc,
+            rank=rank, world_size=world)
         logger.info(f"resumed from {ckpt_path} at epoch {start_epoch} "
                     f"(best_loss={best_loss:.4f})")
 
     # fault injection for restart testing: SGP_TPU_FAULT="epoch:N,
     # marker:PATH" kills the process at the start of epoch N unless PATH
-    # exists (created on the way out, so it fires once across restarts)
+    # exists (created on the way out, so it fires once across restarts);
+    # every rank looks before rank 0 writes it, so all of them die
     ckpt = AsyncCheckpointer()
     fault = os.environ.get("SGP_TPU_FAULT", "")
     fault_epoch, fault_marker = -1, ""
@@ -369,11 +379,17 @@ def _run_restartable_fit(args, model, optimizer, step, generator,
 
     t0 = time.time()
     for epoch in range(start_epoch, args.epochs):
-        if epoch == fault_epoch and not os.path.exists(fault_marker):
-            with open(fault_marker, "w") as fp:
-                fp.write(str(epoch))
-            logger.info(f"FAULT INJECTION: dying at epoch {epoch}")
-            os._exit(13)
+        if epoch == fault_epoch:
+            fire = not os.path.exists(fault_marker)
+            ckpt.wait()
+            if group is not None:
+                dist.barrier(group)
+            if fire:
+                if rank == 0:
+                    with open(fault_marker, "w") as fp:
+                        fp.write(str(epoch))
+                logger.info(f"FAULT INJECTION: dying at epoch {epoch}")
+                os._exit(13)
         t_ep = time.time()
         loss = float(step(generator))   # sync: the epoch really finished
         dt_ep = time.time() - t_ep
@@ -385,10 +401,13 @@ def _run_restartable_fit(args, model, optimizer, step, generator,
             logger.info(f"epoch {epoch}: train_mae={loss:.4f} "
                         f"({bps:.1f} batch/s) ({dt_ep:.2f}s)")
         if ckpt_every and (epoch + 1) % ckpt_every == 0:
-            ckpt.save(ckpt_path, model, optimizer, generator, epoch,
-                      best_loss, best_state,
-                      elapsed_s=elapsed + time.time() - t0,
-                      train_config=tc)
+            ranks = None if group is None else gather_rank_states(
+                generators, model, group)
+            if rank == 0:
+                ckpt.save(ckpt_path, model, optimizer, generators, epoch,
+                          best_loss, best_state,
+                          elapsed_s=elapsed + time.time() - t0,
+                          train_config=tc, ranks=ranks)
     ckpt.wait()   # the last checkpoint is durable before we report
     return best_state, {"train_time_s": elapsed + time.time() - t0,
                         "best_loss": best_loss}
@@ -579,7 +598,7 @@ def run_experiment_stratified(args):
     # step draws a rank's own nodes from its rank generator)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     best_state, fit_state = _run_restartable_fit(
-        args, model, optimizer, step, generator, batches_epoch)
+        args, model, optimizer, step, generator, batches_epoch, mesh)
     logger.info(f"train done in {fit_state['train_time_s']:.1f}s")
     model.load_state_dict(best_state)
     if process_rank() == 0:     # the ranks hold the same weights

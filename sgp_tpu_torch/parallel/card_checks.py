@@ -3,8 +3,9 @@
 ``chip_smoke.py`` runs them through :func:`~sgp_tpu_torch.parallel.launch.
 run_ranks` (2 or 4 gloo ranks sharing ``cuda:0``; NCCL refuses two ranks
 on one GPU); on the CPU they run as they are, at small sizes, to rehearse.
-Each takes ``(rank, world, path, config)`` with its inputs in the ``.npz``
-file ``path`` and returns plain values: errors against the single-device
+Phase 23's :func:`multi_device_worker` runs 4 ranks as a ``(host,
+chip)`` grid. Each takes ``(rank, world, path, config)`` with its inputs
+in the ``.npz`` file ``path`` and returns plain values: errors against the single-device
 port, K1's launches in the sharded run, CUDA-event times (host clock on
 the CPU) and each rank's peak memory. Rank 0 computes the single-device
 references on the same device.
@@ -26,7 +27,7 @@ from sgp_tpu_torch.parallel import collectives
 from sgp_tpu_torch.parallel.halo import (_flat_exchange, build_halo_spec,
                                          gather_nodes, halo_khop,
                                          shard_nodes)
-from sgp_tpu_torch.parallel.mesh import make_mesh
+from sgp_tpu_torch.parallel.mesh import make_hier_mesh, make_mesh
 
 
 def _sync(device):
@@ -663,5 +664,127 @@ def dp_worker(rank, world, path, config):
         out["gwnet_single"] = predictor_worker(
             0, 1, gw["path"], {**gw, "mesh": False})[0]
     out["gwnet_s"] = time.perf_counter() - t0
+    out["peak_mib"] = _peak_mib(device)
+    return out
+
+
+def _hier_cases(rank, world, d, config, device) -> dict:
+    """Phase 23 (1), (2): the two-level K-hop in ``bsr`` mode on the
+    ``(host, chip)`` grid for each (depth, payload) of
+    ``config["halo_cases"]``, against the single-device dense operator's
+    hops (rank 0) and the flat exchange of the same plan over every rank:
+    the two exchanges' recv buffers at every slot a halo entry reads (the
+    same bits), the K-hops (the halo blocks' ``index_add_`` sums in the
+    order of the card's atomics, so the flat K-hop run twice differs as
+    much); K1's launches in each two-level run; the flat and two-level
+    exchanges' ms a hop with their bytes; K1 on rank 0's tiles."""
+    from sgp_tpu_torch.parallel.halo import _hier_exchange
+    hosts = config["hosts"]
+    chips = world // hosts
+    both = ("host", "chip")
+    hier_mesh = make_hier_mesh(hosts, chips)
+    flat_mesh = make_mesh(1, world)
+    g = _graph(d)
+    x = torch.as_tensor(d["x"], device=device)
+    feat = x.shape[0] * x.shape[-1]
+    k = config["k"]
+    ref = None
+    if rank == 0:
+        ref = _hops(build_operator(g, "dense", device=device), x, k)
+    out = {"cases": [], "case_s": []}
+    plans = {}
+    for depth, payload in config["halo_cases"]:
+        t0 = time.perf_counter()
+        if depth not in plans:
+            plans[depth] = build_halo_spec(g, world, mode="bsr", depth=depth,
+                                           chips_per_host=chips)
+        spec = dataclasses.replace(plans[depth], payload_dtype=payload)
+        xs = shard_nodes(x, hier_mesh, both, spec=spec)
+        plan = spec.shard(hier_mesh.index[both], device)
+        _sync(device)
+        bsr_kernel.bsr_spmm.launches = 0
+        y = halo_khop(spec, xs, hier_mesh, k=k, axis=both, concat=True)
+        _sync(device)
+        launches = bsr_kernel.bsr_spmm.launches
+        flat, flat2 = (halo_khop(spec, xs, flat_mesh, k=k, axis="model",
+                                 concat=True) for _ in range(2))
+        i = hier_mesh.index[both]
+        used = torch.as_tensor(np.concatenate([
+            np.arange(j * spec.b_max, j * spec.b_max
+                      + spec.boundary_counts[i, j])
+            for j in range(world) if j != i]), device=device)
+        groups = (hier_mesh.group("host"), hier_mesh.group("chip"))
+        bufs = (_hier_exchange(xs, plan["hier"], *groups, payload),
+                _flat_exchange(xs, plan["send_idx"],
+                               flat_mesh.group("model"), payload))
+        _, _, _, c, h, b_intra, b_cross = spec.hier
+        row = {"depth": depth, "payload": payload, "launches": launches,
+               "exchange_bitwise": bool(torch.equal(
+                   *(b.index_select(-2, used) for b in bufs))),
+               "slots_read": int(used.numel()),
+               "flat_rel_diff": _rel(y, flat),
+               "flat_repeat_rel_diff": _rel(flat2, flat),
+               "b_max": spec.b_max, "b_intra": b_intra, "b_cross": b_cross,
+               "hosts": h, "chips": c,
+               "bytes_per_hop": spec.bytes_per_hop(feat),
+               "dcn_bytes_per_hop": spec.dcn_bytes_per_hop(feat),
+               "dense_gather_bytes": spec.dense_gather_bytes(feat),
+               "tiles": spec.bsr_tiles.tolist()}
+        whole = gather_nodes(y, hier_mesh, both, spec=spec)
+        if rank == 0:
+            row["max_abs_err"] = float((whole - ref).abs().max())
+            row["rel_err"] = _rel(whole, ref)
+        if depth == 1:
+            row["hier_exchange_ms"] = _ms(lambda: _hier_exchange(
+                xs, plan["hier"], *groups, payload), device,
+                config["iters"])
+            row["flat_exchange_ms"] = _ms(lambda: _flat_exchange(
+                xs, plan["send_idx"], flat_mesh.group("model"), payload),
+                device, config["iters"])
+            row["hier_khop_ms"] = _ms(lambda: halo_khop(
+                spec, xs, hier_mesh, k=k, axis=both), device,
+                config["iters"])
+            row["flat_khop_ms"] = _ms(lambda: halo_khop(
+                spec, xs, flat_mesh, k=k, axis="model"), device,
+                config["iters"])
+        out["case_s"].append(round(time.perf_counter() - t0, 2))
+        if depth == 1 and payload == "float32":
+            t0 = time.perf_counter()
+            dist.barrier()
+            if rank == 0:       # alone on the card while the others wait
+                x2 = xs.movedim(-2, 0)
+                out["k1"] = _k1_row(spec, plan, x2.reshape(x2.shape[0], -1),
+                                    device, config["iters"])
+            dist.barrier()
+            out["k1_s"] = round(time.perf_counter() - t0, 2)
+        out["cases"].append(row)
+    return out
+
+
+def multi_device_worker(rank, world, path, config):
+    """Phase 23's 4-rank world (gloo ranks sharing the card as ``(host,
+    chip)``): (1), (2) the two-level K-hop and its exchange
+    (:func:`_hier_cases`); (3) ``obs/scaling.py::propagation_scaling`` on
+    2 and 4 ranks; (4) the dry run (``exp/dryrun.py``). Returns the rank's
+    rows, walls and peak memory (MiB)."""
+    from sgp_tpu_torch.exp.dryrun import dryrun_rank
+    from sgp_tpu_torch.obs.scaling import propagation_scaling
+    device = torch.device(config["device"])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    d = dict(np.load(path))
+    out = {}
+    t0 = time.perf_counter()
+    out["halo"] = _hier_cases(rank, world, d, config, device)
+    out["halo_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["scaling"] = [propagation_scaling(
+        _graph(d), feat=config["scaling_feat"], k=config["k"], n_devices=n,
+        mode="bsr", device=device, iters=config["iters"])
+        for n in config["scaling_ranks"]]
+    out["scaling_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_rank(rank, world, device)
+    out["dryrun_s"] = time.perf_counter() - t0
     out["peak_mib"] = _peak_mib(device)
     return out

@@ -17,12 +17,12 @@ from sgp_tpu_torch.encode.spatial import prepare_propagation_graphs
 from sgp_tpu_torch.graph.sparse import Graph
 from sgp_tpu_torch.parallel import collectives
 from sgp_tpu_torch.parallel.halo import build_halo_spec, halo_khop, shard_nodes
-from sgp_tpu_torch.parallel.mesh import Mesh
+from sgp_tpu_torch.parallel.mesh import Axis, Mesh
 from sgp_tpu_torch.train.ridge import solve_ridge_normal
 
 
 def encode_series_sharded(reservoir, x_series, graph: Graph, mesh: Mesh,
-                          k: int = 2, axis: str = "data",
+                          k: int = 2, axis: Axis = "data",
                           undirected: bool = False,
                           add_loops: bool = False,
                           bidirectional: bool = False,
@@ -37,8 +37,9 @@ def encode_series_sharded(reservoir, x_series, graph: Graph, mesh: Mesh,
     zero, in the layout ``[h, Ah, ..., A^k h (, A'h, ..., A'^k h)(,
     mean(h))]``; :func:`~sgp_tpu_torch.parallel.halo.gather_nodes` with
     ``num_nodes=N`` assembles the whole. ``halo_payload``/``halo_depth``
-    as in :func:`~sgp_tpu_torch.parallel.halo.build_halo_spec`. Every rank
-    of the axis calls it together."""
+    as in :func:`~sgp_tpu_torch.parallel.halo.build_halo_spec`;
+    ``chips_per_host`` with ``axis=("host", "chip")`` runs the two-level
+    exchange. Every rank of the axis calls it together."""
     n_shards = mesh.size(axis)
     n_true = graph.num_nodes
     graphs = prepare_propagation_graphs(

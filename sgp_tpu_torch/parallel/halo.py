@@ -28,8 +28,17 @@ The off-diagonal (halo) entries are a dense ``[Nl, S*B]`` block in
 rank holds only its slab ``[..., Nl, F]``: :func:`shard_nodes` cuts it
 from the whole array (applying the plan's node permutation, where the
 whole array exists) and :func:`gather_nodes` assembles and un-permutes a
-node-sharded result. The two-level (host, chip) plan is not ported yet
-(ROADMAP A10, item 5).
+node-sharded result.
+
+The two-level plan (``build_halo_spec(chips_per_host=C)``, ``halo_khop(axis=
+("host", "chip"))`` on :func:`~sgp_tpu_torch.parallel.mesh.make_hier_mesh`'s
+grid) exchanges the rows a shard needs from a peer of its own host with an
+``all_to_all`` on the ``"chip"`` group, ships each remote host the union of
+the rows any of its ranks needs once (``all_to_all`` on the ``"host"``
+group), spreads those over the host (``all_gather`` on the ``"chip"``
+group) and reassembles the flat recv layout with one gather, so the halo
+blocks read it unchanged. The wire format stays compressed through both
+cross-host legs.
 """
 from __future__ import annotations
 
@@ -43,16 +52,10 @@ import torch
 from sgp_tpu_torch.graph.sparse import Graph, permute_nodes, rcm_order
 from sgp_tpu_torch.ops.bsr_kernel import bsr_spmm
 from sgp_tpu_torch.parallel import collectives
-from sgp_tpu_torch.parallel.mesh import Mesh
+from sgp_tpu_torch.parallel.mesh import Axis, Mesh
 
 _BLOCK = 128
 _PAYLOADS = {"float32": 4, "bfloat16": 2, "int8": 1}
-
-
-def _hier_unported():
-    return NotImplementedError(
-        "the two-level (host, chip) halo exchange is not ported yet "
-        "(ROADMAP A10, item 5)")
 
 
 @dataclasses.dataclass
@@ -77,6 +80,9 @@ class HaloSpec:
       exchanged once every ``d`` hops and advanced in between by the COO
       block ``ext = (esrc, edst, ew)`` over ``[local (Nl) | buffer
       (S*B)]``.
+    - ``hier``: the two-level plan, ``(send_intra [S, C, Bi], send_cross
+      [S, H, Bc], assemble [S, S*B], C, H, b_intra, b_cross)`` (see
+      :func:`_build_hier`), or None.
     """
     mode: str
     local: Tuple[np.ndarray, ...]
@@ -93,6 +99,7 @@ class HaloSpec:
     ext: tuple = ()
     b_max_hop1: int = None
     bsr_tiles: Optional[np.ndarray] = None
+    hier: Optional[tuple] = None
     _shards: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     def payload_itemsize(self) -> float:
@@ -127,7 +134,15 @@ class HaloSpec:
         return int(np.count_nonzero(self.ext[2], axis=1).max())
 
     def dcn_bytes_per_hop(self, feat: int) -> int:
-        raise _hier_unported()
+        """Bytes a shard sends across hosts a hop under the two-level plan
+        (0 without one): each boundary row once for each host that needs
+        it, padded to ``b_cross``, amortized over the plan's ``depth``."""
+        if self.hier is None:
+            return 0
+        *_, h, _, bc = self.hier
+        per_row = feat * self.payload_itemsize() + (
+            4 if self.payload_dtype == "int8" else 0)
+        return int((h - 1) * bc * per_row / max(1, self.depth))
 
     def shard(self, index: int, device) -> dict:
         """Shard ``index``'s slice of the plan as tensors on ``device``
@@ -159,7 +174,9 @@ class HaloSpec:
         out = {"local": local,
                "halo": tuple(put(a[index]) for a in self.halo),
                "send_idx": put(self.send_idx[index]),
-               "ext": tuple(put(a[index]) for a in self.ext)}
+               "ext": tuple(put(a[index]) for a in self.ext),
+               "hier": () if self.hier is None else tuple(
+                   put(a[index]) for a in self.hier[:3])}
         self._shards[key] = out
         return out
 
@@ -188,11 +205,10 @@ def build_halo_spec(g: Graph, n_shards: int, mode: str = "auto",
     rounds ``Nl`` up to a multiple of 128). ``payload_dtype`` is the wire
     format of the exchanged rows (``float32``, ``bfloat16`` or ``int8``
     with f32 per-row absmax scales). ``depth=d`` exchanges the d-hop
-    boundary once every d hops. The plan's arrays stay on the host (f32
-    weights); :meth:`HaloSpec.shard` moves a shard's to its device.
-    ``chips_per_host`` (the two-level plan) is not ported yet."""
-    if chips_per_host is not None:
-        raise _hier_unported()
+    boundary once every d hops. ``chips_per_host=C`` (``n_shards = H * C``)
+    adds the two-level plan (:func:`_build_hier`; one host, ``C ==
+    n_shards``, still builds it). The plan's arrays stay on the host (f32
+    weights); :meth:`HaloSpec.shard` moves a shard's to its device."""
     if payload_dtype not in _PAYLOADS:
         raise ValueError(f"unknown payload {payload_dtype!r}")
     n, s = g.num_nodes, n_shards
@@ -270,8 +286,65 @@ def build_halo_spec(g: Graph, n_shards: int, mode: str = "auto",
     local, halo, tiles = _pack_blocks(mode, row_blocks, halo_coo, s, nl, n,
                                       b_max)
     ext = _build_ext(csr, need, s, nl, b_max) if depth > 1 else ()
+    hier = None
+    if chips_per_host is not None and s >= chips_per_host:
+        if s % chips_per_host:
+            raise ValueError(
+                f"n_shards ({s}) must be a multiple of chips_per_host "
+                f"({chips_per_host}) for the two-level exchange")
+        hier = _build_hier(need, s, b_max, chips_per_host)
     return HaloSpec(mode, local, halo, send_idx, s, nl, n, b_max, counts,
-                    payload_dtype, perm, depth, ext, b_max_hop1, tiles)
+                    payload_dtype, perm, depth, ext, b_max_hop1, tiles,
+                    hier)
+
+
+def _build_hier(need, s, b_max, chips_per_host):
+    """The two-level plan from the per-pair boundary sets. On shard ``i``:
+    ``send_intra [C, Bi]`` the rows it sends each chip of its host,
+    ``send_cross [H, Bc]`` the union of the rows any shard of each host
+    needs from it; the recv buffer is ``[recv_intra (C*Bi) | allcross
+    (C*H*Bc)]`` (``allcross[c, h]`` what shard ``(h, c)`` shipped this
+    host) and ``assemble [S*B]`` maps every slot of the flat layout to its
+    row there. Padding slots map to row 0: no halo entry reads them."""
+    c_per = chips_per_host
+    h_num = s // c_per
+    b_intra = 1
+    union = {}         # (sending shard, needing host) -> sorted rows
+    for i in range(s):
+        hi = i // c_per
+        for j in range(s):
+            if j == i or need[i][j] is None:
+                continue
+            nz = need[i][j]
+            if j // c_per == hi:
+                b_intra = max(b_intra, len(nz))
+            else:
+                key = (j, hi)
+                union[key] = np.union1d(union[key], nz) \
+                    if key in union else np.asarray(nz)
+    b_cross = max([1] + [len(v) for v in union.values()])
+    send_intra = np.zeros((s, c_per, b_intra), np.int32)
+    send_cross = np.zeros((s, h_num, b_cross), np.int32)
+    assemble = np.zeros((s, s * b_max), np.int32)
+    for (j, h), u in union.items():
+        send_cross[j, h, :len(u)] = u
+    for i in range(s):
+        hi, ci = divmod(i, c_per)
+        for j in range(s):
+            if j == i or need[i][j] is None:
+                continue
+            nz = need[i][j]
+            hj, cj = divmod(j, c_per)
+            if hj == hi:
+                # shard j ships chip ci of its host these rows directly
+                send_intra[j, ci, :len(nz)] = nz
+                pos = cj * b_intra + np.arange(len(nz))
+            else:
+                pos = c_per * b_intra + (cj * h_num + hj) * b_cross \
+                    + np.searchsorted(union[(j, hi)], nz)
+            assemble[i, j * b_max:j * b_max + len(nz)] = pos
+    return (send_intra, send_cross, assemble, c_per, h_num, b_intra,
+            b_cross)
 
 
 def _build_ext(csr, need, s, nl, b_max):
@@ -426,29 +499,61 @@ def _apply_halo(mode: str, halo, x_halo, nl: int):
     return _coo_apply(hsrc, hdst, hw, x_halo, nl)
 
 
-def _exchange(send, group, payload: str):
-    """``all_to_all`` of ``send [S*B, ..., F]`` (peer ``j``'s rows in
-    section ``j``) in the wire format: bf16, or int8 rows quantized by
-    their absmax with an f32 scale a row. Returns the rows in ``send``'s
-    dtype."""
+def _to_wire(send, payload: str) -> tuple:
+    """``send`` in the wire format: bf16, or int8 rows quantized by their
+    absmax with an f32 scale a row, or as it is."""
     if payload == "bfloat16":
-        wire = collectives.all_to_all(send.to(torch.bfloat16), group)
-        return wire.to(send.dtype)
+        return (send.to(torch.bfloat16),)
     if payload == "int8":
         scale = send.abs().amax(-1, keepdim=True).clamp_min(1e-30)
-        q = torch.round(send / scale * 127.0).to(torch.int8)
-        if group is not None:
-            q = collectives.all_to_all(q, group)
-            scale = collectives.all_to_all(scale.float(), group)
-        return (q.float() * (scale / 127.0)).to(send.dtype)
-    return send if group is None else collectives.all_to_all(send, group)
+        return (torch.round(send / scale * 127.0).to(torch.int8),
+                scale.float())
+    return (send,)
+
+
+def _from_wire(wire, payload: str, dtype) -> torch.Tensor:
+    if payload == "int8":
+        q, scale = wire
+        return (q.float() * (scale / 127.0)).to(dtype)
+    return wire[0].to(dtype)
+
+
+def _exchange(send, group, payload: str):
+    """``all_to_all`` of ``send [S*B, ..., F]`` (peer ``j``'s rows in
+    section ``j``) in the wire format; returns the rows in ``send``'s
+    dtype."""
+    return _from_wire([collectives.all_to_all(w, group)
+                       for w in _to_wire(send, payload)], payload,
+                      send.dtype)
+
+
+def _rows(x_local, idx) -> torch.Tensor:
+    """The rows ``idx [P, B]`` of ``x_local [..., Nl, F]`` as ``[P*B, ...,
+    F]``, peer ``p``'s in section ``p``."""
+    return x_local.index_select(-2, idx.reshape(-1)).movedim(-2, 0) \
+        .contiguous()
 
 
 def _flat_exchange(x_local, send_idx, group, payload: str):
     """The recv buffer ``[..., S*B, F]``: the rows each peer needs,
     gathered by ``send_idx [S, B]`` and exchanged."""
-    send = x_local.index_select(-2, send_idx.reshape(-1)).movedim(-2, 0)
-    return _exchange(send.contiguous(), group, payload).movedim(0, -2)
+    return _exchange(_rows(x_local, send_idx), group, payload).movedim(0, -2)
+
+
+def _hier_exchange(x_local, hier, host_group, chip_group, payload: str):
+    """The two-level exchange's recv buffer ``[..., S*B, F]`` in the flat
+    layout: the intra-host rows by ``all_to_all`` on the chip group; each
+    remote host's union rows by ``all_to_all`` on the host group, spread
+    over the host by ``all_gather`` on the chip group, both legs in the
+    wire format (dequantized after the gather); then ``assemble``."""
+    send_intra, send_cross, assemble = hier
+    recv_i = _exchange(_rows(x_local, send_intra), chip_group, payload)
+    cross = _rows(x_local, send_cross)                    # [H*Bc, ..., F]
+    wire = [collectives.all_gather(collectives.all_to_all(w, host_group),
+                                   chip_group)
+            for w in _to_wire(cross, payload)]            # [C*H*Bc, ...]
+    buf = torch.cat([recv_i, _from_wire(wire, payload, cross.dtype)])
+    return buf.index_select(0, assemble).movedim(0, -2)
 
 
 def _update_halo(ext, x_local, x_halo):
@@ -461,14 +566,27 @@ def _update_halo(ext, x_local, x_halo):
 
 
 def halo_khop(spec: HaloSpec, x: torch.Tensor, mesh: Mesh, k: int = 1,
-              axis: str = "model", concat: bool = False) -> torch.Tensor:
+              axis: Axis = "model", concat: bool = False) -> torch.Tensor:
     """K-hop propagation of this rank's slab ``x [..., Nl, F]`` (in the
     plan's node order, as :func:`shard_nodes` cuts it) with boundary-only
     exchange on ``mesh``'s ``axis``. Returns the k-th hop of the slab, or
-    ``[x, Ax, ..., A^k x]`` along the features with ``concat``. Every rank
-    of the axis calls it together."""
-    if isinstance(axis, (tuple, list)):
-        raise _hier_unported()
+    ``[x, Ax, ..., A^k x]`` along the features with ``concat``. ``axis=
+    ("host", "chip")`` runs the two-level exchange on a
+    :func:`~sgp_tpu_torch.parallel.mesh.make_hier_mesh` grid (a plan built
+    with ``chips_per_host``). Every rank of the axis calls it together."""
+    hierarchical = isinstance(axis, (tuple, list))
+    if hierarchical:
+        axis = tuple(axis)
+        if spec.hier is None:
+            raise ValueError("axis=(host, chip) needs a plan built with "
+                             "chips_per_host (build_halo_spec(..., "
+                             "chips_per_host=C))")
+        host_ax, chip_ax = axis
+        c, h = spec.hier[3:5]
+        if (mesh.size(host_ax), mesh.size(chip_ax)) != (h, c):
+            raise ValueError(f"plan for {h} hosts x {c} chips, the mesh "
+                             f"has {mesh.size(host_ax)} x "
+                             f"{mesh.size(chip_ax)}")
     if mesh.size(axis) != spec.n_shards:
         raise ValueError(f"plan for {spec.n_shards} shards, axis {axis!r} "
                          f"has {mesh.size(axis)} ranks")
@@ -476,14 +594,21 @@ def halo_khop(spec: HaloSpec, x: torch.Tensor, mesh: Mesh, k: int = 1,
         raise ValueError(f"slab has {x.shape[-2]} rows, the plan "
                          f"{spec.nodes_per_shard} a shard")
     plan = spec.shard(mesh.index[axis], x.device)
-    group = mesh.group(axis)
+    payload = spec.payload_dtype
+
+    def exchange(rows):
+        if hierarchical:
+            return _hier_exchange(rows, plan["hier"], mesh.group(host_ax),
+                                  mesh.group(chip_ax), payload)
+        return _flat_exchange(rows, plan["send_idx"], mesh.group(axis),
+                              payload)
+
     depth = max(1, spec.depth)
     outs = [x]
     x_halo = None
     for t in range(k):
         if t % depth == 0:
-            x_halo = _flat_exchange(outs[-1], plan["send_idx"], group,
-                                    spec.payload_dtype)
+            x_halo = exchange(outs[-1])
         else:
             x_halo = _update_halo(plan["ext"], outs[-2], x_halo)
         out = _apply_local(spec.mode, plan["local"], outs[-1])
@@ -508,12 +633,13 @@ def _node_perm(spec: Optional[HaloSpec], n_rows: int) -> Optional[np.ndarray]:
                                                 dtype=spec.perm.dtype)])
 
 
-def shard_nodes(x: torch.Tensor, mesh: Mesh, axis: str = "data",
+def shard_nodes(x: torch.Tensor, mesh: Mesh, axis: Axis = "data",
                 node_axis: int = -2, spec: HaloSpec = None) -> torch.Tensor:
     """This rank's slab of ``x`` along ``node_axis``: the node dim padded
     with zeros to a multiple of the axis size (to ``S * Nl`` and in the
     plan's node order when ``spec`` is given), then the rank's contiguous
-    block. ``x`` is the whole array, the same on every rank."""
+    block. ``x`` is the whole array, the same on every rank. ``axis`` may
+    be the tuple ``("host", "chip")`` (the shard id ``host * C + chip``)."""
     s, i = mesh.size(axis), mesh.index[axis]
     nd = node_axis % x.ndim
     perm = _node_perm(spec, x.shape[nd])
@@ -530,7 +656,7 @@ def shard_nodes(x: torch.Tensor, mesh: Mesh, axis: str = "data",
     return torch.cat([part, part.new_zeros(pad)], dim=nd)
 
 
-def gather_nodes(x: torch.Tensor, mesh: Mesh, axis: str = "data",
+def gather_nodes(x: torch.Tensor, mesh: Mesh, axis: Axis = "data",
                  node_axis: int = -2, spec: HaloSpec = None,
                  num_nodes: int = None) -> torch.Tensor:
     """The inverse of :func:`shard_nodes`: every rank's slab of a

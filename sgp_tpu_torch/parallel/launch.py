@@ -71,7 +71,7 @@ def run_ranks(fn, world: int, backend: str, device, *args,
                 left = deadline - time.monotonic()
                 try:
                     rank, ok, value = results.get(timeout=max(0.1, min(
-                        left, 5.0)))
+                        left, 1.0)))
                 except queue.Empty:
                     dead = [r for r, p in enumerate(procs)
                             if not p.is_alive() and p.exitcode != 0

@@ -2,16 +2,18 @@
 
 Counterpart of ``sgp_tpu/parallel/mesh.py``. JAX holds one global array
 sharded over a device mesh; here every rank is one process that holds only
-its own shard, and a :class:`Mesh` is the rank grid ``(data, model)`` with
-one process group for each axis that spans more than one rank. NCCL is the
-backend on CUDA devices and gloo on the CPU; the caller names it, nothing
-picks it. A one-rank axis has no group and needs no collective, as in JAX.
+its own shard, and a :class:`Mesh` is a rank grid, ``(data, model)``
+(:func:`make_mesh`) or ``(host, chip)`` (:func:`make_hier_mesh`, the
+two-level halo exchange's), with one process group for each axis that
+spans more than one rank. NCCL is the backend on CUDA devices and gloo on
+the CPU; the caller names it, nothing picks it. A one-rank axis has no
+group and needs no collective, as in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -19,20 +21,35 @@ import torch.distributed as dist
 from sgp_tpu_torch.utils.device import resolve_device
 
 
+Axis = Union[str, Tuple[str, ...]]
+
+
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place on the ``(data, model)`` grid: ``shape`` the size
-    of each axis, ``index`` this rank's coordinate on it, ``groups`` the
-    process group of each axis over more than one rank (None otherwise)."""
-    shape: Dict[str, int]
-    index: Dict[str, int]
-    groups: Dict[str, Optional[dist.ProcessGroup]]
+    """This rank's place on a rank grid: ``shape`` the size of each axis,
+    ``index`` this rank's coordinate on it, ``groups`` the process group of
+    each axis over more than one rank (None otherwise). A two-level mesh
+    also keys the tuple axis ``("host", "chip")``: every rank, in shard
+    order (``shard = host * C + chip``), as JAX ravels a mesh axis
+    tuple."""
+    shape: Dict[Axis, int]
+    index: Dict[Axis, int]
+    groups: Dict[Axis, Optional[dist.ProcessGroup]]
 
-    def size(self, axis: str) -> int:
-        return self.shape[axis]
+    def size(self, axis: Axis) -> int:
+        return self.shape[_key(axis)]
 
-    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
-        return self.groups[axis]
+    def group(self, axis: Axis) -> Optional[dist.ProcessGroup]:
+        return self.groups[_key(axis)]
+
+    def world_group(self) -> Optional[dist.ProcessGroup]:
+        """Every rank of the mesh (None for one rank)."""
+        return dist.group.WORLD if dist.is_initialized() and \
+            dist.get_world_size() > 1 else None
+
+
+def _key(axis: Axis) -> Axis:
+    return tuple(axis) if isinstance(axis, list) else axis
 
 
 def init_distributed(backend: str, coordinator_address: str = None,
@@ -112,6 +129,38 @@ def make_mesh(data: int = 1, model: int = 1) -> Mesh:
             if i == index["data"]:
                 groups["model"] = g
     return Mesh({"data": data, "model": model}, index, groups)
+
+
+def make_hier_mesh(hosts: int, chips: int) -> Mesh:
+    """The ``(host, chip)`` grid of the two-level halo exchange (``hosts *
+    chips`` must equal the world size; rank ``r`` sits at ``(r // chips, r
+    % chips)``): the ``"chip"`` group holds the ranks of one host, the
+    ``"host"`` group the ranks that share a chip index, and the tuple axis
+    ``("host", "chip")`` every rank in shard order. Every rank builds every
+    group, in one order (the chip groups, then the host groups), as
+    ``dist.new_group`` requires."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if hosts * chips != world:
+        raise ValueError(f"mesh {hosts} hosts x {chips} chips needs "
+                         f"{hosts * chips} ranks, the world has {world}")
+    both = ("host", "chip")
+    index = {"host": rank // chips, "chip": rank % chips, both: rank}
+    groups = {"host": None, "chip": None,
+              both: dist.group.WORLD if world > 1 else None}
+    if chips > 1:
+        for h in range(hosts):
+            g = dist.group.WORLD if hosts == 1 else dist.new_group(
+                [h * chips + c for c in range(chips)])
+            if h == index["host"]:
+                groups["chip"] = g
+    if hosts > 1:
+        for c in range(chips):
+            g = dist.group.WORLD if chips == 1 else dist.new_group(
+                [h * chips + c for h in range(hosts)])
+            if c == index["chip"]:
+                groups["host"] = g
+    return Mesh({"host": hosts, "chip": chips, both: world}, index, groups)
 
 
 def local_mesh(model_axis: int = 1) -> Mesh:

@@ -29,16 +29,28 @@ see are clamped to N - 1 there (JAX clamps ``op.mat[ids]`` the same way;
 its ``take`` fills NaN). The JAX package derives each shard's draws with
 ``fold_in(rng, shard_id)``, which torch cannot repeat:
 :func:`rank_generator` seeds rank 0 with the seed itself, so at one rank
-every step draws what its single-device counterpart draws. The
-tensor-parallel placements (``shard_operator``, ``shard_params_tp``, ...)
-are not ported yet (ROADMAP A10, item 3).
+every step draws what its single-device counterpart draws.
+
+The placements of ``sgp_tpu/parallel/sharding.py``, where JAX lays arrays
+out on the mesh and XLA inserts the collectives, are explicit here:
+:func:`shard_operator` keeps a rank's row block of a dense operator and
+:func:`sharded_spmm` computes its rows of a hop (:func:`allgather_khop`
+all-gathers the activation between hops, the route the halo exchange
+replaces); :func:`shard_batch` slices a batch along its samples,
+:func:`replicate` broadcasts rank 0's tensors, :func:`sharded_ridge` sums
+the Gram and the moments over ``"data"``. :func:`shard_params_tp` swaps
+each large ``nn.Linear`` for a :class:`ColumnParallelLinear` holding this
+rank's slice of the output features, and :func:`make_dp_tp_step` trains
+such a model with data parallelism over ``"data"``.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from sgp_tpu_torch.data.scalers import ScalerParams
 from sgp_tpu_torch.parallel import collectives
@@ -50,9 +62,11 @@ from sgp_tpu_torch.train.fused_window import (make_fused_window_step,
 from sgp_tpu_torch.train.iid import (_build_iid_sample_and_loss, _host,
                                      assemble_stratified, stratified_sums,
                                      unpack_iid_rows)
-from sgp_tpu_torch.train.metrics import _METRIC_FNS, MaskedMetrics
+from sgp_tpu_torch.train.metrics import (_METRIC_FNS, MaskedMetrics,
+                                         _masked_reduce)
 from sgp_tpu_torch.train.predictor import (apply_gradients,
                                            clip_by_global_norm_)
+from sgp_tpu_torch.train.ridge import solve_ridge_normal
 
 # rank r > 0 seeds its generator with seed + r * this (odd, < 2^62)
 _RANK_STRIDE = 0x2545F4914F6CDD1D
@@ -300,6 +314,8 @@ def make_sharded_iid_stratified_step(model, optimizer, h_temporal, target,
     step.train_on = train_on
     step.sample = sample
     step.n_local = n_local
+    # this rank's own node stream (ranks past 0), for checkpoints
+    step.generators = () if own is None else (own,)
     return step
 
 
@@ -461,3 +477,256 @@ def make_sharded_iid_eval(model, encoded, target, mask, item_starts,
 
     eval_fn.metrics = metrics
     return eval_fn
+
+
+# -- placements (sgp_tpu/parallel/sharding.py:29-83, :676-696) --------------
+
+def shard_operator(op: DenseOperator, mesh: Mesh,
+                   axis: str = "model") -> DenseOperator:
+    """This rank's row block (its destination nodes) of the dense operator:
+    rows ``[i * Nl, (i + 1) * Nl)`` of ``op.mat`` padded with zero rows to
+    ``S * Nl``, as a ``DenseOperator`` of the same precision (``[Nl,
+    N]``)."""
+    s, i = mesh.size(axis), mesh.index[axis]
+    n = op.mat.shape[0]
+    nl = -(-n // s)
+    block = op.mat[min(i * nl, n):min((i + 1) * nl, n)]
+    if block.shape[0] < nl:
+        block = torch.cat([block, block.new_zeros(
+            (nl - block.shape[0],) + block.shape[1:])])
+    out = DenseOperator.__new__(DenseOperator)
+    out.mat, out.precision = block.contiguous(), op.precision
+    return out
+
+
+def sharded_spmm(op_s: DenseOperator, x: torch.Tensor, mesh: Mesh,
+                 axis: str = "model") -> torch.Tensor:
+    """One hop: this rank's rows ``[..., Nl, F]`` of ``op @ x`` from its
+    row block (:func:`shard_operator`) and the whole ``x [..., N, F]``."""
+    return op_s @ x
+
+
+def allgather_khop(op_s: DenseOperator, x: torch.Tensor, mesh: Mesh,
+                   k: int = 1, axis: str = "model") -> torch.Tensor:
+    """k >= 1 hops of :func:`sharded_spmm` with an ``all_gather`` of the
+    whole activation between them (what XLA inserts between the JAX package's
+    ``sharded_spmm`` hops): this rank's rows of ``A^k x``. ``x [..., N,
+    F]`` is whole on every rank."""
+    n = x.shape[-2]
+    cur = x
+    for _ in range(k - 1):
+        rows = sharded_spmm(op_s, cur, mesh, axis)
+        cur = collectives.all_gather(rows.movedim(-2, 0), mesh.group(axis)
+                                     )[:n].movedim(0, -2)
+    return sharded_spmm(op_s, cur, mesh, axis)
+
+
+def shard_batch(batch: dict, mesh: Mesh, axis: str = "data") -> dict:
+    """This rank's slice of every batch tensor along its leading (sample)
+    dimension, which the axis size must divide; ``ScalerParams`` stay
+    whole."""
+    s, i = mesh.size(axis), mesh.index[axis]
+
+    def cut(v):
+        if isinstance(v, ScalerParams):
+            return v
+        v = torch.as_tensor(v)
+        if v.shape[0] % s:
+            raise ValueError(f"batch dimension {v.shape[0]} is not a "
+                             f"multiple of the {s} ranks of axis {axis!r}")
+        part = v.shape[0] // s
+        return v[i * part:(i + 1) * part]
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def replicate(tree: Any, mesh: Mesh) -> Any:
+    """``tree`` (tensors in dicts, lists and tuples) as rank 0 holds it, on
+    every rank of the mesh: each tensor copied and broadcast."""
+    group = mesh.world_group()
+    if isinstance(tree, dict):
+        return {k: replicate(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replicate(v, mesh) for v in tree)
+    return collectives.broadcast_(torch.as_tensor(tree).clone(), group)
+
+
+def sharded_ridge(x_shard, y_shard, alpha: float, mesh: Mesh,
+                  axis: str = "data") -> torch.Tensor:
+    """Ridge without intercept on the rows of every rank of ``axis``: this
+    rank's Gram ``x^T x`` and moment ``x^T y`` (of ``x_shard [n, D]``,
+    ``y_shard [n, C]``) summed over the axis in one ``all_reduce``, then
+    ``solve_ridge_normal`` on every rank; returns ``W [D, C]``."""
+    x = torch.as_tensor(x_shard, dtype=torch.float32)
+    y = torch.as_tensor(y_shard, dtype=torch.float32, device=x.device)
+    d, c = x.shape[-1], y.shape[-1]
+    flat = collectives.all_reduce_(
+        torch.cat([(x.T @ x).reshape(-1), (x.T @ y).reshape(-1)]),
+        mesh.group(axis))
+    return solve_ridge_normal(flat[:d * d].reshape(d, d),
+                              flat[d * d:].reshape(d, c), alpha)
+
+
+# -- tensor parallelism ------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the input's gradient over the model
+    axis (each rank's slice of the output reaches the input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return collectives.all_reduce_(grad.contiguous().clone(),
+                                       ctx.group), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Every rank's slice concatenated along the last dim in rank order;
+    the backward keeps this rank's slice of the upstream gradient (every
+    model rank computes the same loss on the same batch, so a sum would
+    scale it by the axis size)."""
+
+    @staticmethod
+    def forward(ctx, y, group, rank: int):
+        ctx.rank, ctx.part = rank, y.shape[-1]
+        whole = collectives.all_gather(y.movedim(-1, 0), group)
+        return whole.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.part
+        return grad[..., lo:lo + ctx.part].contiguous(), None, None
+
+
+class ColumnParallelLinear(nn.Module):
+    """An ``nn.Linear`` whose output features are split over a mesh axis:
+    this rank holds rows ``[r * O/m, (r + 1) * O/m)`` of the weight and
+    the bias, computes its slice of the output and all-gathers the whole
+    over the axis. The state dict keeps the linear's names."""
+
+    def __init__(self, linear: nn.Linear, mesh: Mesh, axis: str = "model"):
+        super().__init__()
+        m, r = mesh.size(axis), mesh.index[axis]
+        if linear.out_features % m:
+            raise ValueError(f"{linear.out_features} output features do not "
+                             f"split over {m} ranks")
+        part = linear.out_features // m
+        self.in_features, self.out_features = (linear.in_features,
+                                               linear.out_features)
+        self.group, self.rank = mesh.group(axis), r
+        self.weight = nn.Parameter(
+            linear.weight.detach()[r * part:(r + 1) * part].clone())
+        self.bias = None if linear.bias is None else nn.Parameter(
+            linear.bias.detach()[r * part:(r + 1) * part].clone())
+
+    def forward(self, x):
+        y = F.linear(_CopyToModel.apply(x, self.group), self.weight,
+                     self.bias)
+        return _GatherFromModel.apply(y, self.group, self.rank)
+
+
+def shard_params_tp(model: nn.Module, mesh: Mesh, axis: str = "model",
+                    min_size: int = 1024) -> nn.Module:
+    """Tensor parallelism over ``axis``, in place: every ``nn.Linear`` with
+    at least ``min_size`` weights whose output features the axis size
+    divides becomes a :class:`ColumnParallelLinear` (the kernels the JAX
+    package shards on their output axis; every other parameter stays
+    whole). Rank 0's parameters are first broadcast to every rank. Returns
+    the model."""
+    broadcast_module_(model, mesh.world_group())
+    m = mesh.size(axis)
+    for parent in list(model.modules()):
+        for name, child in list(parent.named_children()):
+            if (type(child) is nn.Linear
+                    and child.weight.numel() >= min_size
+                    and child.out_features % m == 0):
+                setattr(parent, name, ColumnParallelLinear(child, mesh,
+                                                           axis))
+    return model
+
+
+def flax_to_tp(params_np: dict, model: nn.Module, mesh: Mesh,
+               axis: str = "model", min_size: int = 1024) -> nn.Module:
+    """The flax tree ``params_np`` carried into ``model``
+    (``models/bridge.py::flax_to_torch``), then :func:`shard_params_tp`."""
+    from sgp_tpu_torch.models.bridge import flax_to_torch
+    return shard_params_tp(flax_to_torch(params_np, model), mesh, axis,
+                           min_size)
+
+
+def _tp_split(model: nn.Module):
+    """``(sharded, replicated)`` trainable parameters of ``model``."""
+    sharded = {id(p) for m in model.modules()
+               if isinstance(m, ColumnParallelLinear)
+               for p in m.parameters()}
+    params = [p for p in model.parameters() if p.requires_grad]
+    return ([p for p in params if id(p) in sharded],
+            [p for p in params if id(p) not in sharded])
+
+
+def tp_clip_by_global_norm_(model: nn.Module, mesh: Mesh, max_norm: float,
+                            axis: str = "model") -> torch.Tensor:
+    """``clip_by_global_norm`` of the whole model's gradients: the squared
+    norm of the sharded slices summed over ``axis``, the replicated
+    parameters counted once. Returns the norm."""
+    sharded, repl = _tp_split(model)
+    dev = next(model.parameters()).device
+    sq = torch.stack([sum(((p.grad.float() ** 2).sum() for p in part),
+                          torch.zeros((), device=dev))
+                      for part in (sharded, repl)])
+    sq_sharded = collectives.all_reduce_(sq[:1].clone(), mesh.group(axis))
+    norm = torch.sqrt(sq_sharded[0] + sq[1])
+    keep = norm < max_norm
+    with torch.no_grad():
+        for p in sharded + repl:
+            p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * max_norm))
+    return norm
+
+
+def make_dp_tp_step(model: nn.Module, optimizer, mesh: Mesh,
+                    grad_clip: Optional[float] = None, loss: str = "mae",
+                    data_axis: str = "data",
+                    model_axis: str = "model") -> Callable:
+    """Build ``step(batch) -> loss over every rank's samples`` for a model
+    under :func:`shard_params_tp`, ``batch`` this rank's
+    :func:`shard_batch` slice (``x``, ``y``, ``mask``): the masked loss's
+    sum and count summed over ``data_axis``, the gradients summed over it
+    in one ``all_reduce``, the clip by the whole model's norm
+    (:func:`tp_clip_by_global_norm_`), then the optimizer."""
+    group = mesh.group(data_axis)
+    params = [p for p in model.parameters() if p.requires_grad]
+    fn = _METRIC_FNS[loss]
+
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        y_hat = model(batch["x"])
+        part, loss_val = _summed_loss(
+            *_masked_reduce(fn, y_hat, batch["y"], batch.get("mask")),
+            group)
+        part.backward()
+        all_reduce_grads_(params, group)
+        if grad_clip is not None:
+            tp_clip_by_global_norm_(model, mesh, grad_clip, model_axis)
+        optimizer.step()
+        return loss_val
+    return step
+
+
+def gather_params_tp(model: nn.Module, mesh: Mesh, axis: str = "model",
+                     grads: bool = False) -> dict:
+    """The whole model's state dict (the unsharded names and shapes), or
+    with ``grads`` its parameters' gradients: each
+    :class:`ColumnParallelLinear`'s slices all-gathered over ``axis``."""
+    whole = {}
+    tensors = ({n: p.grad for n, p in model.named_parameters()} if grads
+               else model.state_dict())
+    for name, t in tensors.items():
+        owner = model.get_submodule(name.rsplit(".", 1)[0]) \
+            if "." in name else model
+        if isinstance(owner, ColumnParallelLinear):
+            t = collectives.all_gather(t, mesh.group(axis))
+        whole[name] = t
+    return whole

@@ -17,7 +17,8 @@ import torch
 from sgp_tpu_torch.graph.sparse import Graph
 from sgp_tpu_torch.parallel.halo import (build_halo_spec, gather_nodes,
                                          halo_khop, shard_nodes)
-from sgp_tpu_torch.parallel.mesh import make_mesh, rank_device
+from sgp_tpu_torch.parallel.mesh import (make_hier_mesh, make_mesh,
+                                         rank_device)
 
 
 def _inputs(path) -> dict:
@@ -59,20 +60,53 @@ def halo_worker(rank, world, path, config):
     return outs if rank == 0 else None
 
 
+def hier_worker(rank, world, path, config):
+    """``halo_khop`` on the ``(host, chip)`` grid of ``config["hosts"]``
+    hosts (``world / hosts`` chips each) for each of ``config["cases"]``
+    (``build_halo_spec``'s keywords, ``chips_per_host`` set from the grid,
+    and ``k``, ``concat``, ``path``), then the same plan's flat exchange
+    over every rank: rank 0 returns, for each case, both whole results in
+    natural order."""
+    dev = _device(config)
+    hosts = config["hosts"]
+    meshes = ((make_hier_mesh(hosts, world // hosts), ("host", "chip")),
+              (make_mesh(1, world), "model"))
+    outs = []
+    for case in config["cases"]:
+        case = dict(case)
+        d = _inputs(case.pop("path", path))
+        k, concat = case.pop("k", 1), case.pop("concat", False)
+        spec = build_halo_spec(_graph(d), world,
+                               chips_per_host=world // hosts, **case)
+        x = torch.as_tensor(d["x"], device=dev)
+        got = []
+        for mesh, axis in meshes:
+            y = halo_khop(spec, shard_nodes(x, mesh, axis, spec=spec), mesh,
+                          k=k, axis=axis, concat=concat)
+            got.append(gather_nodes(y, mesh, axis, spec=spec).cpu().numpy())
+        outs.append(got)
+    return outs if rank == 0 else None
+
+
 def encode_worker(rank, world, path, config):
     """``encode_series_sharded`` of ``x_series`` over the graph with a
-    ``Reservoir(**config["reservoir"])``; rank 0 returns the whole
-    encoding ``[T, N, D]``."""
+    ``Reservoir(**config["reservoir"])`` (on the ``(host, chip)`` grid of
+    ``config["hosts"]`` hosts with ``chips_per_host`` when given); rank 0
+    returns the whole encoding ``[T, N, D]``."""
     from sgp_tpu_torch.encode import Reservoir
     from sgp_tpu_torch.parallel.encode import encode_series_sharded
     d = _inputs(path)
     dev = _device(config)
-    mesh = _axis_mesh(world, "data")
+    axis, mesh, kw = "data", _axis_mesh(world, "data"), {}
+    if "hosts" in config:
+        axis = ("host", "chip")
+        mesh = make_hier_mesh(config["hosts"], world // config["hosts"])
+        kw = {"chips_per_host": world // config["hosts"]}
     res = Reservoir(**config["reservoir"], device=dev)
     out = encode_series_sharded(res, torch.as_tensor(d["x_series"]),
-                                _graph(d), mesh, axis="data",
-                                **config.get("encode", {}))
-    whole = gather_nodes(out, mesh, "data", node_axis=1,
+                                _graph(d), mesh, axis=axis,
+                                **config.get("encode", {}), **kw)
+    whole = gather_nodes(out, mesh, axis, node_axis=1,
                          num_nodes=int(d["num_nodes"]))
     return whole.cpu().numpy() if rank == 0 else None
 
@@ -363,6 +397,90 @@ def predictor_worker(rank, world, path, config):
     return outs
 
 
+def scaling_worker(rank, world, path, config):
+    """``obs/scaling.py::propagation_scaling`` of the file's graph at
+    ``config``'s ``feat``, ``k``, ``mode`` and ``iters``, over each of
+    ``config["n_devices"]``; every rank returns its dicts."""
+    from sgp_tpu_torch.obs.scaling import propagation_scaling
+    g = _graph(_inputs(path))
+    return [propagation_scaling(g, feat=config["feat"], k=config["k"],
+                                n_devices=n, mode=config.get("mode",
+                                                             "dense"),
+                                device=_device(config),
+                                iters=config.get("iters", 2))
+            for n in config["n_devices"]]
+
+
+def placement_worker(rank, world, path, config):
+    """``parallel/sharding.py``'s placements on the ``(data, model)`` grid
+    ``config["shape"]``: the all-gather K-hop of the file's graph on ``x``
+    (``shard_operator``, ``sharded_spmm``; ``k`` hops over ``model``,
+    whole from ``gather_nodes``), this rank's ``shard_batch`` slice of
+    ``batch``, ``replicate`` of a tensor that differs by rank, and
+    ``sharded_ridge`` of ``x_r``/``y_r`` cut over ``data``."""
+    from sgp_tpu_torch.ops.spmm import build_operator
+    from sgp_tpu_torch.parallel.sharding import (allgather_khop, replicate,
+                                                 shard_batch,
+                                                 shard_operator,
+                                                 sharded_ridge)
+    d = _inputs(path)
+    dev = _device(config)
+    mesh = make_mesh(*config["shape"])
+    op_s = shard_operator(build_operator(_graph(d), "dense", device=dev),
+                          mesh, "model")
+    rows = allgather_khop(op_s, torch.as_tensor(d["x"], device=dev), mesh,
+                          k=config["k"], axis="model")
+    hops = gather_nodes(rows, mesh, "model",
+                        num_nodes=int(d["num_nodes"])).cpu().numpy()
+    part = shard_batch({"b": torch.as_tensor(d["batch"], device=dev)},
+                       mesh, "data")["b"].cpu().numpy()
+    rep = replicate({"t": [torch.full((3,), float(rank), device=dev)]},
+                    mesh)["t"][0].cpu().numpy()
+    rid = sharded_ridge(*shard_batch(
+        {"x": torch.as_tensor(d["x_r"], device=dev),
+         "y": torch.as_tensor(d["y_r"], device=dev)}, mesh, "data").values(),
+        config["alpha"], mesh).cpu().numpy()
+    return {"hops": hops, "batch": part, "replicate": rep, "ridge": rid,
+            "op_rows": op_s.mat.shape[0]}
+
+
+def tp_worker(rank, world, path, config):
+    """One step of :func:`~sgp_tpu_torch.parallel.sharding.
+    make_dp_tp_step` on the ``(world / m, m)`` grid (``m =
+    config["model_axis"]``): ``SGPModel(**config["model"])`` with the
+    pickled flax tree ``config["params"]`` carried in and its large
+    linears split over ``model`` (``flax_to_tp``), Adam at ``config["lr"]``
+    with the clip at ``config["clip"]``, on this rank's ``shard_batch``
+    slice of the file's ``x``, ``y``, ``mask``. Returns the loss, the whole
+    updated weights and the whole clipped gradients (``gather_params_tp``),
+    this rank's own weights and the names of the split layers."""
+    import pickle
+    from sgp_tpu_torch.models import SGPModel
+    from sgp_tpu_torch.parallel.sharding import (ColumnParallelLinear,
+                                                 flax_to_tp,
+                                                 gather_params_tp,
+                                                 make_dp_tp_step,
+                                                 shard_batch)
+    d = _inputs(path)
+    dev = _device(config)
+    m = config["model_axis"]
+    mesh = make_mesh(world // m, m)
+    with open(config["params"], "rb") as fp:
+        params = pickle.load(fp)
+    model = flax_to_tp(params, SGPModel(**config["model"]).to(dev), mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=config["lr"],
+                           betas=(0.9, 0.999), eps=1e-8)
+    step = make_dp_tp_step(model, opt, mesh, grad_clip=config["clip"])
+    batch = shard_batch({k: torch.as_tensor(d[k], device=dev)
+                         for k in ("x", "y", "mask")}, mesh)
+    loss = float(step(batch))
+    whole, grads = ({k: v.cpu().numpy() for k, v in gather_params_tp(
+        model, mesh, grads=g).items()} for g in (False, True))
+    split = sorted(name for name, mod in model.named_modules()
+                   if isinstance(mod, ColumnParallelLinear))
+    return loss, whole, grads, _weights(model), split
+
+
 def jobs_worker(rank, world, jobs):
     """Several of this module's rank functions in one world (one spawn):
     ``jobs`` a list of ``(function name, *arguments)``; returns their
@@ -392,14 +510,17 @@ def runner_worker(rank, world, argv, config=None):
     returns the results and the model's final weights (numpy, by name).
     ``config["skew_val_rank"]``: on that rank the fused validation MAE of
     ``run_traffic_sgp`` falls every epoch whatever the weights, and the
-    runner's "early stop" log lines are returned third."""
+    runner's "early stop" log lines are returned third. ``config["env"]``:
+    environment variables set in the rank first (``SGP_TPU_FAULT``)."""
     import importlib
     import logging
+    import os
     from sgp_tpu_torch.exp import run_largescale_sgp as rls
     from sgp_tpu_torch.exp.common import Experiment
     from sgp_tpu_torch.train.predictor import Predictor
     from sgp_tpu_torch.utils.config import config as global_config
     config = config or {}
+    os.environ.update(config.get("env", {}))
     if "logs_dir" in config:
         global_config["logs_dir"] = config["logs_dir"]
     name = config.get("runner", "largescale_sgp")

@@ -7,6 +7,13 @@ into ONE file with ``torch.save``, written to a temporary file and
 renamed, so a killed run resumes deterministically from the last complete
 checkpoint.
 
+Under a process group of several ranks (a node-sharded run) the weights
+and the optimizer's state are the same on every rank, but each rank draws
+from its own generators: :func:`gather_rank_states` collects every rank's
+states into the one file (``ranks``, with ``world_size``), which rank 0
+writes, and :func:`restore_run_state` gives each rank its own back; a
+resume under another world size raises.
+
 PyTorch updates parameters in place, so a checkpoint (and the best-so-far
 weights it holds) is a copy of the state taken at the moment of the save;
 :class:`AsyncCheckpointer` takes that copy on the caller's thread and
@@ -73,23 +80,66 @@ def _set_default_rng(states: dict, model):
         torch.cuda.set_rng_state(states["cuda"], device)
 
 
-def run_state(model, optimizer, generator: torch.Generator, epoch: int,
+def _generator_states(generator):
+    """A generator's state, or a list of them for a list of generators."""
+    if isinstance(generator, (list, tuple)):
+        return [g.get_state() for g in generator]
+    return generator.get_state()
+
+
+def _set_generator_states(states, generator):
+    if isinstance(generator, (list, tuple)):
+        if len(states) != len(generator):
+            raise ValueError(f"checkpoint holds {len(states)} generator "
+                             f"states, the run has {len(generator)}")
+        for g, st in zip(generator, states):
+            g.set_state(st)
+    else:
+        generator.set_state(states)
+
+
+def _rank_states(generator, model) -> dict:
+    """This rank's own states: its generator's (or generators') and torch's
+    default generators' (:func:`_default_rng`)."""
+    return _map_tensors(lambda t: t.detach().cpu().clone(), {
+        "rng": _generator_states(generator),
+        "default_rng": _default_rng(model)})
+
+
+def gather_rank_states(generator, model, group=None) -> list:
+    """Every rank's :func:`_rank_states` in rank order (an
+    ``all_gather_object`` over ``group``, the world by default); every
+    rank of the group calls it together."""
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    out = [None] * world
+    dist.all_gather_object(out, _rank_states(generator, model), group=group)
+    return out
+
+
+def run_state(model, optimizer, generator, epoch: int,
               best_loss: float, best_state: dict, elapsed_s: float = 0.0,
-              train_config: Optional[Dict] = None) -> dict:
+              train_config: Optional[Dict] = None,
+              ranks: Optional[list] = None) -> dict:
     """A copy of everything a restartable runner epoch needs: the current
-    weights, optimizer state and generator state, torch's default
-    generators (the host's and the model device's, which dropout draws
-    from), the best-so-far weights and the progress. ``train_config``
-    records the training hyperparameters, so that a resume under other
-    settings fails. The copy is one no later in-place update reaches."""
+    weights, optimizer state and generator state (``generator`` may be a
+    list of generators), torch's default generators (the host's and the
+    model device's, which dropout draws from), the best-so-far weights and
+    the progress. ``train_config`` records the training hyperparameters,
+    so that a resume under other settings fails. ``ranks``: every rank's
+    :func:`_rank_states` (:func:`gather_rank_states`), kept beside the world
+    size. The copy is one no later in-place update reaches."""
     return _map_tensors(lambda t: t.detach().clone(), {
         "model": model.state_dict(), "optimizer": optimizer.state_dict(),
-        "rng": generator.get_state(), "default_rng": _default_rng(model),
+        "rng": _generator_states(generator),
+        "default_rng": _default_rng(model),
         "epoch": int(epoch),
         "best_loss": float(best_loss), "best_state": best_state,
         "model_config": model_config(model),
         "train_config": dict(train_config or {}),
-        "elapsed_s": float(elapsed_s)})
+        "elapsed_s": float(elapsed_s),
+        "world_size": 1 if ranks is None else len(ranks),
+        "ranks": ranks})
 
 
 def write_state(path: str, state: dict):
@@ -179,13 +229,21 @@ class AsyncCheckpointer:
 
 
 def restore_run_state(path: str, model, optimizer, generator,
-                      train_config: Optional[Dict] = None):
+                      train_config: Optional[Dict] = None, rank: int = 0,
+                      world_size: int = 1):
     """Counterpart of :func:`save_run_state`: loads the weights, optimizer
     state, generator state and the default generators' states in place
     and returns ``(start_epoch, best_loss, best_state, elapsed_s)``,
     ``best_state`` on the model's device; raises on a model- or
-    train-config mismatch."""
+    train-config mismatch, or when the file was written by another number
+    of ranks than ``world_size``. Rank ``rank`` takes its own generator
+    states from a checkpoint of several ranks."""
     state = torch.load(path, map_location="cpu", weights_only=False)
+    stored_world = state.get("world_size", 1)
+    if stored_world != world_size:
+        raise ValueError(
+            f"checkpoint {path} was written by {stored_world} rank(s); "
+            f"this run has {world_size}: resume under the same world size")
     check_model_config(state["model_config"], model)
     stored_tc = state.get("train_config", {})
     if train_config:
@@ -198,8 +256,9 @@ def restore_run_state(path: str, model, optimizer, generator,
                 f"{mismatched}")
     model.load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])
-    generator.set_state(state["rng"])
-    _set_default_rng(state["default_rng"], model)
+    own = state if stored_world == 1 else state["ranks"][rank]
+    _set_generator_states(own["rng"], generator)
+    _set_default_rng(own["default_rng"], model)
     device = next(model.parameters()).device
     best_state = {k: v.to(device) for k, v in state["best_state"].items()}
     return (state["epoch"] + 1, state["best_loss"], best_state,

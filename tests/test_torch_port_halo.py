@@ -23,7 +23,8 @@ from sgp_tpu.parallel.halo import shard_nodes as j_shard
 
 from sgp_tpu_torch.graph import Graph, coalesce, normalize_adj
 from sgp_tpu_torch.ops.bsr_kernel import bsr_spmm_plain
-from sgp_tpu_torch.parallel import build_halo_spec, make_mesh, run_ranks
+from sgp_tpu_torch.parallel import (build_halo_spec, make_hier_mesh,
+                                    make_mesh, run_ranks)
 from sgp_tpu_torch.parallel.halo import halo_khop
 from sgp_tpu_torch.parallel.workers import halo_worker, mesh_worker
 
@@ -93,12 +94,13 @@ def test_build_halo_spec_auto_perm_and_payload(rng, payload):
     assert got.payload_itemsize() == want.payload_itemsize()
 
 
-def test_bsr_padding_tiles_and_unported_parts(rng):
+def test_bsr_padding_tiles_and_two_level_calls(rng):
     """The bsr pack pads each shard's tile list with zero tiles at block
     row 0 after the real ones (so its rows are not sorted): the plain K1
     over all tiles equals the plain K1 over the real ones, which is what a
     rank runs (``HaloSpec.shard``: sorted rows, row_ptr from them). The
-    two-level plan raises, naming A10."""
+    two-level plan builds (4 shards, 2 a host), and the two-level K-hop on
+    a one-rank (host, chip) grid gives the flat one's bits."""
     n = 700
     band = np.arange(n)
     # a band, and random edges among the first shard's nodes only
@@ -119,10 +121,15 @@ def test_bsr_padding_tiles_and_unported_parts(rng):
         assert ptr_r[-1] == spec.bsr_tiles[i] == len(cols_r)
         real = bsr_spmm_plain(blocks_r, cols_r, rows_r, n_br, x)
         torch.testing.assert_close(real, padded, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_halo_spec(g, 4, chips_per_host=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        halo_khop(spec, x, make_mesh(1, 1), axis=("host", "chip"))
+    hier = build_halo_spec(g, 4, mode="bsr", chips_per_host=2).hier
+    assert hier is not None and hier[3:5] == (2, 2)
+    one = build_halo_spec(g, 1, mode="bsr", chips_per_host=1)
+    x1 = torch.as_tensor(rng.standard_normal((one.nodes_per_shard, 5)),
+                         dtype=torch.float32)
+    two_level = halo_khop(one, x1, make_hier_mesh(1, 1), k=2,
+                          axis=("host", "chip"))
+    flat = halo_khop(one, x1, make_mesh(1, 1), k=2)
+    torch.testing.assert_close(two_level, flat, rtol=0, atol=0)
 
 
 # (build kwargs, k, concat; the worlds at which JAX runs the case too) of

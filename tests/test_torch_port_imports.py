@@ -123,6 +123,12 @@ PARALLEL = (
     "sgp_tpu_torch.parallel.encode", "sgp_tpu_torch.parallel.sharding",
     "sgp_tpu_torch.parallel.launch", "sgp_tpu_torch.parallel.workers")
 
+# the rest of A10: the scaling model, the multi-rank dry run and the card's
+# rank checks
+MULTI_DEVICE = (
+    "sgp_tpu_torch.obs.scaling", "sgp_tpu_torch.exp.dryrun",
+    "sgp_tpu_torch.parallel.card_checks")
+
 RANKS = """
 from sgp_tpu_torch.parallel import run_ranks
 from sgp_tpu_torch.parallel.workers import imported_modules
@@ -154,6 +160,7 @@ def test_port_never_imports_jax():
     assert set(DATASETS) <= set(words[2:])
     assert set(TOOLING) <= set(words[2:])
     assert set(PARALLEL) <= set(words[2:])
+    assert set(MULTI_DEVICE) <= set(words[2:])
 
 
 def test_spawned_ranks_import_no_jax():
